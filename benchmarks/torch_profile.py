@@ -1,0 +1,161 @@
+"""Where the time goes in the PyTorch port's NSF training step, on one GPU.
+
+    python benchmarks/torch_profile.py [--out FILE]
+
+Prints one JSON object (and writes it to ``--out`` if given):
+
+* ``train``: for the demo (d=2, [32,32]x10, batch 64) and wide (d=64,
+  [128,128]x10, batch 4096) NSF configurations in float32: steps/s by host
+  clock (3 runs, taken before any profiler session, which slows later
+  launches), then a `torch.profiler` trace of a few steps: kernels per step,
+  device-busy time (union of kernel intervals), the device's idle share of
+  the wall time, and device time by category (rqs, gemm, optimizer, reduce,
+  elementwise) and by kernel.
+
+The times of K1/K2 against their plain versions are `chip_smoke.py`'s
+(phase 3). Needs a CUDA device; builds the kernels from
+``normalizingflows_torch/csrc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import normalizingflows_torch as nft  # noqa: E402
+
+B = 30.0
+# name, nsf kwargs, target dim, batch, Adam lr, profiled steps
+CELLS = (("demo", dict(q0=2, hdims=(32, 32)), 2, 64, 5e-4, 20),
+         ("wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10))
+
+
+def _kernel_events(prof):
+    """Device kernels only: GPU-side ranges of user annotations (such as
+    ``Optimizer.step#Adam.step``) also carry device_type CUDA."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.name]
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    if "rqs_" in name:
+        return "rqs"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "gemm"
+    if "multi_tensor" in low or "foreach" in low or "adam" in low:
+        return "optimizer"
+    if "reduce" in low:
+        return "reduce"
+    return "elementwise/other"
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the kernels' time intervals."""
+    busy, start, end = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if end is None or s > end:
+            if end is not None:
+                busy += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return busy + (end - start if end is not None else 0.0)
+
+
+def _breakdown(prof, steps: int, wall_s: float) -> dict:
+    ev = _kernel_events(prof)
+    cats: dict[str, list] = {}
+    names: dict[str, list] = {}
+    for e in ev:
+        for table, key in ((cats, _category(e.name)), (names, e.name[:90])):
+            row = table.setdefault(key, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us()
+    busy = _busy_us(ev)
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:8]
+    return {
+        "wall_ms_per_step": wall_s / steps * 1e3,
+        "kernels_per_step": len(ev) / steps,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "device_idle_share": 1.0 - busy / 1e6 / wall_s,
+        "ms_per_step_by_category": {
+            k: round(v[1] / steps / 1e3, 4) for k, v in cats.items()},
+        "kernels_per_step_by_category": {
+            k: v[0] / steps for k, v in cats.items()},
+        "top_kernels": [(k, v[0] / steps, round(v[1] / steps / 1e3, 4))
+                        for k, v in top],
+    }
+
+
+def _cell(name, cfg, dim, batch, lr, gen):
+    flow = nft.nsf(torch.Generator().manual_seed(0), K=10, B=B, nlayers=10,
+                   identity_init=True, device="cuda", **cfg)
+    target = nft.Banana(dim, 1.0, 100.0)
+    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=lr))
+
+    def run(state, steps):
+        return nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
+                              batch, max_iters=steps, check_every=100,
+                              resume_state=state, **kw).state
+
+    return run, run(None, 10)  # warm: cuBLAS handles, allocator
+
+
+def train_cells(gen) -> dict:
+    out = {}
+    runs = {}
+    for name, cfg, dim, batch, lr, steps in CELLS:
+        run, state = _cell(name, cfg, dim, batch, lr, gen)
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = run(state, 10 * steps)
+            torch.cuda.synchronize()
+            rates.append(10 * steps / (time.perf_counter() - t0))
+        runs[name] = (run, state, steps)
+        out[name] = {"steps_per_s_3_runs": rates,
+                     "steps_per_s_median": statistics.median(rates)}
+    for name, (run, state, steps) in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(state, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[name].update(_breakdown(prof, steps, wall))
+        out[name]["profiled_steps"] = steps
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="also write the JSON here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"device": torch.cuda.get_device_name(0),
+              "train": train_cells(gen)}
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        Path(args.out).write_text(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+"""Normalizing-flow variational inference in PyTorch, for NVIDIA Hopper.
+
+The PyTorch port of `normalizingflows.jl_tpu`, with the same public names.
+Its tree mirrors the JAX package's (`models/`, `ops/`, `utils/`,
+`objectives.py`, `train.py`), so each module's counterpart sits at the same
+relative path. The fused rational-quadratic-spline kernels of the neural
+spline flow are CUDA C++ in `csrc/`, built with nvcc at first use.
+
+This slice covers reverse-KL ELBO training of the neural spline flow:
+  train_flow, optimize                 -> .train
+  elbo, elbo_batch, elbo_from_samples  -> .objectives
+  create_flow                          -> .models.flows
+  nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
+  MLP, fnn                             -> .models.nets
+  Banana                               -> .models.targets
+"""
+
+import torch
+
+# Exact float32 matrix products on the card. The JAX package forces
+# Precision.HIGHEST for f32/f64 conditioners (`jl_tpu/models/nets.py`)
+# because log-dets feed exp(); TF32 keeps about three decimal digits.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .models.bijector import (  # noqa: E402
+    Bijector,
+    Chain,
+    Identity,
+    Inverse,
+    invert,
+)
+from .models.distributions import (  # noqa: E402
+    DiagNormal,
+    Distribution,
+    StandardNormal,
+    TransformedDistribution,
+)
+from .models.flows import create_flow  # noqa: E402
+from .models.nets import MLP, fnn  # noqa: E402
+from .models.spline import (  # noqa: E402
+    NeuralSplineCoupling,
+    NSF_layer,
+    SplinePairStack,
+    nsf,
+)
+from .models.targets import Banana  # noqa: E402
+from .objectives import (  # noqa: E402
+    elbo,
+    elbo_batch,
+    elbo_from_samples,
+    elbo_single_sample,
+    presample_base,
+)
+from .train import TrainResult, TrainState, optimize, train_flow  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    # bijectors
+    "Bijector", "Chain", "Identity", "Inverse", "invert",
+    # distributions
+    "DiagNormal", "Distribution", "StandardNormal",
+    "TransformedDistribution",
+    # flows
+    "create_flow", "MLP", "fnn",
+    "NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf",
+    # targets
+    "Banana",
+    # objectives
+    "elbo", "elbo_batch", "elbo_from_samples", "elbo_single_sample",
+    "presample_base",
+    # training
+    "TrainResult", "TrainState", "optimize", "train_flow",
+]

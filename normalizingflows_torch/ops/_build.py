@@ -1,0 +1,110 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, which is loaded with
+``ctypes``. The library's file name carries a hash of the sources and the
+flags, so a stale build is never loaded. Nothing is downloaded or prebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+__all__ = ["Build", "build", "library"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# No --use_fast_math: approximate exp/log/division would move log-dets.
+# --fmad=false: no a*b+c contraction, so the kernels round exactly as their
+# plain torch versions (one op per elementwise kernel) do; near the 1e-3
+# derivative floor the spline amplifies single roundings far past the f32
+# tolerances, and the comparison on the card would measure that instead.
+# -Xptxas -v reports registers and spills per kernel in the build log.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_double)
+# entry name -> argtypes (see the extern "C" block of csrc/rqs.cu)
+_FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _I32, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _P]
+ENTRIES = {
+    "rqs_fwd_f32": _FWD_ARGS,
+    "rqs_fwd_f64": _FWD_ARGS,
+    "rqs_bwd_fwddir_f32": _BWD_ARGS,
+    "rqs_bwd_fwddir_f64": _BWD_ARGS,
+}
+
+
+@dataclass(frozen=True)
+class Build:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str        # nvcc's output (ptxas register and spill report)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(nvcc).exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+            "CUDA kernels are built from csrc/ at first use")
+    return nvcc
+
+
+def build() -> Build:
+    """Compile ``csrc/*.cu`` unless a library of these exact sources and
+    flags is already in ``build/torch_kernels/``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return Build(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu],
+        capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a reader never sees a partial library
+    return Build(out, seconds, proc.stdout + proc.stderr)
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call, with ``argtypes``
+    and ``restype`` set for every entry."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,349 @@
+"""Fused rational-quadratic-spline transform: CUDA kernels and plain tiles.
+
+Counterpart of `normalizingflows/jl_tpu/ops/rqs_pallas.py`. One call maps
+x and its element's 3K−1 raw conditioner outputs to the spline value and
+its log-derivative, so the (K+1)-knot tables never touch device memory:
+
+* K1 ``rqs_fwd`` (``csrc/rqs.cu``): the forward or inverse spline, the port
+  of the Pallas `_fwd_kernel` (`_tile_tables` + `_tile_transform`).
+* K2 ``rqs_bwd_fwddir``: the closed-form VJP of the forward direction, the
+  port of `_bwd_kernel` with `_tile_bwd_analytic`.
+
+Beside each kernel is its plain torch version (`tile_transform`,
+`tile_bwd_analytic`), a line-by-line transcription of the Pallas tile in
+the elem-major (N, 3K−1) layout. ``backend="auto"`` launches the kernels
+for CUDA tensors and runs the plain versions for CPU tensors; nothing falls
+back: on a CUDA tensor a build failure, a launch error, or a K or dtype the
+kernels do not take raises. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import rqs as _oracle
+
+__all__ = [
+    "rqs_fused", "tile_transform", "tile_bwd_analytic", "KERNEL_K",
+    "FWD_LAUNCHES", "BWD_LAUNCHES",
+]
+
+# K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
+KERNEL_K = (8, 10)
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+BACKENDS = ("auto", "plain", "cuda")
+
+# Kernel launches since import (or since a caller reset them to 0).
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain tiles: x (N,), raw (N, 3K−1) with any strides, tables (N, K).
+# ---------------------------------------------------------------------------
+
+def _rev_cumsum_cols(a):
+    """Exact right-to-left running sum over the K columns, the VJP of the
+    left-to-right one (Pallas `_rev_cumsum_rows`)."""
+    K = a.shape[1]
+    cols = [a[:, K - 1:K]]
+    for j in range(K - 2, -1, -1):
+        cols.append(cols[-1] + a[:, j:j + 1])
+    return torch.cat(cols[::-1], dim=1)
+
+
+def _tile_tables(raw, B, K, dtype):
+    """Knot tables from raw parameters (Pallas `_tile_tables`): per-bin
+    lo/hi views of the x-knots, y-knots and derivatives, plus what the
+    backward needs again (softmax probabilities, raw derivative slots)."""
+    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
+    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
+    mder = _oracle.DEFAULT_MIN_DERIVATIVE
+    # one layout for the elementwise math, so every stride of raw rounds alike
+    raw = raw.to(dtype).contiguous()
+    w_raw, h_raw, d_raw = raw[:, :K], raw[:, K:2 * K], raw[:, 2 * K:]
+
+    # softmax and running sums add left to right, in the kernel's order
+    p_w = _oracle.softmax(w_raw)
+    p_h = _oracle.softmax(h_raw)
+    xs_hi = -B + (2.0 * B) * _oracle._exact_cumsum(mbw + (1.0 - mbw * K) * p_w)
+    ys_hi = -B + (2.0 * B) * _oracle._exact_cumsum(mbh + (1.0 - mbh * K) * p_h)
+
+    def lo_hi(hi):
+        # knot k of bin k is hi[k−1] (−B for k=0); the last hi is pinned at B
+        lo = torch.cat([torch.full_like(hi[:, :1], -B), hi[:, :-1]], dim=1)
+        return lo, torch.cat([hi[:, :-1], torch.full_like(hi[:, :1], B)], 1)
+
+    xs_lo, xs_hi = lo_hi(xs_hi)
+    ys_lo, ys_hi = lo_hi(ys_hi)
+    interior = mder + _oracle.softplus(d_raw)
+    one = torch.ones_like(interior[:, :1])
+    d_lo = torch.cat([one, interior], dim=1)   # d at knot k
+    d_hi = torch.cat([interior, one], dim=1)   # d at knot k+1
+    return xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi, p_w, p_h, d_raw
+
+
+def _pick_bin(v, grid_lo, tables, K):
+    """Bin index by compare-and-count, then a one-hot pick of each table."""
+    k = ((v[:, None] >= grid_lo).sum(dim=1) - 1).clamp(0, K - 1)
+    onehot = (torch.arange(K, device=v.device) == k[:, None]).to(v.dtype)
+    return onehot, [(t * onehot).sum(dim=1) for t in tables]
+
+
+def tile_transform(x, raw, B: float, inverse: bool = False):
+    """Plain version of K1 (Pallas `_tile_transform`): x (N,), raw
+    (N, 3K−1) → (out, elementwise log|d out/d x|), each (N,)."""
+    K = (raw.shape[1] + 1) // 3
+    B = float(B)
+    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi, _, _, _) = _tile_tables(
+        raw, B, K, x.dtype)
+    inside = (x >= -B) & (x <= B)
+    v = x.clamp(-B, B)
+    _, (x_k, x_k1, y_k, y_k1, d_k, d_k1) = _pick_bin(
+        v, ys_lo if inverse else xs_lo,
+        (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi), K)
+
+    # roundoff guard: a degenerate bin never reaches log(0) or a 0-division
+    tiny = 1e-6 * 2.0 * B
+    w = torch.clamp_min(x_k1 - x_k, tiny)
+    h = torch.clamp_min(y_k1 - y_k, tiny)
+    s = h / w
+    dsum = d_k1 + d_k - 2.0 * s
+    if not inverse:
+        xi = (v - x_k) / w
+    else:
+        dy = v - y_k
+        a = h * (s - d_k) + dy * dsum
+        b = h * d_k - dy * dsum
+        c = -s * dy
+        disc = torch.clamp_min(b * b - 4.0 * a * c, 0.0)
+        xi = (2.0 * c / (-b - torch.sqrt(disc))).clamp(0.0, 1.0)
+
+    xi1m = 1.0 - xi
+    xi_prod = xi * xi1m
+    denom = s + dsum * xi_prod
+    deriv_num = (s * s) * (
+        d_k1 * xi * xi + 2.0 * s * xi_prod + d_k * xi1m * xi1m)
+    ld = torch.log(deriv_num) - 2.0 * torch.log(denom)
+    if not inverse:
+        out = y_k + h * (s * xi * xi + d_k * xi_prod) / denom
+    else:
+        out = x_k + xi * w
+        ld = -ld
+    out = torch.where(inside, out, x)
+    return out, torch.where(inside, ld, torch.zeros_like(ld))
+
+
+def tile_bwd_analytic(x, raw, gy, gld, B: float):
+    """Plain version of K2 (Pallas `_tile_bwd_analytic`): the closed-form
+    VJP of the forward tile. Returns gx (N,) and graw (N, 3K−1) in raw's
+    dtype. Reverse of Durkan et al. eqs. 4–8 through the softmax, cumsum
+    and softplus normalisation; outside the box gx = gy and graw = 0."""
+    K = (raw.shape[1] + 1) // 3
+    B = float(B)
+    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
+    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
+    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
+     p_w, p_h, d_raw) = _tile_tables(raw, B, K, x.dtype)
+    inside = (x >= -B) & (x <= B)
+    v = x.clamp(-B, B)
+    onehot, (x_k, x_k1, y_k, y_k1, d_k, d_k1) = _pick_bin(
+        v, xs_lo, (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi), K)
+
+    tiny = 1e-6 * 2.0 * B
+    w_span, h_span = x_k1 - x_k, y_k1 - y_k
+    w = torch.clamp_min(w_span, tiny)
+    h = torch.clamp_min(h_span, tiny)
+    w_gate = (w_span > tiny).to(x.dtype)  # gradient gates of the clamps
+    h_gate = (h_span > tiny).to(x.dtype)
+    s = h / w
+    dsum = d_k1 + d_k - 2.0 * s
+
+    xi = (v - x_k) / w
+    xi1m = 1.0 - xi
+    q = xi * xi1m
+    D = s + dsum * q
+    Ny = s * xi * xi + d_k * q
+    R = d_k1 * xi * xi + 2.0 * s * q + d_k * xi1m * xi1m
+    P = (s * s) * R
+
+    zero = torch.zeros_like(gy)
+    gy_in = torch.where(inside, gy, zero)
+    gld_in = torch.where(inside, gld, zero)
+
+    gD = gy_in * (-h * Ny / (D * D)) + gld_in * (-2.0 / D)
+    gP = gld_in / P
+    gNy = gy_in * h / D
+    g_xi = (gD * dsum * (1.0 - 2.0 * xi)
+            + gNy * (2.0 * s * xi + d_k * (1.0 - 2.0 * xi))
+            + gP * (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
+                              - 2.0 * d_k * xi1m))
+    g_s = (gD * (1.0 - 2.0 * q)
+           + gNy * xi * xi
+           + gP * (2.0 * s * R + 2.0 * (s * s) * q))
+    g_dk = gD * q + gNy * q + gP * (s * s) * xi1m * xi1m
+    g_dk1 = gD * q + gP * (s * s) * xi * xi
+
+    # s = h/w, ξ = (v − x_k)/w, then through the clamps to the endpoints
+    g_h = (gy_in * Ny / D + g_s / w) * h_gate
+    g_w = (-g_s * h / (w * w) - g_xi * xi / w) * w_gate
+    g_v = g_xi / w
+    g_xk = -g_w - g_xi / w
+    g_yk = gy_in - g_h
+
+    def table_to_raw(g_lo_k, g_hi_k, p, min_bin):
+        # hi row j and lo row j+1 both read cumsum output j; the pinned
+        # +B (hi) and −B (lo) rows carry no gradient
+        g_lo, g_hi = onehot * g_lo_k[:, None], onehot * g_hi_k[:, None]
+        g_c = (2.0 * B) * (g_hi[:, :-1] + g_lo[:, 1:])
+        g_c = torch.cat([g_c, torch.zeros_like(g_c[:, :1])], dim=1)
+        g_soft = (1.0 - min_bin * K) * _rev_cumsum_cols(g_c)
+        dot = _oracle._exact_sum(p * g_soft)  # softmax VJP: p ⊙ (g − Σ p·g)
+        return p * (g_soft - dot)
+
+    g_w_raw = table_to_raw(g_xk, g_w, p_w, mbw)
+    g_h_raw = table_to_raw(g_yk, g_h, p_h, mbh)
+    # d_lo = [1, interior], d_hi = [interior, 1]; softplus' VJP is sigmoid
+    g_interior = (onehot * g_dk[:, None])[:, 1:] + \
+        (onehot * g_dk1[:, None])[:, :-1]
+    g_d_raw = torch.sigmoid(d_raw) * g_interior
+    graw = torch.cat([g_w_raw, g_h_raw, g_d_raw], dim=1).to(raw.dtype)
+    return torch.where(inside, g_v, gy), graw
+
+
+def _plain_inverse_vjp(x, raw, gy, gld, B):
+    """VJP of the inverse direction by autograd through its plain tile."""
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_()
+        rd = raw.detach().requires_grad_()
+        out = tile_transform(xd, rd, B, inverse=True)
+        return torch.autograd.grad(out, (xd, rd), (gy, gld))
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _kernel_args(x, raw):
+    K = (raw.shape[1] + 1) // 3
+    if K not in KERNEL_K:
+        raise ValueError(f"the RQS kernels are built for K in {KERNEL_K}, "
+                         f"got K={K}")
+    if x.dtype not in _DTYPE_SUFFIX or raw.dtype != x.dtype:
+        raise TypeError("the RQS kernels take float32 or float64 x and raw "
+                        f"of one dtype, got {x.dtype} and {raw.dtype}")
+    if not (x.is_cuda and raw.device == x.device):
+        raise ValueError("the RQS kernels need x and raw on one CUDA device")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    return K, _DTYPE_SUFFIX[x.dtype]
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch_fwd(x, raw, B, inverse):
+    global FWD_LAUNCHES
+    from ._build import library
+
+    K, sfx = _kernel_args(x, raw)
+    y, ld = torch.empty_like(x), torch.empty_like(x)
+    if x.numel() == 0:
+        return y, ld
+    # the C entry launches on the current device: make it x's for the call
+    # and restore the caller's after
+    with torch.cuda.device(x.device):
+        err = getattr(library(), f"rqs_fwd_{sfx}")(
+            x.data_ptr(), raw.data_ptr(), y.data_ptr(), ld.data_ptr(),
+            x.numel(), raw.stride(0), raw.stride(1), K, B, int(inverse),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "rqs_fwd")
+    FWD_LAUNCHES += 1
+    return y, ld
+
+
+def _launch_bwd(x, raw, gy, gld, B):
+    global BWD_LAUNCHES
+    from ._build import library
+
+    K, sfx = _kernel_args(x, raw)
+    gy, gld = gy.contiguous(), gld.contiguous()
+    gx = torch.empty_like(x)
+    graw = torch.empty(raw.shape, dtype=raw.dtype, device=raw.device)
+    if x.numel() == 0:
+        return gx, graw
+    with torch.cuda.device(x.device):
+        err = getattr(library(), f"rqs_bwd_fwddir_{sfx}")(
+            x.data_ptr(), raw.data_ptr(), gy.data_ptr(), gld.data_ptr(),
+            gx.data_ptr(), graw.data_ptr(), x.numel(), raw.stride(0),
+            raw.stride(1), K, B, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "rqs_bwd_fwddir")
+    BWD_LAUNCHES += 1
+    return gx, graw
+
+
+class _RQSFused(torch.autograd.Function):
+    """x (N,) contiguous, raw (N, 3K−1) any strides → (out, ld). Saves
+    (x, raw) and recomputes the tables in the backward, as the Pallas
+    custom VJP does (`_rqs_fused_t_fwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, raw, B, inverse, use_kernel):
+        ctx.save_for_backward(x, raw)
+        ctx.B, ctx.inverse, ctx.use_kernel = B, inverse, use_kernel
+        if use_kernel:
+            return _launch_fwd(x, raw, B, inverse)
+        return tile_transform(x, raw, B, inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gld):
+        x, raw = ctx.saved_tensors
+        if ctx.inverse:
+            if ctx.use_kernel:
+                raise NotImplementedError(
+                    "the inverse direction's backward kernel (Pallas "
+                    "`_tile_bwd_analytic_inverse`) is not ported yet")
+            gx, graw = _plain_inverse_vjp(x, raw, gy, gld, ctx.B)
+        elif ctx.use_kernel:
+            gx, graw = _launch_bwd(x, raw, gy, gld, ctx.B)
+        else:
+            gx, graw = tile_bwd_analytic(x, raw, gy, gld, ctx.B)
+        need_x, need_raw = ctx.needs_input_grad[:2]
+        return (gx if need_x else None, graw if need_raw else None,
+                None, None, None)
+
+
+def _use_kernel(backend: str, x: torch.Tensor) -> bool:
+    if backend == "auto":
+        return x.is_cuda
+    if backend == "plain":
+        return False
+    if backend == "cuda":
+        if not x.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        return True
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def rqs_fused(x, raw, B: float, inverse: bool = False, backend: str = "auto"):
+    """Fused RQS transform of ``x`` (...,) by per-element raw parameters
+    ``raw`` (..., 3K−1), read through its strides (a param-major
+    ``raw_t`` (3K−1, N) goes in as the view ``raw_t.T``). Returns (out,
+    elementwise log|d out/d x|), both shaped like ``x``. ``raw`` in another
+    dtype than ``x`` is cast to x's (its gradient comes back in its own)."""
+    P = raw.shape[-1]
+    if (P + 1) % 3 or raw.shape[:-1] != x.shape:
+        raise ValueError(f"raw must be x.shape + (3K−1,), got "
+                         f"{tuple(raw.shape)} for x {tuple(x.shape)}")
+    use_kernel = _use_kernel(backend, x)
+    raw2 = raw.reshape(-1, P)  # a view for the conditioner's output
+    if raw2.dtype != x.dtype:
+        raw2 = raw2.to(x.dtype)
+    y, ld = _RQSFused.apply(x.reshape(-1).contiguous(), raw2, float(B),
+                            bool(inverse), use_kernel)
+    return y.reshape(x.shape), ld.reshape(x.shape)

@@ -1,0 +1,58 @@
+"""The port imports without JAX and names its public API as the JAX
+package does."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "normalizingflows_torch"
+
+
+def test_imports_with_jax_blocked():
+    """With ``sys.modules["jax"] = None`` any ``import jax`` fails; the
+    package and every module of it still import."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "sys.modules['jax'] = None\n"
+        "import normalizingflows_torch as nft\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'normalizingflows' not in sys.modules\n"
+        "print(len(nft.__all__))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 0
+
+
+def test_no_source_file_imports_jax():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), path
+            assert not stripped.startswith(
+                ("import normalizingflows.", "from normalizingflows.",
+                 "from normalizingflows import",
+                 "import normalizingflows ")), path
+
+
+def test_public_names_are_spelled_as_in_the_jax_package():
+    import normalizingflows as nf
+    import normalizingflows_torch as nft
+
+    missing = [n for n in nft.__all__ if not hasattr(nft, n)]
+    assert not missing
+    assert set(nft.__all__) <= set(nf.__all__)

@@ -1,0 +1,265 @@
+"""Port's fused-RQS module (`normalizingflows_torch/ops/rqs_cuda.py`) against
+the JAX package's Pallas kernel (interpret mode, as tests/test_rqs_kernel.py
+runs it), the JAX and torch oracles, and torch autograd.
+
+On the CPU the wrapper runs the kernels' plain versions; the CUDA kernels
+themselves are checked against them on the card by chip_smoke.py.
+
+Tolerances:
+* f32 against the Pallas kernel or an oracle: those of
+  tests/test_rqs_kernel.py (values rtol/atol 1e-5, log-dets rtol 1e-4 atol
+  1e-5; gradients rtol 2e-3 atol 1e-4) — same math, exp/log from different
+  libraries and reductions in different orders.
+* f64: rtol 1e-9, atol 1e-10 — the same differences at f64 precision
+  (about 1e-13 observed); any error in the math shows orders above it.
+* plain paths within the port that take the same operations: exact.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from normalizingflows.jl_tpu.ops import rqs as jax_oracle  # noqa: E402
+from normalizingflows.jl_tpu.ops import rqs_pallas  # noqa: E402
+from normalizingflows_torch.ops import _build  # noqa: E402
+from normalizingflows_torch.ops import rqs as oracle  # noqa: E402
+from normalizingflows_torch.ops import rqs_cuda  # noqa: E402
+
+torch.set_num_threads(1)
+
+B = 5.0
+N = 200  # not a multiple of any block size
+DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64,
+                                                     torch.float64)}
+TOL = {  # (value rtol, value atol, log-det rtol, grad rtol, grad atol)
+    "f32": dict(v=(1e-5, 1e-5), ld=(1e-4, 1e-5), g=(2e-3, 1e-4)),
+    "f64": dict(v=(1e-9, 1e-10), ld=(1e-9, 1e-10), g=(1e-9, 1e-10)),
+}
+
+
+def _inputs(dt, K, seed=0, n=N):
+    """x over [−1.5B, 1.5B] (inside and outside the box; a continuous draw
+    lands on ±B or a knot with probability 0) and raw ~ 0.5·N(0, 1), as
+    tests/test_rqs_kernel.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.5 * B, 1.5 * B, n).astype(DTYPES[dt][0])
+    raw = 0.5 * rng.normal(size=(n, 3 * K - 1)).astype(DTYPES[dt][0])
+    return x, raw
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol[0],
+                               atol=tol[1])
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_plain_tile_matches_pallas_kernel(dt, K, inverse):
+    x, raw = _inputs(dt, K, seed=K + inverse)
+    y_j, ld_j = jax.jit(lambda x, r: rqs_pallas.rqs_fused(
+        x, r, B, inverse=inverse, interpret=True))(jnp.asarray(x),
+                                                   jnp.asarray(raw))
+    y_t, ld_t = rqs_cuda.tile_transform(_t(x), _t(raw), B, inverse)
+    assert y_t.dtype == DTYPES[dt][1]
+    _close(y_t, y_j, TOL[dt]["v"])
+    _close(ld_t, ld_j, TOL[dt]["ld"])
+
+
+def _jax_grads(x, raw, inverse=False):
+    def loss(x, raw):
+        y, ld = rqs_pallas.rqs_fused(x, raw, B, inverse=inverse,
+                                     interpret=True)
+        return jnp.sum(jnp.sin(y)) + jnp.sum(ld * 0.5)
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x),
+                                                   jnp.asarray(raw))
+
+
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_plain_analytic_backward_matches_pallas_grad(dt, K):
+    """`tile_bwd_analytic` against `jax.grad` through the Pallas kernel,
+    whose VJP is `_tile_bwd_analytic` in interpret mode."""
+    x, raw = _inputs(dt, K, seed=3)
+    gx_j, graw_j = _jax_grads(x, raw)
+    xt, rt = _t(x), _t(raw)
+    y, _ = rqs_cuda.tile_transform(xt, rt, B)
+    gx, graw = rqs_cuda.tile_bwd_analytic(xt, rt, torch.cos(y),
+                                          torch.full_like(y, 0.5), B)
+    _close(gx, gx_j, TOL[dt]["g"])
+    _close(graw, graw_j, TOL[dt]["g"])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_plain_tile_matches_oracles(dt, K, inverse):
+    """The tile against the port's `ops/rqs.py` oracle, and that oracle
+    against the JAX package's."""
+    x, raw = _inputs(dt, K, seed=5 + K + inverse)
+    xt, rt = _t(x), _t(raw)
+    fn = oracle.rqs_inverse if inverse else oracle.rqs_forward
+    y_o, ld_o = fn(xt, *oracle.rqs_params_from_raw(rt, B))
+    y_t, ld_t = rqs_cuda.tile_transform(xt, rt, B, inverse)
+    _close(y_t, y_o, TOL[dt]["v"])
+    _close(ld_t, ld_o, TOL[dt]["ld"])
+
+    jfn = jax_oracle.rqs_inverse if inverse else jax_oracle.rqs_forward
+    y_j, ld_j = jax.jit(lambda x, r: jfn(
+        x, *jax_oracle.rqs_params_from_raw(r, B)))(jnp.asarray(x),
+                                                   jnp.asarray(raw))
+    _close(y_o, y_j, TOL[dt]["v"])
+    _close(ld_o, ld_j, TOL[dt]["ld"])
+
+
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_analytic_backward_matches_autograd(dt, K):
+    """The closed-form VJP against torch autograd through the port's own
+    plain forward tile."""
+    x, raw = _inputs(dt, K, seed=11)
+    xt = _t(x).requires_grad_()
+    rt = _t(raw).requires_grad_()
+    y, ld = rqs_cuda.tile_transform(xt, rt, B)
+    gy, gld = torch.cos(y.detach()), torch.full_like(ld, 0.5)
+    gx_a, graw_a = torch.autograd.grad((y, ld), (xt, rt), (gy, gld))
+    gx, graw = rqs_cuda.tile_bwd_analytic(xt.detach(), rt.detach(), gy, gld,
+                                          B)
+    _close(gx, gx_a, TOL[dt]["g"])
+    _close(graw, graw_a, TOL[dt]["g"])
+
+
+def _loss_grads(x, raw, fn, use_y=True, use_ld=True):
+    x = x.detach().requires_grad_()
+    raw = raw.detach().requires_grad_()
+    y, ld = fn(x, raw)
+    loss = (torch.sin(y).sum() if use_y else 0.0) + (
+        (0.5 * ld).sum() if use_ld else 0.0)
+    return torch.autograd.grad(loss, (x, raw))
+
+
+@pytest.mark.parametrize("used", ["y", "ld", "both"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rqs_fused_gradients_match_oracle(inverse, used):
+    """`rqs_fused` (autograd.Function, plain backend) against autograd of
+    the oracle, with zero cotangents when only y or only ld is used."""
+    x, raw = _inputs("f64", 10, seed=13)
+    xt, rt = _t(x), _t(raw)
+    fn = oracle.rqs_inverse if inverse else oracle.rqs_forward
+    kw = dict(use_y=used != "ld", use_ld=used != "y")
+    g_o = _loss_grads(xt, rt,
+                      lambda x, r: fn(x, *oracle.rqs_params_from_raw(r, B)),
+                      **kw)
+    g_f = _loss_grads(xt, rt, lambda x, r: rqs_cuda.rqs_fused(
+        x, r, B, inverse=inverse, backend="plain"), **kw)
+    for a, b in zip(g_f, g_o):
+        _close(a, b, TOL["f64"]["g"])
+
+
+def test_outside_box_passes_gradient_through():
+    """Outside [−B, B]: y = x, ld = 0, so gx = gy and graw = 0."""
+    x, raw = _inputs("f64", 10, seed=17)
+    x = np.where(np.abs(x) > B, x, x + np.sign(x) * 2 * B)
+    xt, rt = _t(x), _t(raw)
+    y, ld = rqs_cuda.tile_transform(xt, rt, B)
+    assert torch.equal(y, xt) and torch.count_nonzero(ld) == 0
+    gy, gld = torch.randn_like(xt), torch.randn_like(xt)
+    gx, graw = rqs_cuda.tile_bwd_analytic(xt, rt, gy, gld, B)
+    assert torch.equal(gx, gy) and torch.count_nonzero(graw) == 0
+
+
+def test_strided_read_elem_and_param_major_agree():
+    """raw read elem-major (N, 3K−1), param-major (a (3K−1, N) tensor
+    passed as its transposed view), and as the strided (batch·n_t, 3K−1)
+    view of a conditioner output give identical values and gradients."""
+    K, n_t, batch = 10, 4, 50
+    P = 3 * K - 1
+    x, raw = _inputs("f64", K, seed=19, n=batch * n_t)
+    xt, rt = _t(x), _t(raw)
+    g_e = _loss_grads(xt, rt, lambda x, r: rqs_cuda.rqs_fused(x, r, B))
+    raw_t = rt.T.contiguous()
+    g_t = _loss_grads(xt, raw_t,
+                      lambda x, r: rqs_cuda.rqs_fused(x, r.T, B))
+    wide = rt.reshape(batch, n_t * P)  # the conditioner's output layout
+    g_v = _loss_grads(xt.reshape(batch, n_t), wide,
+                      lambda x, r: rqs_cuda.rqs_fused(
+                          x, r.reshape(batch, n_t, P), B))
+    y_e = rqs_cuda.rqs_fused(xt, rt, B)
+    y_t = rqs_cuda.rqs_fused(xt, raw_t.T, B)
+    for a, b in zip(y_e, y_t):
+        assert torch.equal(a, b)
+    assert torch.equal(g_e[0], g_t[0]) and torch.equal(g_e[1], g_t[1].T)
+    assert torch.equal(g_e[0], g_v[0].reshape(-1))
+    assert torch.equal(g_e[1], g_v[1].reshape(-1, P))
+
+
+def test_raw_in_another_dtype_gets_its_gradient_in_its_dtype():
+    x, raw = _inputs("f64", 8, seed=23)
+    xt = _t(x)
+    r32 = _t(raw.astype(np.float32)).requires_grad_()
+    y, ld = rqs_cuda.rqs_fused(xt, r32, B)
+    assert y.dtype == torch.float64
+    (g,) = torch.autograd.grad(y.sum() + ld.sum(), (r32,))
+    assert g.dtype == torch.float32
+    # the f64 computation on the upcast raw, its gradient cast back: exact
+    r64 = r32.detach().double().requires_grad_()
+    y64, ld64 = rqs_cuda.rqs_fused(xt, r64, B)
+    (g_ref,) = torch.autograd.grad(y64.sum() + ld64.sum(), (r64,))
+    assert torch.equal(g, g_ref.float())
+
+
+def test_cpu_tensors_launch_no_kernel(monkeypatch):
+    """On CPU tensors the wrapper runs the plain version: both launch
+    counters stay at 0 and the kernel library is never built."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(rqs_cuda, "FWD_LAUNCHES", 0)
+    monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
+    x, raw = _inputs("f32", 10, seed=29)
+    for inverse in (False, True):
+        _loss_grads(_t(x), _t(raw), lambda x, r: rqs_cuda.rqs_fused(
+            x, r, B, inverse=inverse))
+    assert rqs_cuda.FWD_LAUNCHES == 0 and rqs_cuda.BWD_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("backend,exc", [("cuda", ValueError),
+                                         ("pallas", ValueError)])
+def test_backend_errors(backend, exc):
+    x, raw = _inputs("f32", 10)
+    with pytest.raises(exc):
+        rqs_cuda.rqs_fused(_t(x), _t(raw), B, backend=backend)
+
+
+def test_bad_raw_shape_raises():
+    x, raw = _inputs("f32", 10)
+    with pytest.raises(ValueError):
+        rqs_cuda.rqs_fused(_t(x), _t(raw[:, :-1]), B)
+    with pytest.raises(ValueError):
+        rqs_cuda.rqs_fused(_t(x[:-1]), _t(raw), B)
+
+
+def test_ctypes_argtypes_match_the_c_entries():
+    """Each extern "C" entry of csrc/rqs.cu is bound, with one argtype per
+    C parameter."""
+    src = (_build.CSRC / "rqs.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    sigs = dict(re.findall(r"int (rqs_\w+)\(([^)]*)\)", block))
+    assert set(sigs) == set(_build.ENTRIES)
+    for name, params in sigs.items():
+        assert len(params.split(",")) == len(_build.ENTRIES[name]), name
+    assert Path(_build.CSRC, "rqs.cu") in _build._sources()
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
