@@ -4,15 +4,18 @@
 
 Prints one JSON object (and writes it to ``--out`` if given):
 
-* ``train``: for the demo (d=2, [32,32]x10, batch 64) and wide (d=64,
-  [128,128]x10, batch 4096) NSF configurations in float32: steps/s by host
-  clock (3 runs, taken before any profiler session, which slows later
-  launches), then a `torch.profiler` trace of a few steps: kernels per step,
-  device-busy time (union of kernel intervals), the device's idle share of
-  the wall time, and device time by category (rqs, gemm, optimizer, reduce,
-  elementwise) and by kernel.
+* ``train``: for the NSF configurations in float32, reverse-KL ELBO
+  training (`train_flow`: demo d=2, [32,32]x10, batch 64; wide d=64,
+  [128,128]x10, batch 4096) and maximum-likelihood training
+  (`train_flow_mle` on 65,536 draws of Banana(d, 1, 10): mle_demo, batch
+  256; mle_wide, batch 4096): steps/s by host clock (3 runs, taken before
+  any profiler run, which slows later launches), then a
+  `torch.profiler` trace of a few steps: kernels per step, device-busy time
+  (union of kernel intervals), the device's idle share of the wall time,
+  and device time by category (rqs, gemm, optimizer, reduce, elementwise)
+  and by kernel.
 
-The times of K1/K2 against their plain versions are `chip_smoke.py`'s
+The times of K1/K2/K3 against their plain versions are `chip_smoke.py`'s
 (phase 3). Needs a CUDA device; builds the kernels from
 ``normalizingflows_torch/csrc``.
 """
@@ -34,9 +37,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import normalizingflows_torch as nft  # noqa: E402
 
 B = 30.0
-# name, nsf kwargs, target dim, batch, Adam lr, profiled steps
+MLE_ROWS = 65536
+# name, nsf kwargs, target dim, batch, Adam lr, profiled steps; the mle_
+# cells train by maximum likelihood on draws of Banana(d, 1, 10)
 CELLS = (("demo", dict(q0=2, hdims=(32, 32)), 2, 64, 5e-4, 20),
-         ("wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10))
+         ("wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10),
+         ("mle_demo", dict(q0=2, hdims=(32, 32)), 2, 256, 1e-3, 20),
+         ("mle_wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10))
 
 
 def _kernel_events(prof):
@@ -101,14 +108,24 @@ def _breakdown(prof, steps: int, wall_s: float) -> dict:
 
 def _cell(name, cfg, dim, batch, lr, gen):
     flow = nft.nsf(torch.Generator().manual_seed(0), K=10, B=B, nlayers=10,
-                   identity_init=True, device="cuda", **cfg)
+                   identity_init=True, **cfg)
+    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=lr),
+              check_every=100)
+    if name.startswith("mle_"):
+        data = nft.Banana(dim, 1.0, 10.0).sample(gen, (MLE_ROWS,))
+        loader = nft.utils.data.make_loader(data.cpu().numpy(), batch)
+
+        def run(state, steps):
+            return nft.train_flow_mle(flow, loader, max_iters=steps,
+                                      resume_state=state, **kw).state
+        return run, run(None, 10)  # warm: cuBLAS handles, allocator
+
     target = nft.Banana(dim, 1.0, 100.0)
-    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=lr))
 
     def run(state, steps):
         return nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
-                              batch, max_iters=steps, check_every=100,
-                              resume_state=state, **kw).state
+                              batch, max_iters=steps, resume_state=state,
+                              **kw).state
 
     return run, run(None, 10)  # warm: cuBLAS handles, allocator
 

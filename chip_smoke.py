@@ -3,23 +3,38 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the hand-written CUDA kernels from ``normalizingflows_torch/csrc``
-and drives the port's main path, reverse-KL ELBO training of the neural
-spline flow, through them:
+and drives the port's two paths through them: reverse-KL ELBO training of
+the neural spline flow (K1 forward, K2), and its density path, maximum-
+likelihood training through `log_prob` (K1 inverse, K3):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc of csrc/*.cu, its seconds and ptxas register/spill report;
+2. build: nvcc of csrc/*.cu, its seconds and ptxas register/spill report
+   (K1, K2, K3);
 3. kernels against their plain torch versions on the card: K1 forward and
-   inverse, K2's gx/graw, at N = 64 (demo), 1000 (ragged) and 131072 (wide),
-   K 8 and 10, float32 and float64, raw read elem-major and param-major;
-   median device times of kernel and plain version at N = 64 and 131072;
+   inverse, K2's and K3's gx/graw, at N = 64 (demo), 1000 (ragged) and
+   131072 (wide), K 8 and 10, float32 and float64, raw read elem-major and
+   param-major; raw padded to P = 3K−1+3 through K1/K2/K3 (pad gradient
+   exactly 0, the rest equal to the unpadded call); the Pallas rows view
+   (R=8, N/R=16384) through K1, equal to the flat param-major call; median
+   device times of kernel and plain version at N = 64 and 131072;
 4. one `elbo_from_samples` value-and-grad on the demo model with
    backend="cuda" and backend="plain" from identical parameters and draws;
-5. the main path: `train_flow` on the demo slice (nsf on Banana(2, 1, 100),
+5. the ELBO path: `train_flow` on the demo slice (nsf on Banana(2, 1, 100),
    64 samples, Adam(5e-4)) for 300 steps, with launch counts;
 6. the wide configuration (d=64, hdims (128, 128), K=10, 10 layers, batch
    4096, float32) for 20 steps: steps/s and peak memory;
 7. round trip: `log_prob(y)` through the inverse (K1) against
-   `sample_and_log_prob`'s value on the trained demo flow.
+   `sample_and_log_prob`'s value on the trained demo flow;
+8. one `loglikelihood` value-and-grad on the MLE demo flow, "cuda" against
+   "plain" (K1 inverse and K3, no K2);
+9. one `elbo_stl` value-and-grad on the ELBO demo, "cuda" against "plain"
+   (K1 both directions, K2 and K3);
+10. the density path: `train_flow_mle` on the MLE demo (the demo nsf on
+    65,536 exact draws of Banana(2, 1, 10), batch 256, Adam(1e-3)) for 300
+    steps: held-out mean log-likelihood before and after beside the
+    target's E_p[log p], steps/s, launch counts;
+11. MLE wide (d=64, hdims (128, 128), K=10, 10 layers, batch 4096, 65,536
+    draws of Banana(64, 1, 10)) for 20 steps: steps/s and peak memory.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
@@ -46,6 +61,21 @@ WIDE = dict(q0=64, hdims=(128, 128), K=10, B=B, nlayers=10,
             identity_init=True)
 DEMO_STEPS, DEMO_BATCH, DEMO_LR = 300, 64, 5e-4
 WIDE_STEPS, WIDE_BATCH, WIDE_LR = 20, 4096, 1e-3
+# the density path: MLE on exact draws of Banana(d, 1, 10)
+MLE_ROWS, MLE_HELD_OUT, MLE_LR = 65536, 8192, 1e-3
+MLE_STEPS, MLE_BATCH = 300, 256
+MLE_WIDE_STEPS, MLE_WIDE_BATCH = 20, 4096
+# the card's published peaks (H100 SXM datasheet, at 700 W):
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+KERNELS = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir")
+REPLACES = {
+    "rqs_fwd": "normalizingflows/jl_tpu/ops/rqs_pallas.py:649, :541, :685",
+    "rqs_bwd_fwddir": "normalizingflows/jl_tpu/ops/rqs_pallas.py:717, :576 "
+                      "(forward direction)",
+    "rqs_bwd_invdir": "normalizingflows/jl_tpu/ops/rqs_pallas.py:717, :576 "
+                      "(inverse direction)",
+}
 # Kernel against plain version. f32: tests/test_rqs_kernel.py:43-44 (values
 # rtol/atol 1e-5; log-dets rtol 1e-4, atol 1e-5) and :78-79 (gradients rtol
 # 2e-3, atol 1e-4). f64: rtol 1e-9, atol 1e-10, the same differences at f64
@@ -117,6 +147,35 @@ def device_ms(fn, reps=7, inner=20) -> float:
     return statistics.median(times)
 
 
+def bound_ms(kernel: str, n: int, K: int, word_bytes: int):
+    """The least time the card could take for one call on these inputs:
+    bytes moved (each input read once, each output written once) over the
+    memory rate, against operations over the float32 rate. K1 reads x and
+    3K−1 raw words and writes y, ld: 3K+2 words an element; K2/K3 read x,
+    raw, gy, gld and write gx, graw: 6K+2. Operations are counted from
+    csrc/rqs.cu (each add, multiply, divide, compare, select, exp, log and
+    sqrt as one): about 32K+35 an element for K1 (tables, bin, spline) and
+    65K+100 for K2/K3 (the same tables, the closed-form reverse, two
+    softmax/cumsum reverses, the softplus reverse)."""
+    words, ops = ((3 * K + 2, 32 * K + 35) if kernel == "rqs_fwd"
+                  else (6 * K + 2, 65 * K + 100))
+    t_bytes = n * words * word_bytes / PEAK_BYTES_PER_S
+    t_ops = n * ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def launch_counts(rqs_cuda) -> dict:
+    return {"rqs_fwd": rqs_cuda.FWD_LAUNCHES,
+            "rqs_bwd_fwddir": rqs_cuda.BWD_LAUNCHES,
+            "rqs_bwd_invdir": rqs_cuda.BWD_INV_LAUNCHES}
+
+
+def reset_counts(rqs_cuda):
+    rqs_cuda.FWD_LAUNCHES = rqs_cuda.BWD_LAUNCHES = 0
+    rqs_cuda.BWD_INV_LAUNCHES = 0
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU")
@@ -142,11 +201,32 @@ def phase_build():
     _build.library()
 
 
+def _same(name, got, want):
+    """Bit-for-bit equality of two tensors of one computation."""
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not identical")
+
+
+def _grads(fused, x, raw, gy, gld):
+    """(y, ld, gx, graw) of ``fused(x, raw)`` under cotangents (gy, gld)."""
+    xg = x.detach().requires_grad_()
+    rg = raw.detach().requires_grad_()
+    y, ld = fused(xg, rg)
+    return (y.detach(), ld.detach()) + torch.autograd.grad(
+        (y, ld), (xg, rg), (gy.reshape(y.shape), gld.reshape(y.shape)))
+
+
 def phase_kernels(gen):
-    """K1 (forward, inverse) and K2 against the plain tiles on the card."""
+    """K1 (forward, inverse), K2 and K3 against the plain tiles on the
+    card; padded elem-major raw and the rows view; device times."""
     from normalizingflows_torch.ops import rqs_cuda
 
-    results = {"rqs_fwd": {"err": 0.0}, "rqs_bwd_fwddir": {"err": 0.0}}
+    results = {k: {"err": 0.0} for k in KERNELS}
+    errs = []  # every kernel-vs-plain comparison's max abs error
+    bwd_tile = {False: ("K2", "rqs_bwd_fwddir", rqs_cuda.tile_bwd_analytic),
+                True: ("K3", "rqs_bwd_invdir",
+                       rqs_cuda.tile_bwd_analytic_inverse)}
+    checks = 0
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
         for K in (8, 10):
@@ -162,50 +242,103 @@ def phase_kernels(gen):
                                         device=DEVICE, dtype=dtype)
                 raw3 = raw.view(batch, n_t, P)
                 xf, rawf = x.reshape(-1), raw.view(-1, P)
+                gy = torch.randn((n,), generator=gen, device=DEVICE,
+                                 dtype=dtype)
+                gld = torch.randn((n,), generator=gen, device=DEVICE,
+                                  dtype=dtype)
+                # the same raw padded to P + 3 columns, read elem-major
+                raw_pad = torch.cat([rawf, torch.randn(
+                    (n, 3), generator=gen, device=DEVICE, dtype=dtype)], 1)
                 tag = f"{str(dtype)[6:]} K={K} N={n}"
+                main = dtype == torch.float32 and K == 10 and n != 1000
                 for inverse in (False, True):
+                    d = "inv" if inverse else "fwd"
                     y, ld = rqs_cuda.rqs_fused(x, raw3, B, inverse=inverse,
                                                backend="cuda")
                     y_p, ld_p = rqs_cuda.tile_transform(xf, rawf, B, inverse)
-                    d = "inv" if inverse else "fwd"
-                    e = max(compare(f"K1 {d} y  {tag}", y.reshape(-1), y_p,
-                                    tol["y"]),
-                            compare(f"K1 {d} ld {tag}", ld.reshape(-1), ld_p,
-                                    tol["ld"]))
-                    if dtype == torch.float32 and K == 10 and n != 1000:
+                    errs += [compare(f"K1 {d} y  {tag}", y.reshape(-1), y_p,
+                                     tol["y"]),
+                             compare(f"K1 {d} ld {tag}", ld.reshape(-1),
+                                     ld_p, tol["ld"])]
+                    e = max(errs[-2:])
+                    if main:
                         results["rqs_fwd"]["err"] = max(
                             results["rqs_fwd"]["err"], e)
-                    # param-major read of the same numbers: identical
-                    y_t, ld_t = rqs_cuda.rqs_fused(
-                        xf, rawf.T.contiguous().T, B, inverse=inverse,
-                        backend="cuda")
-                    if not (torch.equal(y_t, y.reshape(-1))
-                            and torch.equal(ld_t, ld.reshape(-1))):
-                        raise AssertionError(f"K1 {d} {tag}: param-major "
-                                             "read differs from elem-major")
-                xg = x.clone().requires_grad_()
-                rg = raw3.clone().requires_grad_()
-                y, ld = rqs_cuda.rqs_fused(xg, rg, B, backend="cuda")
-                gy = torch.randn(y.shape, generator=gen, device=DEVICE,
-                                 dtype=dtype)
-                gld = torch.randn(y.shape, generator=gen, device=DEVICE,
-                                  dtype=dtype)
-                gx, graw = torch.autograd.grad((y, ld), (xg, rg), (gy, gld))
-                gx_p, graw_p = rqs_cuda.tile_bwd_analytic(
-                    xf, rawf, gy.reshape(-1), gld.reshape(-1), B)
-                e = max(compare(f"K2 gx   {tag}", gx.reshape(-1), gx_p,
-                                tol["g"]),
-                        compare(f"K2 graw {tag}", graw.reshape(-1, P),
-                                graw_p, tol["g"]))
-                if dtype == torch.float32 and K == 10 and n != 1000:
-                    results["rqs_bwd_fwddir"]["err"] = max(
-                        results["rqs_bwd_fwddir"]["err"], e)
+
+                    kname, kkey, tile = bwd_tile[inverse]
+                    gx, graw = _grads(lambda a, r: rqs_cuda.rqs_fused(
+                        a, r, B, inverse=inverse, backend="cuda"),
+                        x, raw3, gy, gld)[2:]
+                    gx_p, graw_p = tile(xf, rawf, gy, gld, B)
+                    errs += [compare(f"{kname} gx   {tag}", gx.reshape(-1),
+                                     gx_p, tol["g"]),
+                             compare(f"{kname} graw {tag}",
+                                     graw.reshape(-1, P), graw_p, tol["g"])]
+                    e = max(errs[-2:])
+                    if main:
+                        results[kkey]["err"] = max(results[kkey]["err"], e)
+
+                    # param-major read of the same numbers (rqs_fused_t):
+                    # identical values, graw back param-major
+                    y_t, ld_t, gx_t, graw_t = _grads(
+                        lambda a, r: rqs_cuda.rqs_fused_t(
+                            a, r, B, inverse=inverse, backend="cuda"),
+                        xf, rawf.T.contiguous(), gy, gld)
+                    _same(f"K1 {d} {tag} param-major y", y_t, y.reshape(-1))
+                    _same(f"K1 {d} {tag} param-major ld", ld_t,
+                          ld.reshape(-1))
+                    _same(f"{kname} {tag} param-major gx", gx_t,
+                          gx.reshape(-1))
+                    _same(f"{kname} {tag} param-major graw", graw_t.T,
+                          graw.reshape(-1, P))
+
+                    # padded elem-major (rqs_fused_e): pad ignored, its
+                    # gradient written as exact zeros over poisoned memory
+                    del graw_t
+                    poison = torch.full_like(raw_pad, float("nan"))
+                    del poison  # the allocator hands this block to graw
+                    y_e, ld_e, gx_e, graw_e = _grads(
+                        lambda a, r: rqs_cuda.rqs_fused_e(
+                            a, r, B, K, inverse=inverse, backend="cuda"),
+                        xf, raw_pad, gy, gld)
+                    _same(f"K1 {d} {tag} padded y", y_e, y.reshape(-1))
+                    _same(f"K1 {d} {tag} padded ld", ld_e, ld.reshape(-1))
+                    _same(f"{kname} {tag} padded gx", gx_e, gx.reshape(-1))
+                    _same(f"{kname} {tag} padded graw", graw_e[:, :P],
+                          graw.reshape(-1, P))
+                    if torch.count_nonzero(graw_e[:, P:]) or not bool(
+                            torch.isfinite(graw_e[:, P:]).all()):
+                        raise AssertionError(f"{kname} {tag}: pad columns "
+                                             "of graw are not exact zeros")
+                    checks += 12
+            # the Pallas rows view (`_call_fwd_rows`): x (R, N/R), raw
+            # (3K−1, R, N/R); K1 over its flattened and its permuted view
+            R, L = 8, 131072 // 8
+            x_rows = (torch.rand((R, L), generator=gen, device=DEVICE,
+                                 dtype=dtype) * 3.0 - 1.5) * B
+            raw_rows = 3.0 * torch.randn((P, R, L), generator=gen,
+                                         device=DEVICE, dtype=dtype)
+            for inverse in (False, True):
+                flat = rqs_cuda.rqs_fused_t(
+                    x_rows.reshape(-1), raw_rows.reshape(P, -1), B,
+                    inverse=inverse, backend="cuda")
+                view = rqs_cuda.rqs_fused(x_rows, raw_rows.permute(1, 2, 0),
+                                          B, inverse=inverse, backend="cuda")
+                tag = f"{str(dtype)[6:]} K={K} rows {R}x{L}"
+                _same(f"K1 {tag} y", view[0].reshape(-1), flat[0])
+                _same(f"K1 {tag} ld", view[1].reshape(-1), flat[1])
+                checks += 2
     torch.cuda.synchronize()
+    say(3, f"{sum(e == 0.0 for e in errs)} of {len(errs)} kernel-vs-plain "
+           f"comparisons exact (max abs err 0), all within tolerance; "
+           f"{checks} layout checks identical: param-major read, padded "
+           f"elem-major (pad gradient exactly 0), rows view")
 
     # times at the demo and wide shapes, float32, K=10
+    K = 10
     for n in (64, 131072):
         n_t = 32 if n == 131072 else 1
-        batch, P = n // n_t, 29
+        batch, P = n // n_t, 3 * K - 1
         x = (torch.rand((n,), generator=gen, device=DEVICE) * 3 - 1.5) * B
         raw = 3.0 * torch.randn((batch, n_t * P), generator=gen,
                                 device=DEVICE).view(n, P)
@@ -213,76 +346,102 @@ def phase_kernels(gen):
         gld = torch.randn((n,), generator=gen, device=DEVICE)
         t = {
             "rqs_fwd": (
-                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, False)),
+                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, K, False)),
                 device_ms(lambda: rqs_cuda.tile_transform(x, raw, B))),
             "rqs_fwd inverse": (
-                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, True)),
+                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, K, True)),
                 device_ms(lambda: rqs_cuda.tile_transform(x, raw, B, True))),
             "rqs_bwd_fwddir": (
-                device_ms(lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B)),
+                device_ms(lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K,
+                                                       False)),
                 device_ms(lambda: rqs_cuda.tile_bwd_analytic(
+                    x, raw, gy, gld, B))),
+            "rqs_bwd_invdir": (
+                device_ms(lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K,
+                                                       True)),
+                device_ms(lambda: rqs_cuda.tile_bwd_analytic_inverse(
                     x, raw, gy, gld, B))),
         }
         for name, (ms, plain_ms) in t.items():
+            kernel = name.split()[0]
+            bms, by = bound_ms(kernel, n, K, 4)
             if name in results:
                 key = "" if n == 131072 else "_demo"
-                results[name]["ms" + key] = ms
-                results[name]["plain_ms" + key] = plain_ms
+                results[name].update({"ms" + key: ms,
+                                      "plain_ms" + key: plain_ms,
+                                      "bound_ms" + key: bms, "bound_by": by})
             say(3, f"{name} N={n} f32 K=10: kernel {ms:.5f} ms, plain "
-                   f"{plain_ms:.5f} ms (device time a call: median of 7 "
-                   f"CUDA-graph replays of 20 calls, CUDA events)")
+                   f"{plain_ms:.5f} ms, bound {bms:.5f} ms ({by}) (device "
+                   f"time a call: median of 7 CUDA-graph replays of 20 "
+                   f"calls, CUDA events)")
     return results
 
 
 def _demo_flow(backend="auto", seed=0):
     import normalizingflows_torch as nft
 
-    return nft.nsf(torch.Generator().manual_seed(seed), device=DEVICE,
-                   backend=backend, **DEMO)
+    # no device argument: the port builds on the card by default
+    return nft.nsf(torch.Generator().manual_seed(seed), backend=backend,
+                   **DEMO)
 
 
-def phase_same_step(gen):
-    """One ELBO value-and-grad, kernels against plain, same everything."""
-    import normalizingflows_torch as nft
+def _perturbed(flow):
+    """Noise 0.1 on every parameter: off the identity, where every term of
+    the gradient is non-zero."""
+    with torch.no_grad():
+        noise = torch.Generator(device=DEVICE).manual_seed(2)
+        for p in flow.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=noise, device=DEVICE))
+    return flow
+
+
+def _both_backends(phase, flow_c, objective, want):
+    """One value-and-grad of ``objective(flow)`` on the "cuda" flow and on
+    its copy with backend "plain": same value and gradients within
+    STEP_TOL, and the launch counts (K1, K2, K3) ``want`` and none."""
     from normalizingflows_torch.ops import rqs_cuda
 
-    flow_c = _demo_flow("cuda", seed=1)
-    with torch.no_grad():  # off the identity: noise 0.1 on every parameter
-        noise = torch.Generator(device=DEVICE).manual_seed(2)
-        for p in flow_c.parameters():
-            p.add_(0.1 * torch.randn(p.shape, generator=noise, device=DEVICE))
     flow_p = copy.deepcopy(flow_c)
     flow_p.bijector.bijectors[0].backend = "plain"
-    target = nft.Banana(2, 1.0, 100.0)
-    xs = flow_c.base.sample(gen, (DEMO_BATCH,)).detach()
     out = {}
-    per_step = 2 * DEMO["nlayers"]
     for label, flow in (("cuda", flow_c), ("plain", flow_p)):
-        counts = (rqs_cuda.FWD_LAUNCHES, rqs_cuda.BWD_LAUNCHES)
-        loss = -nft.elbo_from_samples(xs, flow, target.log_prob)
+        reset_counts(rqs_cuda)
+        loss = -objective(flow)
         loss.backward()
         torch.cuda.synchronize()
-        launched = (rqs_cuda.FWD_LAUNCHES - counts[0],
-                    rqs_cuda.BWD_LAUNCHES - counts[1])
-        want = (per_step, per_step) if label == "cuda" else (0, 0)
-        if launched != want:
-            raise AssertionError(f"{label} backend launched (K1, K2) "
-                                 f"{launched} times, expected {want}")
+        launched = tuple(launch_counts(rqs_cuda).values())
+        expected = want if label == "cuda" else (0, 0, 0)
+        if launched != expected:
+            raise AssertionError(f"{label} backend launched (K1, K2, K3) "
+                                 f"{launched} times, expected {expected}")
         out[label] = (loss.detach(), {n: p.grad for n, p in
                                       flow.named_parameters()
                                       if p.grad is not None})
     compare("loss", out["cuda"][0].reshape(1), out["plain"][0].reshape(1),
             STEP_TOL)
     grads_c, grads_p = out["cuda"][1], out["plain"][1]
+    # every conditioner W and b, and the base's loc and scale
     if set(grads_c) != set(grads_p) or len(grads_c) != 10 * 2 * 3 * 2 + 2:
         raise AssertionError("the two backends differ in which parameters "
                              "got gradients")
     worst = max(compare(f"grad {n}", grads_c[n], grads_p[n], STEP_TOL,
                         quiet=True) for n in sorted(grads_c))
-    say(4, f"loss {float(out['cuda'][0]):.6f} on both backends; "
-           f"{len(grads_c)} gradients agree (max abs err {worst:.3e}); the "
-           f"cuda pass launched K1 and K2 {per_step} times each, the plain "
-           f"pass neither")
+    say(phase, f"loss {float(out['cuda'][0]):.6f} on both backends; "
+               f"{len(grads_c)} gradients agree (max abs err {worst:.3e}); "
+               f"the cuda pass launched (K1, K2, K3) {want}, the plain pass "
+               f"none")
+
+
+def phase_same_step(gen):
+    """One ELBO value-and-grad, kernels against plain, same everything."""
+    import normalizingflows_torch as nft
+
+    flow = _perturbed(_demo_flow("cuda", seed=1))
+    xs = flow.base.sample(gen, (DEMO_BATCH,)).detach()
+    target = nft.Banana(2, 1.0, 100.0)
+    per_step = 2 * DEMO["nlayers"]
+    _both_backends(4, flow, lambda f: nft.elbo_from_samples(
+        xs, f, target.log_prob), (per_step, per_step, 0))
 
 
 def phase_main_path(gen, name):
@@ -298,15 +457,14 @@ def phase_main_path(gen, name):
         stamps.append((it, time.perf_counter()))  # after the chunk's fetch
 
     torch.cuda.synchronize()
-    rqs_cuda.FWD_LAUNCHES = rqs_cuda.BWD_LAUNCHES = 0
+    reset_counts(rqs_cuda)
     t0 = time.perf_counter()
     res = nft.train_flow(
         gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
         max_iters=DEMO_STEPS, check_every=100, callback=callback,
         optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR))
     t1 = time.perf_counter()
-    launches = {"rqs_fwd": rqs_cuda.FWD_LAUNCHES,
-                "rqs_bwd_fwddir": rqs_cuda.BWD_LAUNCHES}
+    launches = launch_counts(rqs_cuda)
 
     losses = res.stats["loss"]
     if len(losses) != DEMO_STEPS or not torch.isfinite(
@@ -316,17 +474,19 @@ def phase_main_path(gen, name):
     if not last < first:
         raise AssertionError(f"demo loss did not fall: {first} -> {last}")
     per_step = 2 * DEMO["nlayers"]
-    for k, v in launches.items():
-        if v != per_step * DEMO_STEPS:
-            raise AssertionError(f"{k}: {v} launches in {DEMO_STEPS} steps, "
-                                 f"expected {per_step} per step")
+    want = {"rqs_fwd": per_step * DEMO_STEPS,
+            "rqs_bwd_fwddir": per_step * DEMO_STEPS, "rqs_bwd_invdir": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} in {DEMO_STEPS} steps, "
+                             f"expected {want}")
     steady = (stamps[-1][0] - stamps[0][0]) / (stamps[-1][1] - stamps[0][1])
     say(5, f"ELBO {-losses[0]:.4f} -> {-losses[-1]:.4f} (mean of first 20 "
            f"{-first:.4f}, last 20 {-last:.4f}); {DEMO_STEPS} steps in "
            f"{t1 - t0:.2f} s = {DEMO_STEPS / (t1 - t0):.1f} steps/s overall, "
            f"{steady:.1f} steps/s after the first chunk, on {name}")
     say(5, f"launches: rqs_fwd {launches['rqs_fwd']}, rqs_bwd_fwddir "
-           f"{launches['rqs_bwd_fwddir']} ({per_step} each per step)")
+           f"{launches['rqs_bwd_fwddir']} ({per_step} each per step), "
+           f"rqs_bwd_invdir {launches['rqs_bwd_invdir']}")
     return flow, launches
 
 
@@ -334,14 +494,14 @@ def phase_wide(gen, name):
     import normalizingflows_torch as nft
     from normalizingflows_torch.ops import rqs_cuda
 
-    flow = nft.nsf(torch.Generator().manual_seed(3), device=DEVICE, **WIDE)
+    flow = nft.nsf(torch.Generator().manual_seed(3), **WIDE)
     target = nft.Banana(64, 1.0, 100.0)
     kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR))
     warm = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
                           WIDE_BATCH, max_iters=2, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd0, bwd0 = rqs_cuda.FWD_LAUNCHES, rqs_cuda.BWD_LAUNCHES
+    reset_counts(rqs_cuda)
     t0 = time.perf_counter()
     res = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
                          WIDE_BATCH, max_iters=WIDE_STEPS,
@@ -352,10 +512,10 @@ def phase_wide(gen, name):
     losses = res.stats["loss"]
     if not torch.isfinite(torch.from_numpy(losses)).all():
         raise AssertionError("wide training gave non-finite losses")
-    if (rqs_cuda.FWD_LAUNCHES - fwd0, rqs_cuda.BWD_LAUNCHES - bwd0) != (
-            20 * WIDE_STEPS, 20 * WIDE_STEPS):
+    if tuple(launch_counts(rqs_cuda).values()) != (
+            20 * WIDE_STEPS, 20 * WIDE_STEPS, 0):
         raise AssertionError("wide training did not launch K1 and K2 20x "
-                             "each per step")
+                             "each per step and K3 never")
     say(6, f"wide f32 d=64 [128,128]x10 K=10 batch {WIDE_BATCH}: "
            f"{WIDE_STEPS} steps in {dt:.3f} s = {WIDE_STEPS / dt:.2f} steps/s"
            f", peak memory {peak / 2**20:.1f} MiB, loss {losses[0]:.2f} -> "
@@ -371,7 +531,132 @@ def phase_round_trip(flow, gen):
            f"err {e:.3e}")
 
 
+def phase_loglikelihood(gen):
+    """One `loglikelihood` value-and-grad on the MLE demo flow."""
+    import normalizingflows_torch as nft
+
+    ys = nft.Banana(2, 1.0, 10.0).sample(gen, (MLE_BATCH,))
+    per_step = 2 * DEMO["nlayers"]
+    _both_backends(8, _perturbed(_demo_flow("cuda", seed=4)),
+                   lambda f: nft.loglikelihood(f, ys), (per_step, 0, per_step))
+
+
+def phase_stl():
+    """One `elbo_stl` value-and-grad on the ELBO demo: both backends draw
+    the same base samples from generators of one seed."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    per_step = 2 * DEMO["nlayers"]
+    _both_backends(9, _perturbed(_demo_flow("cuda", seed=5)),
+                   lambda f: nft.elbo_stl(
+                       torch.Generator(device=DEVICE).manual_seed(6), f,
+                       target.log_prob, DEMO_BATCH),
+                   (2 * per_step, per_step, per_step))
+
+
+def _mle_data(gen, dim):
+    """Exact draws of Banana(dim, 1, 10), made on the card: the training
+    set (as the loader's numpy array) and a held-out set."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(dim, 1.0, 10.0)
+    train = target.sample(gen, (MLE_ROWS,)).cpu().numpy()
+    return target, train, target.sample(gen, (MLE_HELD_OUT,))
+
+
+def phase_mle(gen, name):
+    """train_flow_mle on the MLE demo: the density path."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import rqs_cuda
+
+    target, train, held = _mle_data(gen, 2)
+    flow = _demo_flow()
+    with torch.no_grad():
+        ceiling = float(target.log_prob(held).mean())
+        before = float(flow.log_prob(held).mean())
+    stamps = []
+
+    def callback(it, stat, f):
+        stamps.append((it, time.perf_counter()))  # after the chunk's fetch
+
+    loader = nft.utils.data.make_loader(train, MLE_BATCH, seed=0)
+    torch.cuda.synchronize()
+    reset_counts(rqs_cuda)
+    t0 = time.perf_counter()
+    res = nft.train_flow_mle(
+        flow, loader, max_iters=MLE_STEPS, check_every=100,
+        callback=callback,
+        optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR))
+    t1 = time.perf_counter()
+    launches = launch_counts(rqs_cuda)
+    with torch.no_grad():
+        after = float(flow.log_prob(held).mean())
+
+    losses = res.stats["loss"]
+    if len(losses) != MLE_STEPS or not torch.isfinite(
+            torch.from_numpy(losses)).all():
+        raise AssertionError("MLE training gave non-finite losses")
+    if not (torch.isfinite(torch.tensor([before, after])).all()
+            and after > before):
+        raise AssertionError(f"held-out log-likelihood did not rise: "
+                             f"{before} -> {after}")
+    per_step = 2 * DEMO["nlayers"]
+    want = {"rqs_fwd": per_step * MLE_STEPS, "rqs_bwd_fwddir": 0,
+            "rqs_bwd_invdir": per_step * MLE_STEPS}
+    if launches != want:
+        raise AssertionError(f"launches {launches} in {MLE_STEPS} steps, "
+                             f"expected {want}")
+    steady = (stamps[-1][0] - stamps[0][0]) / (stamps[-1][1] - stamps[0][1])
+    say(10, f"held-out mean log-likelihood ({MLE_HELD_OUT} fresh draws) "
+            f"{before:.4f} -> {after:.4f}; the target's E_p[log p] on them "
+            f"{ceiling:.4f} (the ceiling); train loss, mean of the first 20 "
+            f"batches {losses[:20].mean():.4f}, of the last 20 "
+            f"{losses[-20:].mean():.4f}; {MLE_STEPS} steps in "
+            f"{t1 - t0:.2f} s = {MLE_STEPS / (t1 - t0):.1f} steps/s overall, "
+            f"{steady:.1f} "
+            f"steps/s after the first chunk, on {name}")
+    say(10, f"launches: rqs_fwd {launches['rqs_fwd']}, rqs_bwd_invdir "
+            f"{launches['rqs_bwd_invdir']} ({per_step} each per step), "
+            f"rqs_bwd_fwddir {launches['rqs_bwd_fwddir']}")
+    return launches
+
+
+def phase_mle_wide(gen, name):
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import rqs_cuda
+
+    _, train, _ = _mle_data(gen, 64)
+    flow = nft.nsf(torch.Generator().manual_seed(7), **WIDE)
+    loader = nft.utils.data.make_loader(train, MLE_WIDE_BATCH, seed=0)
+    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR))
+    warm = nft.train_flow_mle(flow, loader, max_iters=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(rqs_cuda)
+    t0 = time.perf_counter()
+    res = nft.train_flow_mle(flow, loader, max_iters=MLE_WIDE_STEPS,
+                             check_every=MLE_WIDE_STEPS,
+                             resume_state=warm.state, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = tuple(launch_counts(rqs_cuda).values())
+    losses = res.stats["loss"]
+    if not torch.isfinite(torch.from_numpy(losses)).all():
+        raise AssertionError("MLE wide training gave non-finite losses")
+    if launches != (20 * MLE_WIDE_STEPS, 0, 20 * MLE_WIDE_STEPS):
+        raise AssertionError(f"MLE wide launched (K1, K2, K3) {launches}, "
+                             "expected 20 K1 and 20 K3 per step")
+    say(11, f"MLE wide f32 d=64 [128,128]x10 K=10 batch {MLE_WIDE_BATCH}: "
+            f"{MLE_WIDE_STEPS} steps in {dt:.3f} s = "
+            f"{MLE_WIDE_STEPS / dt:.2f} steps/s, peak memory "
+            f"{peak / 2**20:.1f} MiB, loss {losses[0]:.2f} -> "
+            f"{losses[-1]:.2f}, launches (K1, K2, K3) {launches}, on {name}")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     import normalizingflows_torch  # noqa: F401  (fails outside a checkout)
 
@@ -380,24 +665,36 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(gen)
     phase_same_step(gen)
-    flow, launches = phase_main_path(gen, name)
+    flow, elbo_launches = phase_main_path(gen, name)
     phase_wide(gen, name)
     phase_round_trip(flow, gen)
+    phase_loglikelihood(gen)
+    phase_stl()
+    mle_launches = phase_mle(gen, name)
+    phase_mle_wide(gen, name)
     torch.cuda.synchronize()
 
-    replaces = {"rqs_fwd": "normalizingflows/jl_tpu/ops/rqs_pallas.py:649",
-                "rqs_bwd_fwddir":
-                    "normalizingflows/jl_tpu/ops/rqs_pallas.py:717"}
+    # each kernel's launches on the path it serves: K2 on the ELBO path,
+    # K1 and K3 on the density path (K1 runs on both)
+    paths = {"elbo_demo": elbo_launches, "mle_demo": mle_launches}
+    own = {"rqs_fwd": "mle_demo", "rqs_bwd_fwddir": "elbo_demo",
+           "rqs_bwd_invdir": "mle_demo"}
+    print(f"chip_smoke.py: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "normalizingflows_torch/csrc/rqs.cu",
-         "replaces": replaces[k], "launches": launches[k],
+         "replaces": REPLACES[k], "launches": paths[own[k]][k],
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
          "max_abs_err": kernels[k]["err"], "ms": kernels[k]["ms"],
          "plain_ms": kernels[k]["plain_ms"],
+         "bound_ms": kernels[k]["bound_ms"],
+         "bound_by": kernels[k]["bound_by"], "library_ms": None,
          "ms_demo": kernels[k]["ms_demo"],
-         "plain_ms_demo": kernels[k]["plain_ms_demo"]}
-        for k in ("rqs_fwd", "rqs_bwd_fwddir")]}), flush=True)
+         "plain_ms_demo": kernels[k]["plain_ms_demo"],
+         "bound_ms_demo": kernels[k]["bound_ms_demo"]}
+        for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,13 +6,17 @@ Its tree mirrors the JAX package's (`models/`, `ops/`, `utils/`,
 relative path. The fused rational-quadratic-spline kernels of the neural
 spline flow are CUDA C++ in `csrc/`, built with nvcc at first use.
 
-This slice covers reverse-KL ELBO training of the neural spline flow:
-  train_flow, optimize                 -> .train
-  elbo, elbo_batch, elbo_from_samples  -> .objectives
+The port covers reverse-KL ELBO training of the neural spline flow, its
+density path (log_prob with gradients) and maximum-likelihood training:
+  train_flow, train_flow_mle, optimize -> .train
+  elbo, elbo_batch, elbo_from_samples, elbo_stl, elbo_iw,
+  loglikelihood                        -> .objectives
   create_flow                          -> .models.flows
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
   MLP, fnn                             -> .models.nets
   Banana                               -> .models.targets
+  utils.data.make_loader, NumpyLoader  -> .utils.data
+Constructors build on the card unless given ``device="cpu"``.
 """
 
 import torch
@@ -49,10 +53,20 @@ from .objectives import (  # noqa: E402
     elbo,
     elbo_batch,
     elbo_from_samples,
+    elbo_iw,
     elbo_single_sample,
+    elbo_stl,
+    loglikelihood,
     presample_base,
 )
-from .train import TrainResult, TrainState, optimize, train_flow  # noqa: E402
+from .train import (  # noqa: E402
+    TrainResult,
+    TrainState,
+    optimize,
+    train_flow,
+    train_flow_mle,
+)
+from .utils import data as _data  # noqa: E402,F401  (nft.utils.data)
 
 __version__ = "0.1.0"
 
@@ -68,8 +82,8 @@ __all__ = [
     # targets
     "Banana",
     # objectives
-    "elbo", "elbo_batch", "elbo_from_samples", "elbo_single_sample",
-    "presample_base",
+    "elbo", "elbo_batch", "elbo_from_samples", "elbo_iw",
+    "elbo_single_sample", "elbo_stl", "loglikelihood", "presample_base",
     # training
-    "TrainResult", "TrainState", "optimize", "train_flow",
+    "TrainResult", "TrainState", "optimize", "train_flow", "train_flow_mle",
 ]

@@ -5,9 +5,20 @@
 //                          launched by `_call_fwd` for `rqs_fused_t` /
 //                          `rqs_fused`; INVERSE=true is the same call site
 //                          with inverse=True (the quadratic-root solve).
+//                          Through raw's strides it also computes
+//                          `_fwd_kernel_e` (`_call_fwd_e`, elem-major raw
+//                          with padded columns) and `_fwd_kernel_rows`
+//                          (`_call_fwd_rows`, an (R, N/R) element view).
 //   K2  rqs_bwd_fwddir     `_bwd_kernel` with ANALYTIC_BWD=True, i.e.
 //                          `_tile_bwd_analytic`, launched by `_call_bwd`: the
-//                          closed-form VJP of the forward direction.
+//                          closed-form VJP of the forward direction; with
+//                          graw's strides and zeroed pad columns, the forward
+//                          direction of `_bwd_kernel_e` (`_call_bwd_e`).
+//   K3  rqs_bwd_invdir     `_bwd_kernel` for inverse=True, i.e.
+//                          `_tile_bwd_analytic_inverse`: the VJP of the
+//                          inverse direction by the implicit function theorem
+//                          (the density path: log_prob gradients); likewise
+//                          the inverse direction of `_bwd_kernel_e`.
 //
 // Per element: softmax widths and heights with the min-bin floor, an exact
 // left-to-right running sum into knots pinned at ±B, softplus interior
@@ -20,9 +31,10 @@
 // never with --use_fast_math (approximate exp/log/division move log-dets).
 //
 // What bounds it on this card: memory. K1 reads 3K words per element (x and
-// the 3K−1 raw parameters) and writes 2 (y, ld); K2 reads 3K+2 (x, raw, gy,
-// gld) and writes 3K (gx, graw). A few hundred flops per element against
-// ~130–250 bytes is far below the H100's ~20 flop/byte balance point.
+// the 3K−1 raw parameters) and writes 2 (y, ld); K2 and K3 read 3K+2 (x,
+// raw, gy, gld) and write 3K (gx, graw). A few hundred flops per element
+// against ~130–250 bytes is far below the H100's ~20 flop/byte balance
+// point.
 //
 // Design: one thread per element, 1-D grid of 256-thread blocks, ragged tail
 // masked. K is a template parameter (8 and 10, the values the repo's configs
@@ -30,9 +42,19 @@
 // registers: indexing a local array by the runtime bin index would spill it
 // to local memory, hence the compare-and-select. raw is read through
 // (stride_elem, stride_param), so the conditioner's native elem-major
-// (N, 3K−1) view and the param-major (3K−1, N) layout go through one kernel
-// and no transpose is materialised. K2 writes gx and a contiguous (N, 3K−1)
-// graw; each thread owns its element's row, so no atomics.
+// (N, 3K−1) view, a padded (N, P > 3K−1) layout and the param-major
+// (3K−1, N) layout go through one kernel and no transpose is materialised.
+// K2/K3 write gx and graw through graw's own (stride_elem, stride_param)
+// into an (N, P ≥ 3K−1) buffer, the P − (3K−1) pad columns set to exact
+// zeros; each thread owns its element's row, so no atomics.
+//
+// K3 recomputes the forward quantities at the root ξ* exactly as K1's
+// inverse finds it, then: the explicit partials of ld = −(log P − 2 log D)
+// at fixed ξ, the total cotangent reaching ξ, the implicit-function factor
+// −g_ξ/(∂Y/∂ξ) with ∂Y/∂ξ = w·P/D², the forward map's partials ∂Y/∂θ at
+// fixed ξ, and the same softmax/cumsum/softplus reverse as K2. Where a
+// spline's slope nears the 1e-3 floor ∂Y/∂ξ is tiny and the factor large,
+// in the Pallas tile as here.
 //
 // Left for a later PR: the elem-major raw read is uncoalesced (neighbouring
 // threads are 3K−1 words apart); staging the (block, 3K−1) tile through
@@ -212,7 +234,8 @@ rqs_fwd(const T* __restrict__ x, const T* __restrict__ raw,
 template <typename T, int K>
 __device__ __forceinline__ void table_to_raw(int k, T g_lo_k, T g_hi_k,
                                              const T (&p)[K], double min_bin,
-                                             double B, T* __restrict__ out) {
+                                             double B, T* __restrict__ out,
+                                             int64_t gsp) {
   const T two_B = T(2.0 * B);
   const T c = T(1.0 - min_bin * K);
   // g_c[j] = 2B·(g_hi[j] + g_lo[j+1]) for j < K−1: hi's pinned +B row and
@@ -235,7 +258,30 @@ __device__ __forceinline__ void table_to_raw(int k, T g_lo_k, T g_hi_k,
 #pragma unroll
   for (int j = 0; j < K; ++j) dot += p[j] * g_soft[j];
 #pragma unroll
-  for (int j = 0; j < K; ++j) out[j] = p[j] * (g_soft[j] - dot);
+  for (int j = 0; j < K; ++j) out[j * gsp] = p[j] * (g_soft[j] - dot);
+}
+
+// The endpoint gradients of one element's bin back to its raw row: widths
+// and heights through table_to_raw, the interior derivatives through the
+// softplus; pad columns [3K−1, gcols) get exact zeros.
+template <typename T, int K>
+__device__ __forceinline__ void bin_grads_to_raw(
+    const Bin<T, K>& bn, T g_xk, T g_xk1, T g_yk, T g_yk1, T g_dk, T g_dk1,
+    double B, T* __restrict__ out, int64_t gsp, int64_t gcols) {
+  table_to_raw<T, K>(bn.k, g_xk, g_xk1, bn.p_w, kMinBinWidth, B, out, gsp);
+  table_to_raw<T, K>(bn.k, g_yk, g_yk1, bn.p_h, kMinBinHeight, B,
+                     out + K * gsp, gsp);
+  // d_lo = [1, interior], d_hi = [interior, 1]: interior j is d_lo row j+1
+  // and d_hi row j; softplus' VJP is the sigmoid
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    const T oh_lo = (j + 1 == bn.k) ? T(1) : T(0);
+    const T oh_hi = (j == bn.k) ? T(1) : T(0);
+    const T g_interior = oh_lo * g_dk + oh_hi * g_dk1;
+    const T sig = T(1) / (T(1) + ex(-bn.d_raw[j]));
+    out[(2 * K + j) * gsp] = sig * g_interior;
+  }
+  for (int64_t j = 3 * K - 1; j < gcols; ++j) out[j * gsp] = T(0);
 }
 
 // K2: closed-form VJP of the forward direction with respect to x and raw.
@@ -244,8 +290,8 @@ __global__ void __launch_bounds__(kThreads)
 rqs_bwd_fwddir(const T* __restrict__ x, const T* __restrict__ raw,
                const T* __restrict__ gy, const T* __restrict__ gld,
                T* __restrict__ gx, T* __restrict__ graw, int64_t n,
-               int64_t se, int64_t sp, double B) {
-  constexpr int P = 3 * K - 1;
+               int64_t se, int64_t sp, int64_t gse, int64_t gsp,
+               int64_t gcols, double B) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const T xv = x[i];
@@ -307,20 +353,105 @@ rqs_bwd_fwddir(const T* __restrict__ x, const T* __restrict__ raw,
   const T g_yk1 = g_h;
   const T g_yk = g_yk_direct - g_h;
 
-  T* out = graw + i * P;
-  table_to_raw<T, K>(bn.k, g_xk, g_xk1, bn.p_w, kMinBinWidth, B, out);
-  table_to_raw<T, K>(bn.k, g_yk, g_yk1, bn.p_h, kMinBinHeight, B, out + K);
-  // d_lo = [1, interior], d_hi = [interior, 1]: interior j is d_lo row j+1
-  // and d_hi row j; softplus' VJP is the sigmoid
-#pragma unroll
-  for (int j = 0; j < K - 1; ++j) {
-    const T oh_lo = (j + 1 == bn.k) ? T(1) : T(0);
-    const T oh_hi = (j == bn.k) ? T(1) : T(0);
-    const T g_interior = oh_lo * g_dk + oh_hi * g_dk1;
-    const T sig = T(1) / (T(1) + ex(-bn.d_raw[j]));
-    out[2 * K + j] = sig * g_interior;
-  }
+  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B,
+                         graw + i * gse, gsp, gcols);
   gx[i] = inside ? g_v : gy[i];
+}
+
+// K3: closed-form VJP of the inverse direction with respect to x and raw,
+// by implicit differentiation of Y(ξ*; θ) = v (Pallas
+// `_tile_bwd_analytic_inverse`). Here the incoming cotangents are those of
+// the inverse's outputs: g_out of x = x_k + ξ*·w, gld of its log-det.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+rqs_bwd_invdir(const T* __restrict__ x, const T* __restrict__ raw,
+               const T* __restrict__ g_out, const T* __restrict__ gld,
+               T* __restrict__ gx, T* __restrict__ graw, int64_t n,
+               int64_t se, int64_t sp, int64_t gse, int64_t gsp,
+               int64_t gcols, double B) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const T xv = x[i];
+  const T Bc = T(B);
+  const bool inside = (xv >= -Bc) && (xv <= Bc);
+  const T v = minv(maxv(xv, -Bc), Bc);
+
+  Bin<T, K> bn;
+  load_bin<T, K, true>(raw, se, sp, i, B, v, bn);
+  const T d_k = bn.d_k, d_k1 = bn.d_k1;
+
+  const T tiny = T(1e-6 * 2.0 * B);
+  const T w_span = bn.x_k1 - bn.x_k, h_span = bn.y_k1 - bn.y_k;
+  const T w = maxv(w_span, tiny);
+  const T h = maxv(h_span, tiny);
+  const T w_gate = (w_span > tiny) ? T(1) : T(0);  // maximum() gates
+  const T h_gate = (h_span > tiny) ? T(1) : T(0);
+  const T s = h / w;
+  const T dsum = d_k1 + d_k - T(2) * s;
+
+  // ξ* exactly as K1's inverse solves it
+  const T dy = v - bn.y_k;
+  const T a = h * (s - d_k) + dy * dsum;
+  const T b = h * d_k - dy * dsum;
+  const T c = -s * dy;
+  const T disc = maxv(b * b - T(4) * a * c, T(0));
+  const T xi = minv(maxv(T(2) * c / (-b - sqroot(disc)), T(0)), T(1));
+
+  const T xi1m = T(1) - xi;
+  const T q = xi * xi1m;
+  const T D = s + dsum * q;
+  const T Ny = s * xi * xi + d_k * q;
+  const T R = d_k1 * xi * xi + T(2) * s * q + d_k * xi1m * xi1m;
+  const T Pd = (s * s) * R;
+
+  // outside the box the inverse is x = y, ld = 0: zero the cotangents
+  const T go_in = inside ? g_out[i] : T(0);
+  const T gld_in = inside ? gld[i] : T(0);
+
+  // ld = −(log P − 2 log D): explicit partials at fixed ξ
+  const T gP_e = -gld_in / Pd;
+  const T gD_e = T(2) * gld_in / D;
+  const T g_s_e = gD_e * (T(1) - T(2) * q) +
+                  gP_e * (T(2) * s * R + T(2) * (s * s) * q);
+  const T g_dk_e = gD_e * q + gP_e * (s * s) * xi1m * xi1m;
+  const T g_dk1_e = gD_e * q + gP_e * (s * s) * xi * xi;
+
+  // total cotangent reaching ξ: out = x_k + ξ·w, plus ld's ξ-derivative
+  const T Dp = dsum * (T(1) - T(2) * xi);
+  const T Pp = (s * s) * (T(2) * d_k1 * xi + T(2) * s * (T(1) - T(2) * xi) -
+                          T(2) * d_k * xi1m);
+  const T g_xi_tot = go_in * w - gld_in * (Pp / Pd - T(2) * Dp / D);
+
+  // implicit function: Y(ξ) = y_k + h·Ny/D = v; ∂Y/∂ξ = w·P/D²
+  const T dYdxi = w * Pd / (D * D);
+  const T coef = -g_xi_tot / dYdxi;
+
+  // ∂Y/∂θ at fixed ξ (the forward map's partials); ∂Y/∂y_k = 1
+  const T Y_s = h * (xi * xi * D - Ny * (T(1) - T(2) * q)) / (D * D);
+  const T Y_dk = h * q * (D - Ny) / (D * D);
+  const T Y_dk1 = -h * Ny * q / (D * D);
+  const T Y_h_dir = Ny / D;
+
+  const T g_s_tot = g_s_e + coef * Y_s;
+  const T g_dk = g_dk_e + coef * Y_dk;
+  const T g_dk1 = g_dk1_e + coef * Y_dk1;
+  const T g_h_dir = coef * Y_h_dir;
+  // v reaches ξ through Y(ξ*) = v: ∂ξ/∂v = 1/(∂Y/∂ξ)
+  const T g_v = g_xi_tot / dYdxi;
+
+  // s = h/w; spans → knot endpoints through the max() clamps
+  T g_w = go_in * xi - g_s_tot * h / (w * w);
+  T g_h = g_h_dir + g_s_tot / w;
+  g_w = g_w * w_gate;
+  g_h = g_h * h_gate;
+  const T g_xk1 = g_w;
+  const T g_xk = go_in - g_w;
+  const T g_yk1 = g_h;
+  const T g_yk = coef - g_h;
+
+  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B,
+                         graw + i * gse, gsp, gcols);
+  gx[i] = inside ? g_v : g_out[i];
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -349,20 +480,25 @@ int launch_fwd(const void* x, const void* raw, void* y, void* ld, int64_t n,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool INVERSE>
 int launch_bwd(const void* x, const void* raw, const void* gy,
                const void* gld, void* gx, void* graw, int64_t n, int64_t se,
-               int64_t sp, int K, double B, void* stream) {
+               int64_t sp, int64_t gse, int64_t gsp, int64_t gcols, int K,
+               double B, void* stream) {
   if (n <= 0) return 0;
+  if (gcols < 3 * K - 1) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const unsigned g = blocks_for(n);
-#define RQS_BWD(KK)                                                         \
-  rqs_bwd_fwddir<T, KK><<<g, kThreads, 0, st>>>(                            \
+#define RQS_BWD(KERNEL, KK)                                                 \
+  KERNEL<T, KK><<<g, kThreads, 0, st>>>(                                    \
       static_cast<const T*>(x), static_cast<const T*>(raw),                 \
       static_cast<const T*>(gy), static_cast<const T*>(gld),                \
-      static_cast<T*>(gx), static_cast<T*>(graw), n, se, sp, B)
-  if (K == 8) RQS_BWD(8);
-  else if (K == 10) RQS_BWD(10);
+      static_cast<T*>(gx), static_cast<T*>(graw), n, se, sp, gse, gsp,      \
+      gcols, B)
+  if (K == 8 && !INVERSE) RQS_BWD(rqs_bwd_fwddir, 8);
+  else if (K == 8 && INVERSE) RQS_BWD(rqs_bwd_invdir, 8);
+  else if (K == 10 && !INVERSE) RQS_BWD(rqs_bwd_fwddir, 10);
+  else if (K == 10 && INVERSE) RQS_BWD(rqs_bwd_invdir, 10);
   else return (int)cudaErrorInvalidValue;
 #undef RQS_BWD
   return (int)cudaGetLastError();
@@ -371,11 +507,12 @@ int launch_bwd(const void* x, const void* raw, const void* gy,
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py). Pointers are device
-// pointers of contiguous x/y/ld/gy/gld/gx and contiguous (n, 3K−1) graw; raw
-// element (i, p) is raw[i*stride_elem + p*stride_param]. The launch goes to
-// the calling thread's current device, which the wrapper sets to the
-// tensors' device. Each entry returns the launch's cudaGetLastError() (0 on
-// success).
+// pointers of contiguous x/y/ld/gy/gld/gx; raw element (i, p) is
+// raw[i*stride_elem + p*stride_param], and graw element (i, p) for p <
+// graw_cols is graw[i*graw_stride_elem + p*graw_stride_param] (columns
+// 3K−1 and up are written as zeros). The launch goes to the calling
+// thread's current device, which the wrapper sets to the tensors' device.
+// Each entry returns the launch's cudaGetLastError() (0 on success).
 extern "C" {
 
 int rqs_fwd_f32(const void* x, const void* raw, void* y, void* ld,
@@ -394,18 +531,47 @@ int rqs_fwd_f64(const void* x, const void* raw, void* y, void* ld,
 
 int rqs_bwd_fwddir_f32(const void* x, const void* raw, const void* gy,
                        const void* gld, void* gx, void* graw, long long n,
-                       long long stride_elem, long long stride_param, int K,
-                       double B, void* stream) {
-  return launch_bwd<float>(x, raw, gy, gld, gx, graw, n, stride_elem,
-                           stride_param, K, B, stream);
+                       long long stride_elem, long long stride_param,
+                       long long graw_stride_elem,
+                       long long graw_stride_param, long long graw_cols,
+                       int K, double B, void* stream) {
+  return launch_bwd<float, false>(x, raw, gy, gld, gx, graw, n, stride_elem,
+                                  stride_param, graw_stride_elem,
+                                  graw_stride_param, graw_cols, K, B, stream);
 }
 
 int rqs_bwd_fwddir_f64(const void* x, const void* raw, const void* gy,
                        const void* gld, void* gx, void* graw, long long n,
-                       long long stride_elem, long long stride_param, int K,
-                       double B, void* stream) {
-  return launch_bwd<double>(x, raw, gy, gld, gx, graw, n, stride_elem,
-                            stride_param, K, B, stream);
+                       long long stride_elem, long long stride_param,
+                       long long graw_stride_elem,
+                       long long graw_stride_param, long long graw_cols,
+                       int K, double B, void* stream) {
+  return launch_bwd<double, false>(x, raw, gy, gld, gx, graw, n, stride_elem,
+                                   stride_param, graw_stride_elem,
+                                   graw_stride_param, graw_cols, K, B,
+                                   stream);
+}
+
+int rqs_bwd_invdir_f32(const void* x, const void* raw, const void* g_out,
+                       const void* gld, void* gx, void* graw, long long n,
+                       long long stride_elem, long long stride_param,
+                       long long graw_stride_elem,
+                       long long graw_stride_param, long long graw_cols,
+                       int K, double B, void* stream) {
+  return launch_bwd<float, true>(x, raw, g_out, gld, gx, graw, n,
+                                 stride_elem, stride_param, graw_stride_elem,
+                                 graw_stride_param, graw_cols, K, B, stream);
+}
+
+int rqs_bwd_invdir_f64(const void* x, const void* raw, const void* g_out,
+                       const void* gld, void* gx, void* graw, long long n,
+                       long long stride_elem, long long stride_param,
+                       long long graw_stride_elem,
+                       long long graw_stride_param, long long graw_cols,
+                       int K, double B, void* stream) {
+  return launch_bwd<double, true>(x, raw, g_out, gld, gx, graw, n,
+                                  stride_elem, stride_param, graw_stride_elem,
+                                  graw_stride_param, graw_cols, K, B, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 
 Counterpart of `normalizingflows/jl_tpu/models/distributions.py`. Where
 JAX takes a PRNG ``key`` these take a ``torch.Generator``, which must live
-on the device the samples are drawn on.
+on the device the samples are drawn on. ``device=None`` is the card.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import math
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from .bijector import Bijector
 
 __all__ = [
@@ -47,6 +48,7 @@ class DiagNormal(Distribution):
 
     @staticmethod
     def standard(dim: int, dtype=torch.float32, device=None) -> "DiagNormal":
+        device = resolve_device(device)
         return DiagNormal(torch.zeros((dim,), dtype=dtype, device=device),
                           torch.ones((dim,), dtype=dtype, device=device))
 
@@ -71,7 +73,8 @@ class StandardNormal(Distribution):
 
     def __init__(self, dim: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.dim, self.dtype, self.device = int(dim), dtype, device
+        self.dim, self.dtype = int(dim), dtype
+        self.device = resolve_device(device)
 
     @property
     def event_dim(self) -> int:

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import resolve_device
+
 __all__ = ["Dense", "MLP", "fnn", "leaky_relu"]
 
 
@@ -44,10 +46,11 @@ class Dense(nn.Module):
     @staticmethod
     def make(generator: torch.Generator, in_dim: int, out_dim: int,
              activation=None, dtype=torch.float32, device=None) -> "Dense":
-        """Glorot-uniform W and zero b. The draws are made on the
-        generator's device and then moved, so one seed gives the same
-        weights on every device."""
+        """Glorot-uniform W and zero b on ``device`` (None: the card). The
+        draws are made on the generator's device and then moved, so one seed
+        gives the same weights on every device."""
         _check_dtype(dtype)
+        device = resolve_device(device)
         limit = math.sqrt(6.0 / (in_dim + out_dim))
         W = torch.empty((in_dim, out_dim), dtype=dtype,
                         device=generator.device)
@@ -92,7 +95,9 @@ def fnn(
     device=None,
 ) -> MLP:
     """Fully-connected network (reference `fnn`, `src/flows/utils.jl:71-100`):
-    hidden layers with ``inlayer_activation``, optional output activation."""
+    hidden layers with ``inlayer_activation``, optional output activation,
+    on ``device`` (None: the card)."""
+    device = resolve_device(device)
     dims = [input_dim, *hidden_dims, output_dim]
     layers = []
     for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):

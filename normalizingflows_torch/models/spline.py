@@ -11,6 +11,9 @@ Counterpart of `normalizingflows/jl_tpu/models/spline.py`:
   loop, riffle once at the end.
 * `nsf`: defaults hdims=(32, 32), K=10, B=30, nlayers=10.
 
+Every constructor builds on ``device``; None is the card, and raises where
+there is no CUDA device.
+
 ``backend`` is ``"auto"`` (CUDA kernels for CUDA tensors, the plain
 version for CPU tensors), ``"plain"`` or ``"cuda"``, mirroring the JAX
 ``"auto" | "oracle" | "pallas"``. The kernel reads the conditioner's
@@ -29,6 +32,7 @@ from torch import nn
 from ..ops.masks import PartitionMask, interleave
 from ..ops.rqs import DEFAULT_MIN_DERIVATIVE
 from ..ops.rqs_cuda import BACKENDS, rqs_fused
+from ..utils.device import resolve_device
 from .bijector import Bijector
 from .distributions import DiagNormal, Distribution, TransformedDistribution
 from .flows import create_flow
@@ -70,6 +74,7 @@ class NeuralSplineCoupling(Bijector):
     def make(generator, dim, hdims, K, B, mask_idx, dtype=torch.float32,
              device=None, backend="auto",
              identity_init=False) -> "NeuralSplineCoupling":
+        device = resolve_device(device)
         mask = PartitionMask.make(dim, mask_idx)
         n_t = mask.n_transformed
         net = fnn(generator, dim - n_t, hdims, (3 * K - 1) * n_t,
@@ -159,6 +164,7 @@ def NSF_layer(generator, dim, hdims, K, B, dtype=torch.float32, device=None,
               identity_init=False) -> list[NeuralSplineCoupling]:
     """One NSF block: two spline couplings with complementary masks
     (reference `neuralspline.jl:169-184`)."""
+    device = resolve_device(device)
     return [NeuralSplineCoupling.make(generator, dim, hdims, K, B,
                                       range(parity, dim, 2), dtype, device,
                                       backend, identity_init)
@@ -188,6 +194,8 @@ def nsf(
     if remat or compute_dtype is not None or affine_wrap:
         raise NotImplementedError(
             "nsf(remat=, compute_dtype=, affine_wrap=) are not ported yet")
+    _check_backend(backend)
+    device = resolve_device(device)
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype, device)
     pairs = [NSF_layer(generator, q0.event_dim, hdims, K, B, dtype, device,

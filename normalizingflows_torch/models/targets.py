@@ -34,10 +34,11 @@ class Banana(Distribution):
     def event_dim(self) -> int:
         return self.dim
 
-    def sample(self, generator, sample_shape=(), dtype=torch.float32,
-               device=None):
+    def sample(self, generator, sample_shape=(), dtype=torch.float32):
+        """Exact draws, made on the generator's device."""
         z = torch.randn(tuple(sample_shape) + (self.dim,),
-                        generator=generator, dtype=dtype, device=device)
+                        generator=generator, dtype=dtype,
+                        device=generator.device)
         z0 = z[..., 0] * math.sqrt(self.var)
         y1 = z[..., 1] - self.b * z0.square() + self.var * self.b
         return torch.cat([z0[..., None], y1[..., None], z[..., 2:]], dim=-1)

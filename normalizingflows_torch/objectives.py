@@ -1,23 +1,27 @@
-"""Reverse-KL ELBO objectives.
+"""Variational objectives: reverse-KL ELBO (plain, batched, STL,
+importance-weighted) and the forward-KL log-likelihood.
 
-Counterpart of the ELBO part of `normalizingflows/jl_tpu/objectives.py`
-(reference `src/objectives/elbo.jl`). Any callable
-``vo(input, flow, *args) -> scalar`` can be passed to `train_flow`; higher
-is better and the trainer negates it into a loss. Where JAX takes a PRNG
-``key`` these take a ``torch.Generator`` on the flow's device.
+Counterpart of `normalizingflows/jl_tpu/objectives.py` (reference
+`src/objectives/elbo.jl`, `src/objectives/loglikelihood.jl`) without
+`tempered`. Any callable ``vo(input, flow, *args) -> scalar`` can be passed
+to `train_flow`; higher is better and the trainer negates it into a loss.
+Where JAX takes a PRNG ``key`` these take a ``torch.Generator`` on the
+flow's device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+from torch import nn
 
 from .models.distributions import TransformedDistribution
 
 __all__ = [
-    "elbo", "elbo_batch", "elbo_from_samples", "elbo_single_sample",
-    "presample_base",
+    "elbo", "elbo_batch", "elbo_from_samples", "elbo_iw",
+    "elbo_single_sample", "elbo_stl", "loglikelihood", "presample_base",
 ]
 
 LogDensity = Callable[[torch.Tensor], torch.Tensor]
@@ -47,6 +51,52 @@ def elbo_batch(generator: torch.Generator, flow: TransformedDistribution,
     (reference `elbo.jl:89-99`)."""
     return elbo_from_samples(flow.base.sample(generator, (n_samples,)), flow,
                              logp)
+
+
+class _LogProb(nn.Module):
+    """``flow.log_prob`` as a module's forward, for `functional_call`."""
+
+    def __init__(self, flow: TransformedDistribution):
+        super().__init__()
+        self.flow = flow
+
+    def forward(self, y):
+        return self.flow.log_prob(y)
+
+
+def elbo_stl(generator: torch.Generator, flow: TransformedDistribution,
+             logp: LogDensity, n_samples: int) -> torch.Tensor:
+    """Sticking-the-landing ELBO (Roeder, Wu & Duvenaud 2017). The value of
+    `elbo_batch`; its gradient keeps only the path derivative: ``log q(y)``
+    is evaluated through the inverse of a gradient-stopped copy of the flow
+    (its parameters enter detached), so the gradient reaches the
+    parameters through the draws ``y`` alone."""
+    xs = flow.base.sample(generator, (n_samples,))
+    ys, _ = flow.bijector.forward_and_log_det(xs)
+    stopped = {f"flow.{n}": p.detach() for n, p in flow.named_parameters()}
+    log_q = torch.func.functional_call(_LogProb(flow), stopped, (ys,))
+    return (logp(ys) - log_q).mean()
+
+
+def elbo_iw(generator: torch.Generator, flow: TransformedDistribution,
+            logp: LogDensity, n_samples: int,
+            n_particles: int = 8) -> torch.Tensor:
+    """Importance-weighted ELBO (Burda, Grosse & Salakhutdinov 2016):
+    ``mean_n [logsumexp_K log w − log K]`` with ``log w = logp(T(x)) −
+    log q(T(x))`` over ``n_particles`` draws per sample, one batched
+    traversal of the (K, n, d) block."""
+    xs = flow.base.sample(generator, (n_particles, n_samples))
+    log_w = elbo_single_sample(flow, logp, xs)  # (K, n)
+    return (torch.logsumexp(log_w, dim=0) - math.log(n_particles)).mean()
+
+
+def loglikelihood(flow: TransformedDistribution,
+                  xs: torch.Tensor) -> torch.Tensor:
+    """Forward-KL / maximum-likelihood objective: the mean log-density of
+    data ``xs`` (n, d) under the flow (reference
+    `src/objectives/loglikelihood.jl:18-33`, its unused ``rng`` dropped),
+    through the inverse and its log-det."""
+    return flow.log_prob(xs).mean()
 
 
 def elbo_from_samples(xs: torch.Tensor, flow: TransformedDistribution,

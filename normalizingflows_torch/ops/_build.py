@@ -37,12 +37,15 @@ _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
 # entry name -> argtypes (see the extern "C" block of csrc/rqs.cu)
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _I32, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+             _I32, _F64, _P]
 ENTRIES = {
     "rqs_fwd_f32": _FWD_ARGS,
     "rqs_fwd_f64": _FWD_ARGS,
     "rqs_bwd_fwddir_f32": _BWD_ARGS,
     "rqs_bwd_fwddir_f64": _BWD_ARGS,
+    "rqs_bwd_invdir_f32": _BWD_ARGS,
+    "rqs_bwd_invdir_f64": _BWD_ARGS,
 }
 
 

@@ -8,14 +8,25 @@ its log-derivative, so the (K+1)-knot tables never touch device memory:
   of the Pallas `_fwd_kernel` (`_tile_tables` + `_tile_transform`).
 * K2 ``rqs_bwd_fwddir``: the closed-form VJP of the forward direction, the
   port of `_bwd_kernel` with `_tile_bwd_analytic`.
+* K3 ``rqs_bwd_invdir``: the closed-form VJP of the inverse direction by
+  the implicit function theorem, the port of `_bwd_kernel` with
+  `_tile_bwd_analytic_inverse` (the density path: `log_prob` gradients).
 
 Beside each kernel is its plain torch version (`tile_transform`,
-`tile_bwd_analytic`), a line-by-line transcription of the Pallas tile in
-the elem-major (N, 3K−1) layout. ``backend="auto"`` launches the kernels
-for CUDA tensors and runs the plain versions for CPU tensors; nothing falls
-back: on a CUDA tensor a build failure, a launch error, or a K or dtype the
-kernels do not take raises. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count
-kernel launches.
+`tile_bwd_analytic`, `tile_bwd_analytic_inverse`), a line-by-line
+transcription of the Pallas tile in the elem-major (N, 3K−1) layout.
+``backend="auto"`` launches the kernels for CUDA tensors and runs the plain
+versions for CPU tensors; nothing falls back: on a CUDA tensor a build
+failure, a launch error, or a K or dtype the kernels do not take raises.
+``FWD_LAUNCHES``, ``BWD_LAUNCHES`` and ``BWD_INV_LAUNCHES`` count K1, K2 and
+K3 launches.
+
+The JAX module's layout entries all reach the same three kernels through
+raw's strides, with no transpose and no copy of raw: `rqs_fused` (raw
+(..., 3K−1)), `rqs_fused_t` (param-major (3K−1, N)) and `rqs_fused_e`
+(elem-major (N, P ≥ 3K−1), pad columns ignored and given zero cotangent).
+The Pallas rows layout (`_call_fwd_rows`: x (R, N/R), raw (3K−1, R, N/R))
+is `rqs_fused_t` over the flattened views of those tensors.
 """
 
 from __future__ import annotations
@@ -26,8 +37,10 @@ from torch.autograd.function import once_differentiable
 from . import rqs as _oracle
 
 __all__ = [
-    "rqs_fused", "tile_transform", "tile_bwd_analytic", "KERNEL_K",
-    "FWD_LAUNCHES", "BWD_LAUNCHES",
+    "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_forward",
+    "rqs_fused_inverse", "tile_transform", "tile_bwd_analytic",
+    "tile_bwd_analytic_inverse", "KERNEL_K", "FWD_LAUNCHES", "BWD_LAUNCHES",
+    "BWD_INV_LAUNCHES",
 ]
 
 # K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
@@ -38,6 +51,7 @@ BACKENDS = ("auto", "plain", "cuda")
 # Kernel launches since import (or since a caller reset them to 0).
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_INV_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +150,55 @@ def tile_transform(x, raw, B: float, inverse: bool = False):
     return out, torch.where(inside, ld, torch.zeros_like(ld))
 
 
+def _bin_of(x, raw, B, K, inverse):
+    """What both backward tiles recompute: the tables, the bin of each
+    element (found on the y-knots for the inverse) and its clamped spans
+    with the clamps' gradient gates."""
+    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
+     p_w, p_h, d_raw) = _tile_tables(raw, B, K, x.dtype)
+    inside = (x >= -B) & (x <= B)
+    v = x.clamp(-B, B)
+    onehot, (x_k, x_k1, y_k, y_k1, d_k, d_k1) = _pick_bin(
+        v, ys_lo if inverse else xs_lo,
+        (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi), K)
+    tiny = 1e-6 * 2.0 * B
+    w_span, h_span = x_k1 - x_k, y_k1 - y_k
+    w = torch.clamp_min(w_span, tiny)
+    h = torch.clamp_min(h_span, tiny)
+    w_gate = (w_span > tiny).to(x.dtype)  # gradient gates of the clamps
+    h_gate = (h_span > tiny).to(x.dtype)
+    return (inside, v, onehot, x_k, y_k, d_k, d_k1, w, h, w_gate, h_gate,
+            (p_w, p_h, d_raw))
+
+
+def _endpoints_to_raw(onehot, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, norm,
+                      B, K, dtype):
+    """The bin's endpoint gradients back to raw (N, 3K−1): widths and
+    heights through the cumsum and softmax, interior derivatives through
+    the softplus."""
+    p_w, p_h, d_raw = norm
+    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
+    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
+
+    def table_to_raw(g_lo_k, g_hi_k, p, min_bin):
+        # hi row j and lo row j+1 both read cumsum output j; the pinned
+        # +B (hi) and −B (lo) rows carry no gradient
+        g_lo, g_hi = onehot * g_lo_k[:, None], onehot * g_hi_k[:, None]
+        g_c = (2.0 * B) * (g_hi[:, :-1] + g_lo[:, 1:])
+        g_c = torch.cat([g_c, torch.zeros_like(g_c[:, :1])], dim=1)
+        g_soft = (1.0 - min_bin * K) * _rev_cumsum_cols(g_c)
+        dot = _oracle._exact_sum(p * g_soft)  # softmax VJP: p ⊙ (g − Σ p·g)
+        return p * (g_soft - dot)
+
+    g_w_raw = table_to_raw(g_xk, g_xk1, p_w, mbw)
+    g_h_raw = table_to_raw(g_yk, g_yk1, p_h, mbh)
+    # d_lo = [1, interior], d_hi = [interior, 1]; softplus' VJP is sigmoid
+    g_interior = (onehot * g_dk[:, None])[:, 1:] + \
+        (onehot * g_dk1[:, None])[:, :-1]
+    g_d_raw = torch.sigmoid(d_raw) * g_interior
+    return torch.cat([g_w_raw, g_h_raw, g_d_raw], dim=1).to(dtype)
+
+
 def tile_bwd_analytic(x, raw, gy, gld, B: float):
     """Plain version of K2 (Pallas `_tile_bwd_analytic`): the closed-form
     VJP of the forward tile. Returns gx (N,) and graw (N, 3K−1) in raw's
@@ -143,21 +206,8 @@ def tile_bwd_analytic(x, raw, gy, gld, B: float):
     and softplus normalisation; outside the box gx = gy and graw = 0."""
     K = (raw.shape[1] + 1) // 3
     B = float(B)
-    mbw = _oracle.DEFAULT_MIN_BIN_WIDTH
-    mbh = _oracle.DEFAULT_MIN_BIN_HEIGHT
-    (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi,
-     p_w, p_h, d_raw) = _tile_tables(raw, B, K, x.dtype)
-    inside = (x >= -B) & (x <= B)
-    v = x.clamp(-B, B)
-    onehot, (x_k, x_k1, y_k, y_k1, d_k, d_k1) = _pick_bin(
-        v, xs_lo, (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi), K)
-
-    tiny = 1e-6 * 2.0 * B
-    w_span, h_span = x_k1 - x_k, y_k1 - y_k
-    w = torch.clamp_min(w_span, tiny)
-    h = torch.clamp_min(h_span, tiny)
-    w_gate = (w_span > tiny).to(x.dtype)  # gradient gates of the clamps
-    h_gate = (h_span > tiny).to(x.dtype)
+    (inside, v, onehot, x_k, y_k, d_k, d_k1, w, h, w_gate, h_gate,
+     norm) = _bin_of(x, raw, B, K, inverse=False)
     s = h / w
     dsum = d_k1 + d_k - 2.0 * s
 
@@ -193,41 +243,91 @@ def tile_bwd_analytic(x, raw, gy, gld, B: float):
     g_xk = -g_w - g_xi / w
     g_yk = gy_in - g_h
 
-    def table_to_raw(g_lo_k, g_hi_k, p, min_bin):
-        # hi row j and lo row j+1 both read cumsum output j; the pinned
-        # +B (hi) and −B (lo) rows carry no gradient
-        g_lo, g_hi = onehot * g_lo_k[:, None], onehot * g_hi_k[:, None]
-        g_c = (2.0 * B) * (g_hi[:, :-1] + g_lo[:, 1:])
-        g_c = torch.cat([g_c, torch.zeros_like(g_c[:, :1])], dim=1)
-        g_soft = (1.0 - min_bin * K) * _rev_cumsum_cols(g_c)
-        dot = _oracle._exact_sum(p * g_soft)  # softmax VJP: p ⊙ (g − Σ p·g)
-        return p * (g_soft - dot)
-
-    g_w_raw = table_to_raw(g_xk, g_w, p_w, mbw)
-    g_h_raw = table_to_raw(g_yk, g_h, p_h, mbh)
-    # d_lo = [1, interior], d_hi = [interior, 1]; softplus' VJP is sigmoid
-    g_interior = (onehot * g_dk[:, None])[:, 1:] + \
-        (onehot * g_dk1[:, None])[:, :-1]
-    g_d_raw = torch.sigmoid(d_raw) * g_interior
-    graw = torch.cat([g_w_raw, g_h_raw, g_d_raw], dim=1).to(raw.dtype)
+    graw = _endpoints_to_raw(onehot, g_xk, g_w, g_yk, g_h, g_dk, g_dk1, norm,
+                             B, K, raw.dtype)
     return torch.where(inside, g_v, gy), graw
 
 
-def _plain_inverse_vjp(x, raw, gy, gld, B):
-    """VJP of the inverse direction by autograd through its plain tile."""
-    with torch.enable_grad():
-        xd = x.detach().requires_grad_()
-        rd = raw.detach().requires_grad_()
-        out = tile_transform(xd, rd, B, inverse=True)
-        return torch.autograd.grad(out, (xd, rd), (gy, gld))
+def tile_bwd_analytic_inverse(x, raw, g_out, gld, B: float):
+    """Plain version of K3 (Pallas `_tile_bwd_analytic_inverse`): the VJP
+    of the inverse tile by implicit differentiation. The inverse finds the
+    root ξ* of Y(ξ; θ) = v and emits out = x_k + ξ*·w and the negated
+    log-det; ∂ξ*/∂θ = −(∂Y/∂θ)/(∂Y/∂ξ) with ∂Y/∂ξ = w·P/D². ``g_out`` and
+    ``gld`` are the cotangents of those outputs. Returns gx (N,) and graw
+    (N, 3K−1) in raw's dtype; outside the box gx = g_out and graw = 0."""
+    K = (raw.shape[1] + 1) // 3
+    B = float(B)
+    (inside, v, onehot, x_k, y_k, d_k, d_k1, w, h, w_gate, h_gate,
+     norm) = _bin_of(x, raw, B, K, inverse=True)
+    s = h / w
+    dsum = d_k1 + d_k - 2.0 * s
+
+    # ξ* exactly as the inverse tile solves it
+    dy = v - y_k
+    a = h * (s - d_k) + dy * dsum
+    b = h * d_k - dy * dsum
+    c = -s * dy
+    disc = torch.clamp_min(b * b - 4.0 * a * c, 0.0)
+    xi = (2.0 * c / (-b - torch.sqrt(disc))).clamp(0.0, 1.0)
+
+    xi1m = 1.0 - xi
+    q = xi * xi1m
+    D = s + dsum * q
+    Ny = s * xi * xi + d_k * q
+    R = d_k1 * xi * xi + 2.0 * s * q + d_k * xi1m * xi1m
+    P = (s * s) * R
+
+    zero = torch.zeros_like(g_out)
+    g_out_in = torch.where(inside, g_out, zero)
+    gld_in = torch.where(inside, gld, zero)
+
+    # ld_out = −(log P − 2 log D): explicit partials at fixed ξ
+    gP_e = -gld_in / P
+    gD_e = 2.0 * gld_in / D
+    g_s_e = gD_e * (1.0 - 2.0 * q) + gP_e * (2.0 * s * R
+                                             + 2.0 * (s * s) * q)
+    g_dk_e = gD_e * q + gP_e * (s * s) * xi1m * xi1m
+    g_dk1_e = gD_e * q + gP_e * (s * s) * xi * xi
+
+    # total cotangent reaching ξ: out = x_k + ξw, plus ld's ξ-derivative
+    Dp = dsum * (1.0 - 2.0 * xi)                           # D'(ξ)
+    Pp = (s * s) * (2.0 * d_k1 * xi + 2.0 * s * (1.0 - 2.0 * xi)
+                    - 2.0 * d_k * xi1m)                    # P'(ξ)
+    g_xi_tot = g_out_in * w - gld_in * (Pp / P - 2.0 * Dp / D)
+
+    # implicit function: Y(ξ) = y_k + h·Ny/D = v; ∂Y/∂ξ = w·P/D²
+    dYdxi = w * P / (D * D)
+    coef = -g_xi_tot / dYdxi                              # ∂ξ/∂θ factor
+
+    # ∂Y/∂θ at fixed ξ (forward-map partials); ∂Y/∂y_k = 1
+    Y_s = h * (xi * xi * D - Ny * (1.0 - 2.0 * q)) / (D * D)
+    Y_dk = h * q * (D - Ny) / (D * D)
+    Y_dk1 = -h * Ny * q / (D * D)
+    Y_h_dir = Ny / D
+
+    g_s_tot = g_s_e + coef * Y_s
+    g_dk = g_dk_e + coef * Y_dk
+    g_dk1 = g_dk1_e + coef * Y_dk1
+    g_h_dir = coef * Y_h_dir
+    # v reaches ξ through Y(ξ*) = v: ∂ξ/∂v = 1/(∂Y/∂ξ)
+    g_v = g_xi_tot / dYdxi
+
+    # knot-endpoint grads, through the clamps
+    g_w = (g_out_in * xi - g_s_tot * h / (w * w)) * w_gate
+    g_h = (g_h_dir + g_s_tot / w) * h_gate
+    g_xk = g_out_in - g_w
+    g_yk = coef - g_h
+
+    graw = _endpoints_to_raw(onehot, g_xk, g_w, g_yk, g_h, g_dk, g_dk1, norm,
+                             B, K, raw.dtype)
+    return torch.where(inside, g_v, g_out), graw
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _kernel_args(x, raw):
-    K = (raw.shape[1] + 1) // 3
+def _kernel_args(x, raw, K):
     if K not in KERNEL_K:
         raise ValueError(f"the RQS kernels are built for K in {KERNEL_K}, "
                          f"got K={K}")
@@ -238,7 +338,7 @@ def _kernel_args(x, raw):
         raise ValueError("the RQS kernels need x and raw on one CUDA device")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    return K, _DTYPE_SUFFIX[x.dtype]
+    return _DTYPE_SUFFIX[x.dtype]
 
 
 def _raise_on(err: int, name: str):
@@ -246,11 +346,12 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _launch_fwd(x, raw, B, inverse):
+def _launch_fwd(x, raw, B, K, inverse):
+    """K1 on x (N,) and raw (N, P ≥ 3K−1) read through its strides."""
     global FWD_LAUNCHES
     from ._build import library
 
-    K, sfx = _kernel_args(x, raw)
+    sfx = _kernel_args(x, raw, K)
     y, ld = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return y, ld
@@ -266,56 +367,65 @@ def _launch_fwd(x, raw, B, inverse):
     return y, ld
 
 
-def _launch_bwd(x, raw, gy, gld, B):
-    global BWD_LAUNCHES
+def _launch_bwd(x, raw, gy, gld, B, K, inverse):
+    """K2 (forward direction) or K3 (inverse direction). graw takes raw's
+    layout (strides and pad columns; `empty_like` keeps the strides of a
+    dense tensor) and the kernel writes every column of it, the pad with
+    exact zeros."""
+    global BWD_LAUNCHES, BWD_INV_LAUNCHES
     from ._build import library
 
-    K, sfx = _kernel_args(x, raw)
+    sfx = _kernel_args(x, raw, K)
     gy, gld = gy.contiguous(), gld.contiguous()
-    gx = torch.empty_like(x)
-    graw = torch.empty(raw.shape, dtype=raw.dtype, device=raw.device)
+    gx, graw = torch.empty_like(x), torch.empty_like(raw)
     if x.numel() == 0:
         return gx, graw
+    name = "rqs_bwd_invdir" if inverse else "rqs_bwd_fwddir"
     with torch.cuda.device(x.device):
-        err = getattr(library(), f"rqs_bwd_fwddir_{sfx}")(
+        err = getattr(library(), f"{name}_{sfx}")(
             x.data_ptr(), raw.data_ptr(), gy.data_ptr(), gld.data_ptr(),
             gx.data_ptr(), graw.data_ptr(), x.numel(), raw.stride(0),
-            raw.stride(1), K, B, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "rqs_bwd_fwddir")
-    BWD_LAUNCHES += 1
+            raw.stride(1), graw.stride(0), graw.stride(1), graw.shape[1], K,
+            B, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    if inverse:
+        BWD_INV_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return gx, graw
 
 
 class _RQSFused(torch.autograd.Function):
-    """x (N,) contiguous, raw (N, 3K−1) any strides → (out, ld). Saves
-    (x, raw) and recomputes the tables in the backward, as the Pallas
-    custom VJP does (`_rqs_fused_t_fwd`)."""
+    """x (N,) contiguous, raw (N, P ≥ 3K−1) any strides, the spline's
+    parameters in its first 3K−1 columns → (out, ld). Saves (x, raw) and
+    recomputes the tables in the backward, as the Pallas custom VJP does
+    (`_rqs_fused_t_fwd`); the pad columns get a zero cotangent."""
 
     @staticmethod
-    def forward(ctx, x, raw, B, inverse, use_kernel):
+    def forward(ctx, x, raw, B, K, inverse, use_kernel):
         ctx.save_for_backward(x, raw)
-        ctx.B, ctx.inverse, ctx.use_kernel = B, inverse, use_kernel
+        ctx.B, ctx.K, ctx.inverse, ctx.use_kernel = B, K, inverse, use_kernel
         if use_kernel:
-            return _launch_fwd(x, raw, B, inverse)
-        return tile_transform(x, raw, B, inverse)
+            return _launch_fwd(x, raw, B, K, inverse)
+        return tile_transform(x, raw[:, :3 * K - 1], B, inverse)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gld):
         x, raw = ctx.saved_tensors
-        if ctx.inverse:
-            if ctx.use_kernel:
-                raise NotImplementedError(
-                    "the inverse direction's backward kernel (Pallas "
-                    "`_tile_bwd_analytic_inverse`) is not ported yet")
-            gx, graw = _plain_inverse_vjp(x, raw, gy, gld, ctx.B)
-        elif ctx.use_kernel:
-            gx, graw = _launch_bwd(x, raw, gy, gld, ctx.B)
+        if ctx.use_kernel:
+            gx, graw = _launch_bwd(x, raw, gy, gld, ctx.B, ctx.K, ctx.inverse)
         else:
-            gx, graw = tile_bwd_analytic(x, raw, gy, gld, ctx.B)
+            tile = (tile_bwd_analytic_inverse if ctx.inverse
+                    else tile_bwd_analytic)
+            P = 3 * ctx.K - 1
+            gx, graw = tile(x, raw[:, :P], gy, gld, ctx.B)
+            if raw.shape[1] > P:
+                graw = torch.cat([graw, graw.new_zeros(
+                    (graw.shape[0], raw.shape[1] - P))], dim=1)
         need_x, need_raw = ctx.needs_input_grad[:2]
         return (gx if need_x else None, graw if need_raw else None,
-                None, None, None)
+                None, None, None, None)
 
 
 def _use_kernel(backend: str, x: torch.Tensor) -> bool:
@@ -330,6 +440,16 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
     raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
+def _apply(x, raw2, B, K, inverse, backend):
+    """x (...,) and raw2 (x.numel(), P ≥ 3K−1) through the Function."""
+    use_kernel = _use_kernel(backend, x)
+    if raw2.dtype != x.dtype:
+        raw2 = raw2.to(x.dtype)
+    y, ld = _RQSFused.apply(x.reshape(-1).contiguous(), raw2, float(B),
+                            int(K), bool(inverse), use_kernel)
+    return y.reshape(x.shape), ld.reshape(x.shape)
+
+
 def rqs_fused(x, raw, B: float, inverse: bool = False, backend: str = "auto"):
     """Fused RQS transform of ``x`` (...,) by per-element raw parameters
     ``raw`` (..., 3K−1), read through its strides (a param-major
@@ -340,10 +460,41 @@ def rqs_fused(x, raw, B: float, inverse: bool = False, backend: str = "auto"):
     if (P + 1) % 3 or raw.shape[:-1] != x.shape:
         raise ValueError(f"raw must be x.shape + (3K−1,), got "
                          f"{tuple(raw.shape)} for x {tuple(x.shape)}")
-    use_kernel = _use_kernel(backend, x)
-    raw2 = raw.reshape(-1, P)  # a view for the conditioner's output
-    if raw2.dtype != x.dtype:
-        raw2 = raw2.to(x.dtype)
-    y, ld = _RQSFused.apply(x.reshape(-1).contiguous(), raw2, float(B),
-                            bool(inverse), use_kernel)
-    return y.reshape(x.shape), ld.reshape(x.shape)
+    # a view for the conditioner's output
+    return _apply(x, raw.reshape(-1, P), B, (P + 1) // 3, inverse, backend)
+
+
+def rqs_fused_t(x_flat, raw_t, B: float, inverse: bool = False,
+                backend: str = "auto"):
+    """Fused RQS on param-major inputs (JAX `rqs_fused_t`): ``x_flat``
+    (N,), ``raw_t`` (3K−1, N). The kernels read ``raw_t`` through its
+    strides and its gradient comes back param-major: no transpose."""
+    P = raw_t.shape[0]
+    if x_flat.dim() != 1 or raw_t.dim() != 2 or (P + 1) % 3 or \
+            raw_t.shape[1] != x_flat.shape[0]:
+        raise ValueError(f"need x_flat (N,) and raw_t (3K−1, N), got "
+                         f"{tuple(x_flat.shape)} and {tuple(raw_t.shape)}")
+    return _apply(x_flat, raw_t.T, B, (P + 1) // 3, inverse, backend)
+
+
+def rqs_fused_e(x_flat, raw_e, B: float, K: int, inverse: bool = False,
+                backend: str = "auto"):
+    """Fused RQS on elem-major inputs (JAX `rqs_fused_e`): ``x_flat``
+    (N,), ``raw_e`` (N, P) with the 3K−1 raw parameters in its leading
+    columns. P ≥ 3K−1 may be padded: the pad columns are never read and
+    their gradient is exactly 0."""
+    K = int(K)
+    if x_flat.dim() != 1 or raw_e.dim() != 2 or \
+            raw_e.shape[0] != x_flat.shape[0] or raw_e.shape[1] < 3 * K - 1:
+        raise ValueError(f"need x_flat (N,) and raw_e (N, P >= 3K−1), got "
+                         f"{tuple(x_flat.shape)} and {tuple(raw_e.shape)} "
+                         f"for K={K}")
+    return _apply(x_flat, raw_e, B, K, inverse, backend)
+
+
+def rqs_fused_forward(x, raw, B: float, **kw):
+    return rqs_fused(x, raw, B, inverse=False, **kw)
+
+
+def rqs_fused_inverse(y, raw, B: float, **kw):
+    return rqs_fused(y, raw, B, inverse=True, **kw)

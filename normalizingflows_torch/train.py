@@ -1,4 +1,4 @@
-"""Training API: `train_flow` / `optimize`.
+"""Training API: `train_flow` / `train_flow_mle` / `optimize`.
 
 Counterpart of `normalizingflows/jl_tpu/train.py` (reference
 `src/NormalizingFlows.jl:51-86` driving `src/optimize.jl:57-108`). One step
@@ -24,7 +24,8 @@ import torch
 from .models.distributions import TransformedDistribution
 from .utils.pytree import global_norm, trainable_parameters
 
-__all__ = ["train_flow", "optimize", "TrainResult", "TrainState"]
+__all__ = ["train_flow", "train_flow_mle", "optimize", "TrainResult",
+           "TrainState"]
 
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
 
@@ -49,6 +50,17 @@ def _default_optimizer(params) -> torch.optim.Optimizer:
     # (`src/NormalizingFlows.jl:60`). torch's Adam with betas (0.9, 0.999)
     # and eps 1e-8 is optax.adam's update.
     return torch.optim.Adam(params, lr=1e-3)
+
+
+def _start(flow, optimizer, train_base, resume_state):
+    """(flow, optimizer, first iteration, trainable parameters): a fresh
+    optimizer over the trainable parameters, or the resumed run's."""
+    if resume_state is not None:
+        flow = resume_state.flow
+        return (flow, resume_state.opt_state, resume_state.iteration,
+                trainable_parameters(flow, train_base))
+    params = trainable_parameters(flow, train_base)
+    return flow, (optimizer or _default_optimizer)(params), 0, params
 
 
 def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
@@ -132,15 +144,8 @@ def train_flow(
     Pass `objectives.presample_base(n)` with the `elbo_from_samples`
     objective to draw a whole chunk's base samples in one call.
     """
-    if resume_state is not None:
-        flow = resume_state.flow
-        opt = resume_state.opt_state
-        start_iter = resume_state.iteration
-        params = trainable_parameters(flow, train_base)
-    else:
-        params = trainable_parameters(flow, train_base)
-        opt = (optimizer or _default_optimizer)(params)
-        start_iter = 0
+    flow, opt, start_iter, params = _start(flow, optimizer, train_base,
+                                           resume_state)
     if scan_inputs is None:
         def scan_inputs(g, f, n):
             return [g] * n
@@ -160,6 +165,54 @@ def train_flow(
     return _drive_chunks(run_chunk, flow, opt, start_iter, max_iters,
                          check_every, callback, hasconverged, show_progress,
                          "train_flow")
+
+
+def train_flow_mle(
+    flow: TransformedDistribution,
+    loader,
+    max_iters: int = 1000,
+    optimizer: OptimizerFactory | None = None,
+    train_base: bool = False,
+    check_every: int = 100,
+    show_progress: bool = False,
+    callback: Callable[[int, dict, TransformedDistribution], dict | None]
+    | None = None,
+    hasconverged: Callable[[int, dict, TransformedDistribution, Any], bool]
+    | None = None,
+    resume_state: TrainState | None = None,
+) -> TrainResult:
+    """Forward-KL (maximum-likelihood) training from a data loader.
+
+    ``loader`` is any object with ``next_batches(k) -> (k, batch, dim)``
+    (`utils.data.make_loader`). Per chunk of ``check_every`` steps the
+    chunk's batches are fetched once and moved to the flow's device and
+    dtype in one copy; each step maximises `objectives.loglikelihood` of
+    its batch, the density path (inverse with log-det). `_drive_chunks`,
+    stats, callback and convergence check are `train_flow`'s.
+    ``train_base=False`` freezes ``flow.base``.
+    """
+    from .objectives import loglikelihood
+
+    flow, opt, start_iter, params = _start(flow, optimizer, train_base,
+                                           resume_state)
+    like = next(flow.parameters())
+
+    def run_chunk(chunk):
+        batches = torch.from_numpy(np.asarray(loader.next_batches(chunk))).to(
+            device=like.device, dtype=like.dtype)
+        losses, gnorms = [], []
+        for i in range(chunk):
+            opt.zero_grad(set_to_none=True)
+            loss = -loglikelihood(flow, batches[i])
+            loss.backward()
+            gnorms.append(global_norm([p.grad for p in params]))
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses), torch.stack(gnorms)
+
+    return _drive_chunks(run_chunk, flow, opt, start_iter, max_iters,
+                         check_every, callback, hasconverged, show_progress,
+                         "train_flow_mle")
 
 
 def optimize(

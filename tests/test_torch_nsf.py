@@ -58,7 +58,7 @@ def _pair(dt, K, backend="pallas", identity_init=False, seed=0):
                    nlayers=NLAYERS, dtype=jdt, backend=backend,
                    interpret=True, identity_init=identity_init)
     tflow = nft.nsf(torch.Generator().manual_seed(seed), DIM, HDIMS, K=K,
-                    B=BOX, nlayers=NLAYERS, dtype=tdt)
+                    B=BOX, nlayers=NLAYERS, dtype=tdt, device="cpu")
     load_jax_params(tflow, jax_arrays(jflow))
     return jflow, tflow
 
@@ -156,7 +156,7 @@ def test_coupling_layers_match_jax(dt, K):
         jax.random.key(11), DIM, HDIMS, K, BOX, jdt, backend="oracle",
         identity_init=True)))
     tpair = nft.Chain(nft.NSF_layer(torch.Generator().manual_seed(11), DIM,
-                                    HDIMS, K, BOX, tdt))
+                                    HDIMS, K, BOX, tdt, device="cpu"))
     load_jax_params(tpair, jax_arrays(jpair))
     x = _draws(dt, seed=12)
     xt = torch.from_numpy(x)
@@ -196,7 +196,8 @@ def test_coupling_layers_match_jax(dt, K):
 def test_identity_init_matches_jax(dt):
     jflow, tflow = _pair(dt, 10, "oracle", identity_init=True)
     t2 = nft.nsf(torch.Generator().manual_seed(5), DIM, HDIMS, K=10, B=BOX,
-                 nlayers=NLAYERS, dtype=DT[dt][1], identity_init=True)
+                 nlayers=NLAYERS, dtype=DT[dt][1], identity_init=True,
+                 device="cpu")
     for net in t2.bijector.bijectors[0].stacked["even"]:
         assert torch.count_nonzero(net.layers[-1].W) == 0
     x = _draws(dt, seed=6)
@@ -223,7 +224,7 @@ def test_banana_and_base_log_prob_match_jax(dt):
     jb = nf.DiagNormal(jnp.asarray(loc), jnp.asarray(scale))
     _close(tb.log_prob(torch.from_numpy(x)), jb.log_prob(jnp.asarray(x)),
            TOL[dt]["v"])
-    _close(nft.StandardNormal(DIM, tdt).log_prob(torch.from_numpy(x)),
+    _close(nft.StandardNormal(DIM, tdt, "cpu").log_prob(torch.from_numpy(x)),
            nf.StandardNormal(DIM, jdt).log_prob(jnp.asarray(x)),
            TOL[dt]["v"])
 
@@ -301,6 +302,6 @@ def test_unported_options_raise():
     for kw in (dict(remat=True), dict(affine_wrap=True),
                dict(compute_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
-            nft.nsf(g, DIM, HDIMS, **kw)
+            nft.nsf(g, DIM, HDIMS, device="cpu", **kw)
     with pytest.raises(ValueError):
-        nft.nsf(g, DIM, HDIMS, backend="pallas")
+        nft.nsf(g, DIM, HDIMS, device="cpu", backend="pallas")

@@ -220,7 +220,7 @@ def test_raw_in_another_dtype_gets_its_gradient_in_its_dtype():
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
-    """On CPU tensors the wrapper runs the plain version: both launch
+    """On CPU tensors the wrapper runs the plain version: the launch
     counters stay at 0 and the kernel library is never built."""
     def no_build():
         raise AssertionError("the CPU path must not build the kernels")
@@ -228,11 +228,13 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     monkeypatch.setattr(_build, "library", no_build)
     monkeypatch.setattr(rqs_cuda, "FWD_LAUNCHES", 0)
     monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
+    monkeypatch.setattr(rqs_cuda, "BWD_INV_LAUNCHES", 0)
     x, raw = _inputs("f32", 10, seed=29)
     for inverse in (False, True):
         _loss_grads(_t(x), _t(raw), lambda x, r: rqs_cuda.rqs_fused(
             x, r, B, inverse=inverse))
     assert rqs_cuda.FWD_LAUNCHES == 0 and rqs_cuda.BWD_LAUNCHES == 0
+    assert rqs_cuda.BWD_INV_LAUNCHES == 0
 
 
 @pytest.mark.parametrize("backend,exc", [("cuda", ValueError),

@@ -55,7 +55,7 @@ def _flows(dt, backend="oracle", seed=0):
         lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape),
                                         a.dtype), jflow)
     tflow = nft.nsf(torch.Generator().manual_seed(seed), DIM, HDIMS, K=10,
-                    B=4.0, nlayers=NLAYERS, dtype=tdt)
+                    B=4.0, nlayers=NLAYERS, dtype=tdt, device="cpu")
     load_jax_params(tflow, jax_arrays(jflow))
     return jflow, tflow
 
