@@ -1,4 +1,4 @@
-"""Where the time goes in the PyTorch port's NSF training step, on one GPU.
+"""Where the time goes in the PyTorch port's training steps, on one GPU.
 
     python benchmarks/torch_profile.py [--out FILE]
 
@@ -8,15 +8,23 @@ Prints one JSON object (and writes it to ``--out`` if given):
   training (`train_flow`: demo d=2, [32,32]x10, batch 64; wide d=64,
   [128,128]x10, batch 4096) and maximum-likelihood training
   (`train_flow_mle` on 65,536 draws of Banana(d, 1, 10): mle_demo, batch
-  256; mle_wide, batch 4096): steps/s by host clock (3 runs, taken before
-  any profiler run, which slows later launches), then a
+  256; mle_wide, batch 4096), and RealNVP ELBO training on Banana(d, 1,
+  100): the demo (d=2, [16,16]x3, batch 16, Adam(5e-4)) through the fused
+  coupling kernels (rnvp_fused) and the unfused module path
+  (rnvp_unfused), the reference default ([32,32]x10, batch 256, fused;
+  rnvp_ref) and the wide unfused shape (d=128, [256,256]x10, batch 4096,
+  Adam(1e-3)) with and without remat (rnvp_wide, rnvp_wide_noremat):
+  steps/s by host clock (3 runs, taken before any profiler run, which
+  slows later launches) and the peak device memory of those runs beside
+  what was allocated before them (this and earlier cells' flows and
+  optimizer states), then a
   `torch.profiler` trace of a few steps: kernels per step, device-busy time
   (union of kernel intervals), the device's idle share of the wall time,
-  and device time by category (rqs, gemm, optimizer, reduce, elementwise)
-  and by kernel.
+  and device time by category (rqs, coupling, gemm, optimizer, reduce,
+  elementwise) and by kernel.
 
-The times of K1/K2/K3 against their plain versions are `chip_smoke.py`'s
-(phase 3). Needs a CUDA device; builds the kernels from
+The times of K1–K5 against their plain versions are `chip_smoke.py`'s
+(phases 3 and 12). Needs a CUDA device; builds the kernels from
 ``normalizingflows_torch/csrc``.
 """
 
@@ -38,12 +46,22 @@ import normalizingflows_torch as nft  # noqa: E402
 
 B = 30.0
 MLE_ROWS = 65536
-# name, nsf kwargs, target dim, batch, Adam lr, profiled steps; the mle_
-# cells train by maximum likelihood on draws of Banana(d, 1, 10)
+RNVP_WIDE = dict(q0=128, hdims=(256, 256), nlayers=10)
+# name, nsf (realnvp for rnvp_) kwargs, target dim, batch, Adam lr, profiled
+# steps; the mle_ cells train by maximum likelihood on draws of
+# Banana(d, 1, 10)
 CELLS = (("demo", dict(q0=2, hdims=(32, 32)), 2, 64, 5e-4, 20),
          ("wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10),
          ("mle_demo", dict(q0=2, hdims=(32, 32)), 2, 256, 1e-3, 20),
-         ("mle_wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10))
+         ("mle_wide", dict(q0=64, hdims=(128, 128)), 64, 4096, 1e-3, 10),
+         ("rnvp_fused", dict(q0=2, hdims=(16, 16), nlayers=3, fused=True), 2,
+          16, 5e-4, 50),
+         ("rnvp_unfused", dict(q0=2, hdims=(16, 16), nlayers=3), 2, 16, 5e-4,
+          50),
+         ("rnvp_ref", dict(q0=2, hdims=(32, 32), nlayers=10, fused=True), 2,
+          256, 5e-4, 50),
+         ("rnvp_wide", dict(RNVP_WIDE, remat=True), 128, 4096, 1e-3, 5),
+         ("rnvp_wide_noremat", RNVP_WIDE, 128, 4096, 1e-3, 5))
 
 
 def _kernel_events(prof):
@@ -58,6 +76,8 @@ def _category(name: str) -> str:
     low = name.lower()
     if "rqs_" in name:
         return "rqs"
+    if "coupling_" in name:
+        return "coupling"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     if "multi_tensor" in low or "foreach" in low or "adam" in low:
@@ -107,8 +127,11 @@ def _breakdown(prof, steps: int, wall_s: float) -> dict:
 
 
 def _cell(name, cfg, dim, batch, lr, gen):
-    flow = nft.nsf(torch.Generator().manual_seed(0), K=10, B=B, nlayers=10,
-                   identity_init=True, **cfg)
+    if name.startswith("rnvp_"):
+        flow = nft.realnvp(torch.Generator().manual_seed(0), **cfg)
+    else:
+        flow = nft.nsf(torch.Generator().manual_seed(0), K=10, B=B,
+                       nlayers=10, identity_init=True, **cfg)
     kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=lr),
               check_every=100)
     if name.startswith("mle_"):
@@ -136,6 +159,9 @@ def train_cells(gen) -> dict:
     for name, cfg, dim, batch, lr, steps in CELLS:
         run, state = _cell(name, cfg, dim, batch, lr, gen)
         rates = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -144,7 +170,9 @@ def train_cells(gen) -> dict:
             rates.append(10 * steps / (time.perf_counter() - t0))
         runs[name] = (run, state, steps)
         out[name] = {"steps_per_s_3_runs": rates,
-                     "steps_per_s_median": statistics.median(rates)}
+                     "steps_per_s_median": statistics.median(rates),
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                     "held_before_mib": held / 2**20}
     for name, (run, state, steps) in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

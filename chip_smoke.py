@@ -3,13 +3,14 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the hand-written CUDA kernels from ``normalizingflows_torch/csrc``
-and drives the port's two paths through them: reverse-KL ELBO training of
-the neural spline flow (K1 forward, K2), and its density path, maximum-
-likelihood training through `log_prob` (K1 inverse, K3):
+and drives the port's paths through them: reverse-KL ELBO training of the
+neural spline flow (K1 forward, K2), its density path, maximum-likelihood
+training through `log_prob` (K1 inverse, K3), and RealNVP (K4, K5, from
+phase 12 on):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc of csrc/*.cu, its seconds and ptxas register/spill report
-   (K1, K2, K3);
+2. build: nvcc of csrc/*.cu, one process per source, its seconds and the
+   ptxas register/spill report (K1–K5);
 3. kernels against their plain torch versions on the card: K1 forward and
    inverse, K2's and K3's gx/graw, at N = 64 (demo), 1000 (ragged) and
    131072 (wide), K 8 and 10, float32 and float64, raw read elem-major and
@@ -36,6 +37,31 @@ likelihood training through `log_prob` (K1 inverse, K3):
 11. MLE wide (d=64, hdims (128, 128), K=10, 10 layers, batch 4096, 65,536
     draws of Banana(64, 1, 10)) for 20 steps: steps/s and peak memory.
 
+Then RealNVP (the fused coupling-stack kernels K4 `coupling_fwd` and K5
+`coupling_bwd`, and the unfused module path beside them):
+
+12. K4 and K5 against their plain versions (`tile_flow`, `tile_flow_bwd`)
+    on the card: the demo model (d=2, [16,16]x3) at N 16, 300 and 262,144,
+    the reference default ([32,32]x10) at N 256, d=5 with [8,8]x2 at N 300;
+    float32 and float64, forward and inverse; y, ld, gx and every weight
+    gradient; K5 twice with identical bits. Device times at N 16, 256 and
+    262,144 of K4, K5 (both passes), the plain versions and the unfused
+    `CouplingPairStack` forward and forward+backward on the same weights;
+13. one `elbo_from_samples` value-and-grad on the demo through
+    `realnvp(fused=True)` on the card, the same flow with backend "plain",
+    and the unfused `realnvp` of the same seed (same weights);
+14. the slice's main path: `train_flow` on `realnvp(2, (16, 16), nlayers=3,
+    fused=True)` on Banana(2, 1, 100), `elbo_batch`, 16 samples,
+    Adam(5e-4), 1,000 steps, with launch counts (one K4 and one K5 a
+    step); then 1,000 steps of the unfused `realnvp` of the same seed;
+15. sampling: `sample_and_log_prob` at batch 262,144 through K4 and through
+    the unfused path (samples/s), and the round trip `log_prob(y)` (K4
+    inverse) against `sample_and_log_prob`'s value;
+16. the reference default `realnvp(2)` ([32,32]x10), batch 256, fused, 50
+    steps: steps/s and launch counts;
+17. wide unfused RealNVP (d=128, [256,256]x10, batch 4096, remat=True,
+    float32) for 20 steps after 2: steps/s and peak memory, no kernel.
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -45,6 +71,8 @@ per-kernel JSON.
 from __future__ import annotations
 
 import copy
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -68,13 +96,34 @@ MLE_WIDE_STEPS, MLE_WIDE_BATCH = 20, 4096
 # the card's published peaks (H100 SXM datasheet, at 700 W):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# RealNVP: the demo (bench.py:37-43, example/demo_RealNVP.jl), the
+# reference default (`realnvp` defaults, Agrawal–Sheldon–Domke) and the wide
+# GEMM-bound shape of the unfused path (benchmarks/roofline.py:180-193)
+RNVP_DEMO = dict(q0=2, hdims=(16, 16), nlayers=3)
+RNVP_REF = dict(q0=2, hdims=(32, 32), nlayers=10)
+RNVP_ODD = dict(q0=5, hdims=(8, 8), nlayers=2)
+RNVP_WIDE = dict(q0=128, hdims=(256, 256), nlayers=10, remat=True)
+RNVP_STEPS, RNVP_BATCH, RNVP_LR = 1000, 16, 5e-4
+RNVP_REF_STEPS, RNVP_REF_BATCH = 50, 256
+RNVP_WIDE_STEPS, RNVP_WIDE_BATCH, RNVP_WIDE_LR = 20, 4096, 1e-3
+SAMPLE_BATCH, SAMPLE_REPS = 262144, 10
+# (model, N) of the phase-12 comparisons, and the (model, N) timed
+CPL_SHAPES = (("demo", 16), ("demo", 300), ("demo", 262144), ("ref", 256),
+              ("odd", 300))
+CPL_TIMED = (("demo", 16), ("ref", 256), ("demo", 262144))
+CPL_CFG = {"demo": RNVP_DEMO, "ref": RNVP_REF, "odd": RNVP_ODD}
 KERNELS = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir")
+CPL_KERNELS = ("coupling_fwd", "coupling_bwd")
 REPLACES = {
     "rqs_fwd": "normalizingflows/jl_tpu/ops/rqs_pallas.py:649, :541, :685",
     "rqs_bwd_fwddir": "normalizingflows/jl_tpu/ops/rqs_pallas.py:717, :576 "
                       "(forward direction)",
     "rqs_bwd_invdir": "normalizingflows/jl_tpu/ops/rqs_pallas.py:717, :576 "
                       "(inverse direction)",
+    "coupling_fwd": "normalizingflows/jl_tpu/experimental/coupling_pallas.py"
+                    ":371",
+    "coupling_bwd": "normalizingflows/jl_tpu/experimental/coupling_pallas.py"
+                    ":438",
 }
 # Kernel against plain version. f32: tests/test_rqs_kernel.py:43-44 (values
 # rtol/atol 1e-5; log-dets rtol 1e-4, atol 1e-5) and :78-79 (gradients rtol
@@ -93,6 +142,12 @@ STEP_TOL = (2e-3, 1e-4)
 # roundings where a spline's slope nears its 1e-3 floor; a CPU run of the
 # plain path reached 1e-3): rtol 1e-3, atol 1e-2.
 ROUND_TRIP_TOL = (1e-3, 1e-2)
+# K4/K5 against their plain versions use TOL too: in float32 they are also
+# the JAX suite's fused-coupling tolerances (tests/test_coupling_kernel.py
+# :35-36, 65, 80). Not bit for bit here: the plain version's matmuls go
+# through cuBLAS and sum in another order. The cotangents are those of a
+# mean over the batch (scaled by 1/N), as the ELBO's are, so the weight
+# gradients' batch sums stay of order 1 at every N.
 
 
 def say(phase: int, msg: str):
@@ -101,7 +156,7 @@ def say(phase: int, msg: str):
 
 def compare(name, got, want, tol, quiet=False) -> float:
     """Max abs error; raises if any element is outside rtol/atol."""
-    got, want = got.double(), want.double()
+    got, want = got.detach().double(), want.detach().double()
     err = (got - want).abs()
     bound = tol[1] + tol[0] * want.abs()
     bad = int((err > bound).sum())
@@ -118,12 +173,19 @@ def compare(name, got, want, tol, quiet=False) -> float:
     return max_abs
 
 
+@functools.cache
+def _warmup_stream() -> torch.cuda.Stream:
+    """One side stream for every capture's warmup: cuBLAS keeps a
+    workspace for each stream it has run on, for the life of the process."""
+    return torch.cuda.Stream()
+
+
 def device_ms(fn, reps=7, inner=20) -> float:
     """Median over ``reps`` of the device time of one call of ``fn``.
     After a warmup, ``inner`` calls are captured once into a CUDA graph,
     which is replayed between two CUDA events: the time is the card's, not
     the host's launch cost (tens of µs a call, more than the kernel)."""
-    side = torch.cuda.Stream()
+    side = _warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # capture wants the warmup off-stream
         for _ in range(3):
@@ -171,9 +233,34 @@ def launch_counts(rqs_cuda) -> dict:
             "rqs_bwd_invdir": rqs_cuda.BWD_INV_LAUNCHES}
 
 
-def reset_counts(rqs_cuda):
+def all_counts() -> dict:
+    """Every kernel's launch count: the RQS and the coupling ones."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.ops import rqs_cuda
+
+    return {**launch_counts(rqs_cuda),
+            "coupling_fwd": cc.COUPLING_FWD_LAUNCHES,
+            "coupling_bwd": cc.COUPLING_BWD_LAUNCHES}
+
+
+def reset_counts():
+    """Every kernel's launch count to 0 (the RQS and the coupling ones)."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.ops import rqs_cuda
+
     rqs_cuda.FWD_LAUNCHES = rqs_cuda.BWD_LAUNCHES = 0
     rqs_cuda.BWD_INV_LAUNCHES = 0
+    cc.COUPLING_FWD_LAUNCHES = cc.COUPLING_BWD_LAUNCHES = 0
+
+
+def expect_counts(label: str, **want):
+    """Raise unless every kernel's count since the last reset is ``want``'s
+    (0 for a kernel it does not name)."""
+    got = all_counts()
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+    return got
 
 
 def phase_device() -> str:
@@ -405,7 +492,7 @@ def _both_backends(phase, flow_c, objective, want):
     flow_p.bijector.bijectors[0].backend = "plain"
     out = {}
     for label, flow in (("cuda", flow_c), ("plain", flow_p)):
-        reset_counts(rqs_cuda)
+        reset_counts()
         loss = -objective(flow)
         loss.backward()
         torch.cuda.synchronize()
@@ -457,14 +544,14 @@ def phase_main_path(gen, name):
         stamps.append((it, time.perf_counter()))  # after the chunk's fetch
 
     torch.cuda.synchronize()
-    reset_counts(rqs_cuda)
+    reset_counts()
     t0 = time.perf_counter()
     res = nft.train_flow(
         gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
         max_iters=DEMO_STEPS, check_every=100, callback=callback,
         optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR))
     t1 = time.perf_counter()
-    launches = launch_counts(rqs_cuda)
+    launches = all_counts()
 
     losses = res.stats["loss"]
     if len(losses) != DEMO_STEPS or not torch.isfinite(
@@ -475,7 +562,8 @@ def phase_main_path(gen, name):
         raise AssertionError(f"demo loss did not fall: {first} -> {last}")
     per_step = 2 * DEMO["nlayers"]
     want = {"rqs_fwd": per_step * DEMO_STEPS,
-            "rqs_bwd_fwddir": per_step * DEMO_STEPS, "rqs_bwd_invdir": 0}
+            "rqs_bwd_fwddir": per_step * DEMO_STEPS, "rqs_bwd_invdir": 0,
+            "coupling_fwd": 0, "coupling_bwd": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} in {DEMO_STEPS} steps, "
                              f"expected {want}")
@@ -501,7 +589,7 @@ def phase_wide(gen, name):
                           WIDE_BATCH, max_iters=2, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(rqs_cuda)
+    reset_counts()
     t0 = time.perf_counter()
     res = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
                          WIDE_BATCH, max_iters=WIDE_STEPS,
@@ -582,14 +670,14 @@ def phase_mle(gen, name):
 
     loader = nft.utils.data.make_loader(train, MLE_BATCH, seed=0)
     torch.cuda.synchronize()
-    reset_counts(rqs_cuda)
+    reset_counts()
     t0 = time.perf_counter()
     res = nft.train_flow_mle(
         flow, loader, max_iters=MLE_STEPS, check_every=100,
         callback=callback,
         optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR))
     t1 = time.perf_counter()
-    launches = launch_counts(rqs_cuda)
+    launches = all_counts()
     with torch.no_grad():
         after = float(flow.log_prob(held).mean())
 
@@ -603,7 +691,8 @@ def phase_mle(gen, name):
                              f"{before} -> {after}")
     per_step = 2 * DEMO["nlayers"]
     want = {"rqs_fwd": per_step * MLE_STEPS, "rqs_bwd_fwddir": 0,
-            "rqs_bwd_invdir": per_step * MLE_STEPS}
+            "rqs_bwd_invdir": per_step * MLE_STEPS, "coupling_fwd": 0,
+            "coupling_bwd": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} in {MLE_STEPS} steps, "
                              f"expected {want}")
@@ -633,7 +722,7 @@ def phase_mle_wide(gen, name):
     warm = nft.train_flow_mle(flow, loader, max_iters=2, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(rqs_cuda)
+    reset_counts()
     t0 = time.perf_counter()
     res = nft.train_flow_mle(flow, loader, max_iters=MLE_WIDE_STEPS,
                              check_every=MLE_WIDE_STEPS,
@@ -655,6 +744,394 @@ def phase_mle_wide(gen, name):
             f"{losses[-1]:.2f}, launches (K1, K2, K3) {launches}, on {name}")
 
 
+# ---------------------------------------------------------------------------
+# RealNVP: the fused coupling-stack kernels K4/K5 and the unfused path
+# ---------------------------------------------------------------------------
+
+def coupling_work(kernel: str, cfg: dict, n: int, word_bytes: int):
+    """(operations, bytes) one call of K4 or K5 needs on n rows, counted
+    from csrc/coupling.cu. Per coupling and net: a multiply and an add per
+    weight (MACs), a bias add and an activation per unit; per transformed
+    element an exp, a multiply, an add and the log-det add. K5's work is
+    the VJP's: one forward (the kernel runs it twice, once keeping each
+    coupling's input and once rebuilding its caches, but the second is its
+    choice, not the function's), then per layer the weight gradient Hᵀ·G
+    and the input cotangent G·Wᵀ (a MAC each per weight and row), the slope
+    and the bias gradient per unit, and ~6 operations per transformed
+    element. Bytes:
+    K4 reads x and the weights and writes y and ld; K5 reads x, gy, gld and
+    the weights and writes gx and the weight gradients."""
+    d, hdims, L = cfg["q0"], cfg["hdims"], cfg["nlayers"]
+    ops, n_params = 0, 0
+    for n_a in ((d + 1) // 2, d // 2):
+        widths = [d - n_a, *hdims, n_a]
+        macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+        units = sum(widths[1:])
+        fwd = 2 * (2 * macs + 2 * units) + 4 * n_a
+        n_params += L * 2 * (macs + units)
+        if kernel == "coupling_fwd":
+            ops += L * fwd
+        else:
+            ops += L * (fwd + 2 * (4 * macs + 2 * units) + 6 * n_a)
+    if kernel == "coupling_fwd":
+        words = n * (2 * d + 1) + n_params
+    else:
+        words = n * (3 * d + 1) + 2 * n_params
+    return n * ops, words * word_bytes
+
+
+def coupling_bound_ms(kernel: str, cfg: dict, n: int):
+    """The float32 bound (the timed shapes are float32)."""
+    ops, nbytes = coupling_work(kernel, cfg, n, 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _rnvp(cfg: dict, seed: int, fused: bool, dtype=torch.float32):
+    import normalizingflows_torch as nft
+
+    # no device argument: the port builds on the card by default
+    return nft.realnvp(torch.Generator().manual_seed(seed), fused=fused,
+                       dtype=dtype, **cfg)
+
+
+def _stack_grads(stack, grp: str, net: str, li: int):
+    """The unfused stack's (W, b) gradients of one conditioner layer,
+    stacked over blocks like the fused flow's."""
+    return [torch.stack([getattr(m.layers[li], k).grad
+                         for m in stack.stacked[f"{net}_{grp}"]])
+            for k in ("W", "b")]
+
+
+def _unfused_like(fb, cfg: dict, dtype):
+    """An unfused `CouplingPairStack` holding the fused flow's weights."""
+    stack = _rnvp(cfg, 0, False, dtype).bijector.bijectors[0]
+    with torch.no_grad():
+        for grp in ("even", "odd"):
+            for net in ("s", "t"):
+                for li, (W, b) in enumerate(fb.groups[grp][net]):
+                    for i, m in enumerate(stack.stacked[f"{net}_{grp}"]):
+                        m.layers[li].W.copy_(W[i])
+                        m.layers[li].b.copy_(b[i])
+    return stack
+
+
+def _cpl_run(cc, x, fb, gy, gld, inverse):
+    """(y, ld, gx, *weight grads) through `coupling_stack_fused` on the
+    card: one K4 launch and one K5 call."""
+    leaves = cc._leaves(fb.groups)
+    xg = x.detach().requires_grad_()
+    y, ld = cc.coupling_stack_fused(xg, fb.groups, fb.idx_even, fb.idx_odd,
+                                    inverse=inverse, backend="cuda")
+    grads = torch.autograd.grad((y, ld), [xg] + leaves, (gy, gld))
+    return [y.detach(), ld.detach(), *grads]
+
+
+def phase_coupling_kernels(gen):
+    """K4 and K5 against their plain versions on the card; device times."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    results = {k: {"err": 0.0, "ms_by_n": {}, "plain_ms_by_n": {},
+                   "bound_ms_by_n": {}, "unfused_ms_by_n": {}}
+               for k in CPL_KERNELS}
+    n_cmp = 0
+    flows = {}
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[dtype]
+        for model, n in CPL_SHAPES:
+            cfg = CPL_CFG[model]
+            if (model, dtype) not in flows:
+                flow = _perturbed(_rnvp(cfg, 30, True, dtype))
+                flows[(model, dtype)] = flow.bijector.bijectors[0]
+            fb = flows[(model, dtype)]
+            d = cfg["q0"]
+            sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+            x = torch.randn((n, d), generator=gen, device=DEVICE, dtype=dtype)
+            gy = torch.randn((n, d), generator=gen, device=DEVICE,
+                             dtype=dtype) / n
+            gld = torch.randn((n,), generator=gen, device=DEVICE,
+                              dtype=dtype) / n
+            tag = f"{str(dtype)[6:]} {model} N={n}"
+            for inverse in (False, True):
+                dr = "inv" if inverse else "fwd"
+                got = _cpl_run(cc, x, fb, gy, gld, inverse)
+                again = _cpl_run(cc, x, fb, gy, gld, inverse)
+                for i, (a, b) in enumerate(zip(got, again)):
+                    _same(f"K4/K5 {dr} {tag} output {i}, two runs", a, b)
+                y_p, ld_p = cc.tile_flow(x, fb.groups, sels, inverse)
+                gx_p, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels,
+                                              inverse)
+                e4 = max(compare(f"K4 {dr} y  {tag}", got[0], y_p, tol["y"]),
+                         compare(f"K4 {dr} ld {tag}", got[1], ld_p,
+                                 tol["ld"]))
+                # gy and gld are scaled by 1/n (the weight gradients are
+                # means); gx is per row, so its atol is scaled with them
+                gx_tol = (tol["g"][0], tol["g"][1] / n)
+                e5 = max(compare(f"K5 {dr} {tag} {name}", a, b,
+                                 gx_tol if name == "gx" else tol["g"],
+                                 quiet=name != "gx")
+                         for name, a, b in zip(
+                             ["gx"] + [f"leaf {i}" for i in
+                                       range(len(got) - 3)],
+                             got[2:], [gx_p] + cc._leaves(tree)))
+                n_cmp += len(got)
+                if dtype == torch.float32 and model == "demo":
+                    results["coupling_fwd"]["err"] = max(
+                        results["coupling_fwd"]["err"], e4)
+                    results["coupling_bwd"]["err"] = max(
+                        results["coupling_bwd"]["err"], e5)
+    torch.cuda.synchronize()
+    say(12, f"{n_cmp} K4/K5-vs-plain comparisons within tolerance (float32 "
+            f"and float64, forward and inverse, y, ld, gx and every weight "
+            f"gradient); K4 and K5 gave identical bits on two runs each")
+
+    for model, n in CPL_TIMED:
+        cfg = CPL_CFG[model]
+        fb = flows[(model, torch.float32)]
+        d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+        leaves = cc._leaves(fb.groups)
+        stack = _unfused_like(fb, cfg, torch.float32)
+        params = list(stack.parameters())
+        x = torch.randn((n, d), generator=gen, device=DEVICE)
+        xg = x.clone().requires_grad_()
+        gy = torch.randn((n, d), generator=gen, device=DEVICE) / n
+        gld = torch.randn((n,), generator=gen, device=DEVICE) / n
+
+        def unfused_fwd():
+            with torch.no_grad():
+                return stack.forward_and_log_det(x)
+
+        def unfused_fwd_bwd():
+            y, ld = stack.forward_and_log_det(xg)
+            return torch.autograd.grad((y, ld), [xg] + params, (gy, gld))
+
+        t = {"coupling_fwd": (
+                 device_ms(lambda: cc._launch_fwd(x, leaves, sels, depth,
+                                                  False)),
+                 device_ms(lambda: cc.tile_flow(x, fb.groups, sels)),
+                 device_ms(unfused_fwd)),
+             "coupling_bwd": (
+                 device_ms(lambda: cc._launch_bwd(x, leaves, gy, gld, sels,
+                                                  depth, False)),
+                 device_ms(lambda: cc.tile_flow_bwd(x, fb.groups, gy, gld,
+                                                    sels)),
+                 device_ms(unfused_fwd_bwd))}
+        for k, (ms, plain_ms, unfused_ms) in t.items():
+            bms, by = coupling_bound_ms(k, cfg, n)
+            key = str(n)
+            results[k]["ms_by_n"][key] = ms
+            results[k]["plain_ms_by_n"][key] = plain_ms
+            results[k]["bound_ms_by_n"][key] = bms
+            results[k]["unfused_ms_by_n"][key] = unfused_ms
+            results[k].setdefault("bound_by_n", {})[key] = by
+            what = ("forward" if k == "coupling_fwd"
+                    else "forward+backward")
+            say(12, f"{k} {model} N={n} f32: kernel {ms:.5f} ms, plain "
+                    f"{plain_ms:.5f} ms, unfused {what} {unfused_ms:.5f} ms, "
+                    f"bound {bms:.5f} ms ({by}) (device time a call: median "
+                    f"of 7 CUDA-graph replays of 20 calls, CUDA events)")
+    for k in CPL_KERNELS:
+        r = results[k]
+        main = str(RNVP_BATCH)
+        r.update(ms=r["ms_by_n"][main], plain_ms=r["plain_ms_by_n"][main],
+                 bound_ms=r["bound_ms_by_n"][main],
+                 bound_by=r["bound_by_n"][main],
+                 unfused_ms=r["unfused_ms_by_n"][main])
+    return results
+
+
+def phase_rnvp_same_step(gen):
+    """One ELBO value-and-grad through the fused flow on the card, the same
+    flow on the plain versions, and the unfused flow of the same seed."""
+    import normalizingflows_torch as nft
+
+    fused = _rnvp(RNVP_DEMO, 21, True)
+    plain = copy.deepcopy(fused)
+    plain.bijector.bijectors[0].backend = "plain"
+    unfused = _rnvp(RNVP_DEMO, 21, False)
+    fb, stack = fused.bijector.bijectors[0], unfused.bijector.bijectors[0]
+    for grp in ("even", "odd"):
+        for net in ("s", "t"):
+            for li, (W, _) in enumerate(fb.groups[grp][net]):
+                for i, m in enumerate(stack.stacked[f"{net}_{grp}"]):
+                    _same(f"weights {grp} {net} {li} block {i}", W[i],
+                          m.layers[li].W)
+    xs = fused.base.sample(gen, (RNVP_BATCH,)).detach()
+    target = nft.Banana(2, 1.0, 100.0)
+    out = {}
+    for label, flow, want in (
+            ("fused cuda", fused, dict(coupling_fwd=1, coupling_bwd=1)),
+            ("fused plain", plain, {}), ("unfused", unfused, {})):
+        reset_counts()
+        loss = -nft.elbo_from_samples(xs, flow, target.log_prob)
+        loss.backward()
+        torch.cuda.synchronize()
+        expect_counts(f"phase 13, {label}", **want)
+        out[label] = loss.detach()
+    for label in ("fused plain", "unfused"):
+        compare(f"loss, fused cuda vs {label}",
+                out["fused cuda"].reshape(1), out[label].reshape(1), STEP_TOL)
+    worst, count = 0.0, 0
+    fbp = plain.bijector.bijectors[0]
+    for grp in ("even", "odd"):
+        for net in ("s", "t"):
+            for li in range(len(fb.groups[grp][net])):
+                ref = _stack_grads(stack, grp, net, li)
+                for k in (0, 1):
+                    got = fb.groups[grp][net][li][k].grad
+                    for want in (fbp.groups[grp][net][li][k].grad, ref[k]):
+                        worst = max(worst, compare(
+                            f"grad {grp} {net} {li} {k}", got, want,
+                            STEP_TOL, quiet=True))
+                    count += 1
+    for name in ("loc", "scale"):
+        got = getattr(fused.base, name).grad
+        for flow in (plain, unfused):
+            worst = max(worst, compare(f"grad base.{name}", got,
+                                       getattr(flow.base, name).grad,
+                                       STEP_TOL, quiet=True))
+        count += 1
+    say(13, f"loss {float(out['fused cuda']):.6f} on the three paths; "
+            f"{count} gradients agree (max abs err {worst:.3e}); the fused "
+            f"pass launched K4 once and K5 once, the others no kernel")
+
+
+def _train_rate(flow, gen, target, batch, steps, lr, check_every):
+    """train_flow with elbo_batch: (result, seconds, steps/s after the
+    first chunk)."""
+    import normalizingflows_torch as nft
+
+    stamps = []
+
+    def callback(it, stat, f):
+        stamps.append((it, time.perf_counter()))  # after the chunk's fetch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob, batch,
+                         max_iters=steps, check_every=check_every,
+                         callback=callback,
+                         optimizer=lambda p: torch.optim.Adam(p, lr=lr))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steady = ((stamps[-1][0] - stamps[0][0]) / (stamps[-1][1] - stamps[0][1])
+              if len(stamps) > 1 else steps / dt)
+    losses = res.stats["loss"]
+    if len(losses) != steps or not torch.isfinite(
+            torch.from_numpy(losses)).all():
+        raise AssertionError("training gave non-finite losses")
+    return res, dt, steady
+
+
+def phase_rnvp_main(name):
+    """The slice's main path: fused RealNVP demo training, then the unfused
+    flow of the same seed on the same draws."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    flows, launches = {}, None
+    for fused in (True, False):
+        flow = _rnvp(RNVP_DEMO, 0, fused)
+        gen = torch.Generator(device=DEVICE).manual_seed(40)
+        reset_counts()
+        res, dt, steady = _train_rate(flow, gen, target, RNVP_BATCH,
+                                      RNVP_STEPS, RNVP_LR, 100)
+        want = (dict(coupling_fwd=RNVP_STEPS, coupling_bwd=RNVP_STEPS)
+                if fused else {})
+        counts = expect_counts("phase 14", **want)
+        losses = res.stats["loss"]
+        first, last = losses[:100].mean(), losses[-100:].mean()
+        if not last < first:
+            raise AssertionError(f"ELBO did not rise: {-first} -> {-last}")
+        label = "fused" if fused else "unfused"
+        say(14, f"{label}: ELBO {-losses[0]:.4f} -> {-losses[-1]:.4f} (mean "
+                f"of first 100 {-first:.4f}, last 100 {-last:.4f}); "
+                f"{RNVP_STEPS} steps in {dt:.2f} s = {RNVP_STEPS / dt:.1f} "
+                f"steps/s overall, {steady:.1f} steps/s after the first "
+                f"chunk, on {name}; launches {counts}")
+        flows[label] = flow
+        if fused:
+            launches = counts
+    return flows, launches
+
+
+def phase_rnvp_sampling(flows, gen, name):
+    """sample_and_log_prob at batch 262,144 through K4 and unfused, and the
+    round trip through K4's inverse."""
+    rates = {}
+    with torch.no_grad():
+        for label, flow in flows.items():
+            flow.sample_and_log_prob(gen, (SAMPLE_BATCH,))  # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(SAMPLE_REPS):
+                flow.sample_and_log_prob(gen, (SAMPLE_BATCH,))
+            torch.cuda.synchronize()
+            rates[label] = SAMPLE_REPS * SAMPLE_BATCH / (
+                time.perf_counter() - t0)
+            expect_counts(f"phase 15 {label}", **(
+                dict(coupling_fwd=SAMPLE_REPS) if label == "fused" else {}))
+        fused = flows["fused"]
+        y, lq = fused.sample_and_log_prob(gen, (SAMPLE_BATCH,))
+        lp = fused.log_prob(y)
+        if y.shape != (SAMPLE_BATCH, 2) or not bool(torch.isfinite(y).all()):
+            raise AssertionError("samples are not finite (262144, 2)")
+    e = compare("log_prob(y) vs sample_and_log_prob", lp, lq, ROUND_TRIP_TOL)
+    say(15, f"sample_and_log_prob, batch {SAMPLE_BATCH}, {SAMPLE_REPS} "
+            f"calls: fused (K4) {rates['fused']:.4g} samples/s, unfused "
+            f"{rates['unfused']:.4g} samples/s, on {name}; round trip "
+            f"through K4's inverse: max abs err {e:.3e}")
+
+
+def phase_rnvp_ref(gen, name):
+    """The reference default realnvp(2): [32,32]x10, batch 256, fused."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    flow = _rnvp(RNVP_REF, 50, True)
+    _train_rate(flow, gen, target, RNVP_REF_BATCH, 5, RNVP_LR, 5)  # warm
+    reset_counts()
+    res, dt, _ = _train_rate(flow, gen, target, RNVP_REF_BATCH,
+                             RNVP_REF_STEPS, RNVP_LR, RNVP_REF_STEPS)
+    counts = expect_counts("phase 16", coupling_fwd=RNVP_REF_STEPS,
+                           coupling_bwd=RNVP_REF_STEPS)
+    losses = res.stats["loss"]
+    say(16, f"reference default [32,32]x10, batch {RNVP_REF_BATCH}, fused: "
+            f"{RNVP_REF_STEPS} steps in {dt:.3f} s = "
+            f"{RNVP_REF_STEPS / dt:.1f} steps/s, loss {losses[0]:.2f} -> "
+            f"{losses[-1]:.2f}, launches {counts}, on {name}")
+
+
+def phase_rnvp_wide(gen, name):
+    """Wide unfused RealNVP with remat: the GEMM-bound default path."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(RNVP_WIDE["q0"], 1.0, 100.0)
+    flow = _rnvp(RNVP_WIDE, 60, False)
+    _train_rate(flow, gen, target, RNVP_WIDE_BATCH, 2, RNVP_WIDE_LR, 2)
+    gc.collect()  # earlier phases' reference cycles (CUDA graphs, flows)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    res, dt, _ = _train_rate(flow, gen, target, RNVP_WIDE_BATCH,
+                             RNVP_WIDE_STEPS, RNVP_WIDE_LR, RNVP_WIDE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts("phase 17")
+    losses = res.stats["loss"]
+    cfg = RNVP_WIDE
+    say(17, f"wide unfused f32 d={cfg['q0']} {list(cfg['hdims'])}x"
+            f"{cfg['nlayers']} batch {RNVP_WIDE_BATCH} remat: "
+            f"{RNVP_WIDE_STEPS} steps in {dt:.3f} s = "
+            f"{RNVP_WIDE_STEPS / dt:.2f} steps/s, peak memory "
+            f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB of it held "
+            f"before the run: the flow's weights and what earlier phases "
+            f"keep), loss {losses[0]:.2f} -> "
+            f"{losses[-1]:.2f}, no kernel launched, on {name}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -672,29 +1149,44 @@ def main() -> int:
     phase_stl()
     mle_launches = phase_mle(gen, name)
     phase_mle_wide(gen, name)
+    cpl = phase_coupling_kernels(gen)
+    phase_rnvp_same_step(gen)
+    rnvp_flows, rnvp_launches = phase_rnvp_main(name)
+    phase_rnvp_sampling(rnvp_flows, gen, name)
+    phase_rnvp_ref(gen, name)
+    phase_rnvp_wide(gen, name)
     torch.cuda.synchronize()
 
     # each kernel's launches on the path it serves: K2 on the ELBO path,
-    # K1 and K3 on the density path (K1 runs on both)
-    paths = {"elbo_demo": elbo_launches, "mle_demo": mle_launches}
+    # K1 and K3 on the density path (K1 runs on both), K4 and K5 on the
+    # RealNVP demo's
+    paths = {"elbo_demo": elbo_launches, "mle_demo": mle_launches,
+             "realnvp_demo": rnvp_launches}
     own = {"rqs_fwd": "mle_demo", "rqs_bwd_fwddir": "elbo_demo",
-           "rqs_bwd_invdir": "mle_demo"}
+           "rqs_bwd_invdir": "mle_demo", "coupling_fwd": "realnvp_demo",
+           "coupling_bwd": "realnvp_demo"}
+
+    def entry(k, source, r, extra):
+        return {"name": k, "route": "cuda",
+                "source": f"normalizingflows_torch/csrc/{source}",
+                "replaces": REPLACES[k], "launches": paths[own[k]][k],
+                "launches_by_path": {p: c[k] for p, c in paths.items()},
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                **{key: r[key] for key in extra}}
+
     print(f"chip_smoke.py: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda",
-         "source": "normalizingflows_torch/csrc/rqs.cu",
-         "replaces": REPLACES[k], "launches": paths[own[k]][k],
-         "launches_by_path": {p: c[k] for p, c in paths.items()},
-         "max_abs_err": kernels[k]["err"], "ms": kernels[k]["ms"],
-         "plain_ms": kernels[k]["plain_ms"],
-         "bound_ms": kernels[k]["bound_ms"],
-         "bound_by": kernels[k]["bound_by"], "library_ms": None,
-         "ms_demo": kernels[k]["ms_demo"],
-         "plain_ms_demo": kernels[k]["plain_ms_demo"],
-         "bound_ms_demo": kernels[k]["bound_ms_demo"]}
-        for k in KERNELS]}), flush=True)
+        entry(k, "rqs.cu", kernels[k],
+              ("ms_demo", "plain_ms_demo", "bound_ms_demo"))
+        for k in KERNELS] + [
+        entry(k, "coupling.cu", cpl[k],
+              ("unfused_ms", "ms_by_n", "plain_ms_by_n", "bound_ms_by_n",
+               "unfused_ms_by_n"))
+        for k in CPL_KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,16 +3,21 @@
 The PyTorch port of `normalizingflows.jl_tpu`, with the same public names.
 Its tree mirrors the JAX package's (`models/`, `ops/`, `utils/`,
 `objectives.py`, `train.py`), so each module's counterpart sits at the same
-relative path. The fused rational-quadratic-spline kernels of the neural
-spline flow are CUDA C++ in `csrc/`, built with nvcc at first use.
+relative path. The hand-written kernels (the neural spline flow's fused
+rational-quadratic spline, the fused RealNVP coupling stack) are CUDA C++
+in `csrc/`, built with nvcc at first use.
 
 The port covers reverse-KL ELBO training of the neural spline flow, its
-density path (log_prob with gradients) and maximum-likelihood training:
+density path (log_prob with gradients) and maximum-likelihood training, and
+RealNVP, unfused or through the fused coupling-stack kernels:
   train_flow, train_flow_mle, optimize -> .train
   elbo, elbo_batch, elbo_from_samples, elbo_stl, elbo_iw,
   loglikelihood                        -> .objectives
   create_flow                          -> .models.flows
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
+  realnvp, RealNVP_layer, AffineCoupling, CouplingPairStack
+                                       -> .models.coupling
+  realnvp(fused=True): FusedRealNVP    -> .experimental
   MLP, fnn                             -> .models.nets
   Banana                               -> .models.targets
   utils.data.make_loader, NumpyLoader  -> .utils.data
@@ -33,6 +38,12 @@ from .models.bijector import (  # noqa: E402
     Identity,
     Inverse,
     invert,
+)
+from .models.coupling import (  # noqa: E402
+    AffineCoupling,
+    CouplingPairStack,
+    RealNVP_layer,
+    realnvp,
 )
 from .models.distributions import (  # noqa: E402
     DiagNormal,
@@ -79,6 +90,7 @@ __all__ = [
     # flows
     "create_flow", "MLP", "fnn",
     "NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf",
+    "AffineCoupling", "CouplingPairStack", "RealNVP_layer", "realnvp",
     # targets
     "Banana",
     # objectives

@@ -1,0 +1,486 @@
+"""Fused RealNVP coupling stack: CUDA kernels and plain versions.
+
+Counterpart of `normalizingflows/jl_tpu/experimental/coupling_pallas.py`.
+One call applies a whole stack of affine-coupling blocks (both conditioner
+MLPs of every coupling, exp-scale-shift, log-det and combine) with no
+intermediate in device memory:
+
+* K4 ``coupling_fwd`` (``csrc/coupling.cu``): the stack forward or inverse
+  with the running log-det, the port of the Pallas `_fwd_kernel`
+  (`_tile_flow`, launched by `_call_fwd`).
+* K5 ``coupling_bwd`` with its ``coupling_bwd_reduce`` pass: the
+  hand-written backward, the port of `_bwd_kernel` (`_call_bwd`). It
+  recomputes the forward, sweeps the couplings back (`_coupling_bwd`,
+  `_mlp_bwd`) and sums the weight gradients over the batch in a fixed
+  order, without atomics: two runs give the same bits.
+
+Beside them are their plain torch versions: `tile_flow`, a line-by-line
+transcription of `_tile_flow` (the one-hot selection products, exact picks,
+are index reads here), and `tile_flow_bwd`, the manual reverse sweep of
+`_bwd_kernel` written out, not taken by autograd. Note `_mlp_bwd`'s
+leaky-relu slope is 1 where the activation is ≥ 0, so at a pre-activation
+of exactly 0 these take slope 1 where `F.leaky_relu`'s backward (the
+unfused module path) takes 0.01.
+
+``backend="auto"`` launches the kernels for CUDA tensors and runs the plain
+versions for CPU tensors; ``"plain"`` always runs the plain versions;
+``"cuda"`` raises without CUDA tensors. Nothing falls back: on a CUDA tensor
+a build failure, a launch error, or a shape outside the kernels' bounds
+(``KERNEL_MAX_D``, ``KERNEL_MAX_WIDTH``, ``KERNEL_MAX_DEPTH``) raises. K5
+also keeps every coupling's input tile in shared memory, so the blocks a
+stack may have are capped by ``KERNEL_MAX_SMEM`` (`_bwd_smem_bytes`): about
+171 in float32 at d=2 with [32,32] conditioners, 14 in float64 at d=8. A
+forward that autograd will differentiate is refused past that cap too, so
+the failure comes before the forward runs, not in the backward.
+``COUPLING_FWD_LAUNCHES`` counts K4 launches, ``COUPLING_BWD_LAUNCHES`` K5
+calls (two kernels each).
+
+The weights are the JAX ``groups`` pytree: ``groups['even'|'odd']['s'|'t']
+[layer]`` is ``(W (n_blocks, in, out), b (n_blocks, out))``, as dicts and
+lists or as the `ModuleDict`/`ModuleList`/`ParameterList` of
+`FusedRealNVP`. The kernels take them, and give their gradients back, as
+tables of device pointers in that pytree's leaf order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.autograd.function import once_differentiable
+
+__all__ = [
+    "coupling_stack_fused", "tile_flow", "tile_flow_bwd",
+    "COUPLING_FWD_LAUNCHES", "COUPLING_BWD_LAUNCHES", "KERNEL_MAX_D",
+    "KERNEL_MAX_WIDTH", "KERNEL_MAX_DEPTH", "KERNEL_MAX_SMEM",
+]
+
+# the bounds the kernels are instantiated for (csrc/coupling.cu): d, the
+# hidden widths, and the Dense layers a conditioner (at least 2)
+KERNEL_MAX_D, KERNEL_MAX_WIDTH, KERNEL_MAX_DEPTH = 8, 32, 4
+BWD_ROWS = 64          # rows a K5 CTA takes at a time (kBwdRows)
+KERNEL_MAX_SMEM = 227 * 1024  # dynamic shared memory a block may opt into
+BWD_MAX_CTAS = 1024    # K5 CTAs at most: the partial slices to sum
+BACKENDS = ("auto", "plain", "cuda")
+_GROUPS = ("even", "odd")
+_NETS = ("s", "t")
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# Kernel launches since import (or since a caller reset them to 0).
+COUPLING_FWD_LAUNCHES = 0
+COUPLING_BWD_LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# The groups pytree
+# ---------------------------------------------------------------------------
+
+def _leaves(groups) -> list[torch.Tensor]:
+    """Leaves in the JAX pytree order: even.s, even.t, odd.s, odd.t, per
+    layer W then b."""
+    return [p for grp in _GROUPS for net in _NETS
+            for layer in groups[grp][net] for p in (layer[0], layer[1])]
+
+
+def _unflatten(leaves, depth: int) -> dict:
+    it = iter(leaves)
+    return {grp: {net: [(next(it), next(it)) for _ in range(depth)]
+                  for net in _NETS} for grp in _GROUPS}
+
+
+def _depth(groups) -> int:
+    depths = {(grp, net): len(groups[grp][net])
+              for grp in _GROUPS for net in _NETS}
+    if len(set(depths.values())) != 1:
+        raise ValueError(
+            "coupling_stack_fused requires all four conditioner stacks "
+            f"(even/odd × s/t) to share the same depth; got {depths}")
+    return len(groups["even"]["s"])
+
+
+def _sels(idx_even, idx_odd, d):
+    """(idx_even, comp_even, idx_odd, comp_odd) as tuples of ints."""
+    idx_even = tuple(int(i) for i in idx_even)
+    idx_odd = tuple(int(i) for i in idx_odd)
+    return (idx_even, tuple(i for i in range(d) if i not in set(idx_even)),
+            idx_odd, tuple(i for i in range(d) if i not in set(idx_odd)))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: x (n, d)
+# ---------------------------------------------------------------------------
+
+def _leaky_relu(x):
+    return torch.where(x >= 0, x, 0.01 * x)
+
+
+# index tensors by (index tuple, device): made once, so that a call after
+# the first copies nothing from the host (and can be captured in a graph)
+_INDEX: dict = {}
+
+
+def _index(idx, device):
+    key = (idx, device)
+    if key not in _INDEX:
+        _INDEX[key] = torch.tensor(idx, dtype=torch.long, device=device)
+    return _INDEX[key]
+
+
+def _pick(x, idx):
+    return x.index_select(1, _index(idx, x.device))
+
+
+def _combine(y_a, x_b, idx_a, idx_b):
+    """The inverse of the partition: y[:, idx_a] = y_a, y[:, idx_b] = x_b."""
+    order = sorted(range(len(idx_a) + len(idx_b)),
+                   key=lambda k: (tuple(idx_a) + tuple(idx_b))[k])
+    return torch.cat([y_a, x_b], dim=1).index_select(
+        1, _index(tuple(order), y_a.device))
+
+
+def _mlp(xb, weights, out_tanh):
+    """A Dense chain [(W, b), ...] with leaky-relu hiddens."""
+    h = xb
+    depth = len(weights)
+    for li, (W, b) in enumerate(weights):
+        h = h @ W + b
+        if li < depth - 1:
+            h = _leaky_relu(h)
+        elif out_tanh:
+            h = torch.tanh(h)
+    return h
+
+
+def _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse):
+    """One affine coupling on an (n, d) tile."""
+    x_a, x_b = _pick(x, idx_a), _pick(x, idx_b)
+    s = _mlp(x_b, s_w, out_tanh=True)
+    t = _mlp(x_b, t_w, out_tanh=False)
+    if inverse:
+        y_a = (x_a - t) * torch.exp(-s)
+        ld = ld - s.sum(dim=-1)
+    else:
+        y_a = x_a * torch.exp(s) + t
+        ld = ld + s.sum(dim=-1)
+    return _combine(y_a, x_b, idx_a, idx_b), ld
+
+
+def _block_weights(groups, i):
+    """Block i's (even s, even t, odd s, odd t) Dense lists."""
+    return tuple([(layer[0][i], layer[1][i]) for layer in groups[grp][net]]
+                 for grp in _GROUPS for net in _NETS)
+
+
+def _couplings(groups, sels, inverse):
+    """The couplings in application order: (block, group, idx_a, idx_b,
+    s weights, t weights)."""
+    idx_e, comp_e, idx_o, comp_o = sels
+    n_blocks = groups["even"]["s"][0][0].shape[0]
+    order = range(n_blocks - 1, -1, -1) if inverse else range(n_blocks)
+    out = []
+    for i in order:
+        es, et, osw, otw = _block_weights(groups, i)
+        pair = ((i, "even", idx_e, comp_e, es, et),
+                (i, "odd", idx_o, comp_o, osw, otw))
+        out += pair[::-1] if inverse else pair
+    return out
+
+
+def tile_flow(x, groups, sels, inverse: bool = False):
+    """Plain version of K4 (Pallas `_tile_flow`): the whole stack on x
+    (n, d). ``sels`` = (idx_even, comp_even, idx_odd, comp_odd). Returns
+    (y (n, d), log_det (n,))."""
+    ld = x.new_zeros(x.shape[0])
+    for (_, _, idx_a, idx_b, s_w, t_w) in _couplings(groups, sels, inverse):
+        x, ld = _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse)
+    return x, ld
+
+
+def _mlp_fwd_cache(xb, weights, out_tanh):
+    """_mlp with residuals: (out, (layer_inputs, layer_outputs))."""
+    h = xb
+    depth = len(weights)
+    inputs, outputs = [], []
+    for li, (W, b) in enumerate(weights):
+        inputs.append(h)
+        z = h @ W + b
+        if li < depth - 1:
+            h = _leaky_relu(z)
+        elif out_tanh:
+            h = torch.tanh(z)
+        else:
+            h = z
+        outputs.append(h)
+    return h, (inputs, outputs)
+
+
+def _mlp_bwd(weights, cache, gout, out_tanh):
+    """Manual reverse sweep of `_mlp`: (g_input, [(gW, gb), ...]). Slopes
+    from the cached post-activations: leaky-relu 1 where h ≥ 0, else 0.01;
+    tanh' = 1 − h²."""
+    inputs, outputs = cache
+    depth = len(weights)
+    g = gout
+    gws = [None] * depth
+    for li in range(depth - 1, -1, -1):
+        h = outputs[li]
+        if li == depth - 1:
+            if out_tanh:
+                g = g * (1.0 - h * h)
+        else:
+            g = g * torch.where(h >= 0, torch.ones_like(h),
+                                  torch.full_like(h, 0.01))
+        W, _ = weights[li]
+        gws[li] = (inputs[li].T @ g, g.sum(dim=0))
+        g = g @ W.T
+    return g, gws
+
+
+def _coupling_fwd_cache(x, idx_a, idx_b, s_w, t_w):
+    """What the reverse sweep needs of one coupling on its input x."""
+    x_a, x_b = _pick(x, idx_a), _pick(x, idx_b)
+    s, cs = _mlp_fwd_cache(x_b, s_w, out_tanh=True)
+    t, ct = _mlp_fwd_cache(x_b, t_w, out_tanh=False)
+    return x_a, s, t, cs, ct
+
+
+def _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w, t_w, inverse):
+    """Reverse sweep of one coupling. ``g`` is the cotangent of its output,
+    ``gld`` (n,) that of the running log-det, which every coupling's s
+    receives (ld is a plain sum over couplings)."""
+    x_a, s, t, cs, ct = cache
+    g_ya, g_xb = _pick(g, idx_a), _pick(g, idx_b)
+    gld_b = gld[:, None].expand_as(s)
+    if inverse:
+        e = torch.exp(-s)
+        g_xa = g_ya * e
+        g_t = -g_xa
+        g_s = -g_ya * (x_a - t) * e - gld_b
+    else:
+        e = torch.exp(s)
+        g_xa = g_ya * e
+        g_t = g_ya
+        g_s = g_ya * x_a * e + gld_b
+    gxb_s, gws_s = _mlp_bwd(s_w, cs, g_s, out_tanh=True)
+    gxb_t, gws_t = _mlp_bwd(t_w, ct, g_t, out_tanh=False)
+    g_xb = g_xb + gxb_s + gxb_t
+    return _combine(g_xa, g_xb, idx_a, idx_b), gws_s, gws_t
+
+
+def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False):
+    """Plain version of K5 (Pallas `_bwd_kernel`): the VJP of `tile_flow`
+    at x (n, d) under cotangents gy (n, d) and gld (n,). Recomputes the
+    forward keeping each coupling's input, then per coupling (last first)
+    rebuilds its MLP caches and runs the manual reverse sweep. Returns
+    (gx, grads) with grads shaped as ``groups`` (dicts of lists of
+    (gW, gb), stacked over blocks)."""
+    couplings = _couplings(groups, sels, inverse)
+    inputs = []
+    ld0 = x.new_zeros(x.shape[0])
+    for (_, _, idx_a, idx_b, s_w, t_w) in couplings:
+        inputs.append(x)
+        x, _ = _apply_coupling(x, ld0, idx_a, idx_b, s_w, t_w, inverse)
+
+    n_blocks = groups["even"]["s"][0][0].shape[0]
+    per_block = {(grp, net): [None] * n_blocks
+                 for grp in _GROUPS for net in _NETS}
+    g = gy
+    for (bi, grp, idx_a, idx_b, s_w, t_w), x_in in zip(couplings[::-1],
+                                                         inputs[::-1]):
+        cache = _coupling_fwd_cache(x_in, idx_a, idx_b, s_w, t_w)
+        g, gws_s, gws_t = _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w,
+                                        t_w, inverse)
+        per_block[(grp, "s")][bi] = gws_s
+        per_block[(grp, "t")][bi] = gws_t
+    grads = {grp: {net: [tuple(torch.stack([blk[li][k] for blk in
+                                            per_block[(grp, net)]])
+                               for k in (0, 1))
+                         for li in range(len(groups[grp][net]))]
+                   for net in _NETS} for grp in _GROUPS}
+    return g, grads
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _bwd_smem_bytes(d, n_blocks, depth, hidden, word):
+    """K5's dynamic shared memory (`launch_bwd_h`, csrc/coupling.cu): one
+    coupling's two padded nets, every coupling's saved (BWD_ROWS, d) input,
+    the two nets' activations and one layer's cotangents, in words of T."""
+    half, stride = KERNEL_MAX_D // 2, BWD_ROWS + 1
+    H = 16 if hidden <= 16 else 32
+    net = half * H + H + (depth - 2) * (H * H + H) + H * half + half
+    acts = stride * (half + (depth - 1) * H) + stride * half
+    return word * (2 * net + 2 * n_blocks * BWD_ROWS * d + 2 * acts
+                   + stride * H)
+
+
+def _kernel_args(x, leaves, sels, depth, backward=False):
+    """Check what the kernels take (shapes first, then dtype and device);
+    ``backward`` also checks K5's shared memory. Returns (suffix, widths,
+    idx) with the int arrays of the C interface."""
+    n, d = x.shape
+    groups = _unflatten(leaves, depth)
+    widths = []
+    for grp in _GROUPS:
+        w = [groups[grp]["s"][0][0].shape[1]] + [
+            W.shape[2] for W, _ in groups[grp]["s"]]
+        if [groups[grp]["t"][0][0].shape[1]] + [
+                W.shape[2] for W, _ in groups[grp]["t"]] != w:
+            raise ValueError("the s and t conditioners of a coupling must "
+                             "have the same widths")
+        widths += w
+    if not (2 <= d <= KERNEL_MAX_D and 2 <= depth <= KERNEL_MAX_DEPTH
+            and max(widths) <= KERNEL_MAX_WIDTH):
+        raise ValueError(
+            f"outside the coupling kernels' instantiated bounds (2 <= d <= "
+            f"{KERNEL_MAX_D}, widths <= {KERNEL_MAX_WIDTH}, 2 <= depth <= "
+            f"{KERNEL_MAX_DEPTH}): d={d}, widths={widths}, depth={depth}")
+    if backward and x.dtype in _DTYPE_SUFFIX:
+        word, n_blocks = x.element_size(), leaves[0].shape[0]
+        hidden = max(widths[g * (depth + 1) + l] for g in (0, 1)
+                     for l in range(1, depth))
+        need = _bwd_smem_bytes(d, n_blocks, depth, hidden, word)
+        if need > KERNEL_MAX_SMEM:
+            cap = n_blocks - -(-(need - KERNEL_MAX_SMEM)
+                               // (2 * BWD_ROWS * d * word))
+            raise ValueError(
+                f"coupling_bwd needs {need} bytes of shared memory for "
+                f"{n_blocks} blocks at d={d} in {x.dtype}, over the "
+                f"{KERNEL_MAX_SMEM} a block may use; this shape takes at "
+                f"most {cap} blocks")
+    idx_e, comp_e, idx_o, comp_o = sels
+    if (widths[0], widths[depth]) != (len(comp_e), len(idx_e)) or (
+            widths[depth + 1], widths[-1]) != (len(comp_o), len(idx_o)):
+        raise ValueError("the conditioner widths do not match the index sets")
+    if x.dtype not in _DTYPE_SUFFIX or any(t.dtype != x.dtype
+                                           for t in leaves):
+        raise TypeError("the coupling kernels take float32 or float64 x "
+                        "and weights of one dtype")
+    if not x.is_cuda or any(t.device != x.device for t in leaves):
+        raise ValueError("the coupling kernels need x and every weight on "
+                         "one CUDA device")
+    if not all(t.is_contiguous() for t in leaves):
+        raise ValueError("stacked weights must be contiguous")
+    c_int = ctypes.c_int
+    return (_DTYPE_SUFFIX[x.dtype], (c_int * len(widths))(*widths),
+            (c_int * (2 * d))(*(idx_e + comp_e + idx_o + comp_o)))
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} (1 is "
+                           "an invalid value: a shape or a shared-memory "
+                           "need outside what the kernel takes)")
+
+
+def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
+    """K4 on x (n, d) contiguous. ``backward``: K5 will follow, so its
+    bounds are checked before K4 runs."""
+    global COUPLING_FWD_LAUNCHES
+    from ..ops._build import library
+
+    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward)
+    n, d = x.shape
+    y, ld = torch.empty_like(x), x.new_empty(n)
+    if n == 0:
+        return y, ld
+    with torch.cuda.device(x.device):
+        err = getattr(library(), f"coupling_fwd_{sfx}")(
+            x.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d,
+            leaves[0].shape[0], depth, widths, idx, _pointers(leaves),
+            int(inverse), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "coupling_fwd")
+    COUPLING_FWD_LAUNCHES += 1
+    return y, ld
+
+
+def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
+    """K5 (both passes): gx and one gradient per stacked weight."""
+    global COUPLING_BWD_LAUNCHES
+    from ..ops._build import library
+
+    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward=True)
+    n, d = x.shape
+    gy, gld = gy.contiguous(), gld.contiguous()
+    gx = torch.empty_like(x)
+    grads = [torch.empty_like(t) for t in leaves]
+    if n == 0:
+        return gx, [g.zero_() for g in grads]
+    n_ctas = min(-(-n // BWD_ROWS), BWD_MAX_CTAS)
+    scratch = x.new_empty(n_ctas * sum(t.numel() for t in leaves))
+    with torch.cuda.device(x.device):
+        err = getattr(library(), f"coupling_bwd_{sfx}")(
+            x.data_ptr(), gy.data_ptr(), gld.data_ptr(), gx.data_ptr(),
+            scratch.data_ptr(), n, d, leaves[0].shape[0], depth, widths, idx,
+            _pointers(leaves), _pointers(grads), n_ctas, int(inverse),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "coupling_bwd")
+    COUPLING_BWD_LAUNCHES += 1
+    return gx, grads
+
+
+class _CouplingFused(torch.autograd.Function):
+    """x (n, d) contiguous and the stacked weights (leaf order) → (y, ld).
+    Saves x and the weights and recomputes in the backward, as the Pallas
+    custom VJP does (`_fused_fwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, meta, *leaves):
+        sels, depth, inverse, use_kernel, backward = meta
+        ctx.save_for_backward(x, *leaves)
+        ctx.meta = meta
+        if use_kernel:
+            return _launch_fwd(x, leaves, sels, depth, inverse, backward)
+        return tile_flow(x, _unflatten(leaves, depth), sels, inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gld):
+        x, *leaves = ctx.saved_tensors
+        sels, depth, inverse, use_kernel, _ = ctx.meta
+        if use_kernel:
+            gx, grads = _launch_bwd(x, leaves, gy, gld, sels, depth, inverse)
+        else:
+            gx, tree = tile_flow_bwd(x, _unflatten(leaves, depth), gy, gld,
+                                     sels, inverse)
+            grads = _leaves(tree)
+        return (gx, None, *grads)
+
+
+def _use_kernel(backend: str, x: torch.Tensor) -> bool:
+    if backend == "auto":
+        return x.is_cuda
+    if backend == "plain":
+        return False
+    if backend == "cuda":
+        if not x.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        return True
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def coupling_stack_fused(x, groups, idx_even, idx_odd, inverse: bool = False,
+                         backend: str = "auto"):
+    """Fused RealNVP stack transform (JAX `coupling_stack_fused`).
+
+    ``x``: (..., d). ``groups``: {'even'|'odd': {'s'|'t': [(W, b), ...]}}
+    with the leading block axis stacked. ``idx_even``/``idx_odd``: the
+    transformed index sets of the two couplings of each block. Returns
+    (y, log_det) with log_det shaped (...,)."""
+    batch_shape, d = x.shape[:-1], x.shape[-1]
+    depth = _depth(groups)
+    use_kernel = _use_kernel(backend, x)
+    sels = _sels(idx_even, idx_odd, d)
+    leaves = _leaves(groups)
+    backward = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, *leaves])
+    y, ld = _CouplingFused.apply(x.reshape(-1, d).contiguous(),
+                                 (sels, depth, bool(inverse), use_kernel,
+                                  backward), *leaves)
+    return y.reshape(x.shape), ld.reshape(batch_shape)

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library's file name carries a hash of the sources and the
 flags, so a stale build is never loaded. Nothing is downloaded or prebuilt.
 """
@@ -23,22 +24,30 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # No --use_fast_math: approximate exp/log/division would move log-dets.
-# --fmad=false: no a*b+c contraction, so the kernels round exactly as their
-# plain torch versions (one op per elementwise kernel) do; near the 1e-3
-# derivative floor the spline amplifies single roundings far past the f32
-# tolerances, and the comparison on the card would measure that instead.
 # -Xptxas -v reports registers and spills per kernel in the build log.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per source. rqs.cu: --fmad=false, no a*b+c contraction, so the spline
+# kernels round exactly as their plain torch versions (one op per
+# elementwise kernel) do; near the 1e-3 derivative floor the spline
+# amplifies single roundings far past the f32 tolerances, and the
+# comparison on the card would measure that instead. coupling.cu keeps
+# nvcc's FMA contraction: it is held to tolerances, its plain version's
+# matmuls summing in cuBLAS's order.
+SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",)}
 
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
-# entry name -> argtypes (see the extern "C" block of csrc/rqs.cu)
+# entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu and
+# csrc/coupling.cu); int arrays and pointer tables go in as ctypes arrays
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _I32, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
              _I32, _F64, _P]
+_CPL_FWD_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _P]
+_CPL_BWD_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P,
+                 _I32, _I32, _P]
 ENTRIES = {
     "rqs_fwd_f32": _FWD_ARGS,
     "rqs_fwd_f64": _FWD_ARGS,
@@ -46,6 +55,10 @@ ENTRIES = {
     "rqs_bwd_fwddir_f64": _BWD_ARGS,
     "rqs_bwd_invdir_f32": _BWD_ARGS,
     "rqs_bwd_invdir_f64": _BWD_ARGS,
+    "coupling_fwd_f32": _CPL_FWD_ARGS,
+    "coupling_fwd_f64": _CPL_FWD_ARGS,
+    "coupling_bwd_f32": _CPL_BWD_ARGS,
+    "coupling_bwd_f64": _CPL_BWD_ARGS,
 }
 
 
@@ -74,6 +87,7 @@ def build() -> Build:
     """Compile ``csrc/*.cu`` unless a library of these exact sources and
     flags is already in ``build/torch_kernels/``."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -81,19 +95,42 @@ def build() -> Build:
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu],
-        capture_output=True, text=True, check=False)
+    # one nvcc per source, all running at once; then one link
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I",
+             str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for obj, proc in jobs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{text}")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp),
+             *(str(obj) for obj, _ in jobs)],
+            capture_output=True, text=True, check=False)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(f"nvcc link failed ({link.returncode}):\n"
+                          f"{link.stdout}{link.stderr}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
-    return Build(out, seconds, proc.stdout + proc.stderr)
+    return Build(out, seconds, log)
 
 
 _LIB: ctypes.CDLL | None = None

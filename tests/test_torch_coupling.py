@@ -1,0 +1,426 @@
+"""The port's RealNVP against the JAX package's.
+
+A JAX `realnvp(...)` (or `AffineCoupling`) is built from a key, moved off
+its zero biases by noise of 0.1 on every parameter, and carried over with
+`load_jax_params`; both sides get the same inputs, made with numpy from a
+seed. Compared: the unfused module path (`AffineCoupling`,
+`CouplingPairStack`, and a hand-built `Chain` of `RealNVP_layer` blocks)
+against JAX `realnvp(fused=False)` (``scan=True`` and ``scan=False``);
+the fused stack's plain versions (`tile_flow`, `tile_flow_bwd`, what
+`coupling_stack_fused` runs on CPU tensors) against JAX
+`coupling_stack_fused(interpret=True)`, which runs the Pallas kernels
+#6/#7 in interpret mode; the hand-written reverse sweep against autograd;
+the fused and unfused flows from one seed; ``remat``; K5's shared-memory
+cap; and 5 Adam steps of `train_flow` on both paths against JAX
+`train_flow`'s step.
+
+Tolerances: f64 rtol 1e-9 (atol 1e-9 for values near 0) between the
+packages (same operations, libraries' matmul and exp orders differ). f32
+those of the JAX suite's fused-kernel tests (tests/test_coupling_kernel.py
+:35-36, 65, 80): values rtol/atol 1e-5, log-dets rtol 1e-4 atol 1e-5,
+gradients rtol 2e-3 atol 1e-4. Training: f64 rtol 1e-8, f32 rtol 1e-4 atol
+1e-5 (tests/test_torch_train.py).
+"""
+
+import copy
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
+import torch  # noqa: E402
+
+import normalizingflows as nf  # noqa: E402
+from normalizingflows.jl_tpu.experimental import (  # noqa: E402
+    coupling_pallas as jax_cp,
+)
+from normalizingflows.jl_tpu.utils.pytree import (  # noqa: E402
+    apply_mask,
+    trainable_mask,
+)
+import normalizingflows_torch as nft  # noqa: E402
+from normalizingflows_torch.experimental import coupling_cuda as cc  # noqa
+from normalizingflows_torch.experimental import FusedRealNVP  # noqa: E402
+from normalizingflows_torch.utils.bridge import load_jax_params  # noqa: E402
+
+torch.set_num_threads(1)
+
+DT = {"f32": (jnp.float32, torch.float32, np.float32),
+      "f64": (jnp.float64, torch.float64, np.float64)}
+TOL = {"f32": dict(y=(1e-5, 1e-5), ld=(1e-4, 1e-5), g=(2e-3, 1e-4)),
+       "f64": dict(y=(1e-9, 1e-9), ld=(1e-9, 1e-9), g=(1e-9, 1e-9))}
+TRAIN_TOL = {"f32": (1e-4, 1e-5), "f64": (1e-8, 1e-12)}
+
+
+def jax_arrays(tree) -> dict:
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves}
+
+
+def _close(a, b, tol, msg=""):
+    if isinstance(a, torch.Tensor):
+        a = a.detach().numpy()
+    np.testing.assert_allclose(a, np.asarray(b), rtol=tol[0], atol=tol[1],
+                               err_msg=msg)
+
+
+def _perturb(tree, seed=2, sigma=0.1):
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: a + sigma * jnp.asarray(rng.standard_normal(a.shape),
+                                          a.dtype), tree)
+
+
+def _draws(dt, d, n, seed=1):
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(
+        DT[dt][2])
+
+
+def _pair(dt, d, hdims, nlayers, fused=False, scan=True, seed=0):
+    """A perturbed JAX realnvp and the port's copy of it. ``scan=False``:
+    the JAX flat layout against a `Chain` of `RealNVP_layer` blocks."""
+    jdt, tdt, _ = DT[dt]
+    jflow = _perturb(nf.realnvp(jax.random.key(seed), d, hdims,
+                                nlayers=nlayers, dtype=jdt, scan=scan,
+                                fused=fused, interpret=True), seed + 1)
+    g = torch.Generator().manual_seed(seed)
+    if scan:
+        tflow = nft.realnvp(g, d, hdims, nlayers=nlayers, dtype=tdt,
+                            fused=fused, device="cpu")
+    else:
+        tflow = nft.create_flow(
+            [nft.Chain(nft.RealNVP_layer(g, d, hdims, tdt, "cpu"))
+             for _ in range(nlayers)],
+            nft.DiagNormal.standard(d, tdt, "cpu"))
+    load_jax_params(tflow, jax_arrays(jflow))
+    return jflow, tflow
+
+
+def _grad_loss(y, ld, np_mod):
+    return np_mod.sum(np_mod.sin(y)) + 0.5 * np_mod.sum(ld)
+
+
+# (a) the unfused module path, layout by layout
+@pytest.mark.parametrize("dt,layout,d,hdims", [
+    ("f32", "scan", 4, (16, 16)), ("f64", "scan", 5, (8, 8)),
+    ("f32", "chain", 2, (8, 8)), ("f64", "chain", 4, (16, 16)),
+    ("f32", "coupling", 4, (16, 16)), ("f64", "coupling", 5, (8, 8))])
+def test_unfused_matches_jax(dt, layout, d, hdims):
+    """Forward and inverse values and log-dets, and the gradient of every
+    conditioner W and b through both directions, against JAX."""
+    jdt, tdt, _ = DT[dt]
+    if layout == "coupling":
+        jmod = _perturb(nf.AffineCoupling.make(
+            jax.random.key(3), d, hdims, range(1, d, 2), jdt))
+        tmod = nft.AffineCoupling.make(torch.Generator().manual_seed(3), d,
+                                       hdims, range(1, d, 2), tdt, "cpu")
+        load_jax_params(tmod, jax_arrays(jmod))
+    else:
+        jflow, tflow = _pair(dt, d, hdims, 3, scan=layout == "scan")
+        jmod, tmod = jflow.bijector, tflow.bijector
+    x = _draws(dt, d, 300)
+    tol = TOL[dt]
+    for inverse in (False, True):
+        name = "inverse_and_log_det" if inverse else "forward_and_log_det"
+        y_j, ld_j = jax.jit(getattr(jmod, name))(jnp.asarray(x))
+        tmod.zero_grad()
+        y_t, ld_t = getattr(tmod, name)(torch.from_numpy(x))
+        _close(y_t, y_j, tol["y"], name)
+        _close(ld_t, ld_j, tol["ld"], name)
+        _grad_loss(y_t, ld_t, torch).backward()
+        grads = jax.jit(jax.grad(lambda m: _grad_loss(
+            *getattr(m, name)(jnp.asarray(x)), jnp)))(jmod)
+        ref = dict(load_jax_params(copy.deepcopy(tmod),
+                                   jax_arrays(grads)).named_parameters())
+        assert len(ref) > 0
+        for pname, p in tmod.named_parameters():
+            _close(p.grad, ref[pname].detach().numpy(), tol["g"], pname)
+
+
+def _fused_groups(dt, d, hdims, nlayers, seed=0):
+    """A perturbed JAX FusedRealNVP and the port's, with the same weights."""
+    jflow, tflow = _pair(dt, d, hdims, nlayers, fused=True, seed=seed)
+    return jflow.bijector.bijectors[0], tflow.bijector.bijectors[0]
+
+
+# (b) the plain versions against the Pallas kernels (interpret mode)
+@pytest.mark.parametrize("dt,d,hdims,n,inverse", [
+    ("f32", 4, (16, 16), 300, False), ("f32", 4, (16, 16), 300, True),
+    ("f64", 5, (8, 8), 300, False), ("f64", 5, (8, 8), 64, True),
+    ("f64", 2, (16, 16), 64, False)])
+def test_fused_stack_matches_jax_kernel(dt, d, hdims, n, inverse):
+    """`coupling_stack_fused` on CPU tensors (`tile_flow`, `tile_flow_bwd`)
+    against JAX `coupling_stack_fused(interpret=True)`: values and the VJP
+    with respect to x and every stacked weight; odd d gives the two
+    couplings different widths."""
+    jb, tb = _fused_groups(dt, d, hdims, 2)
+    rng = np.random.default_rng(5)
+    x = _draws(dt, d, n, seed=4)
+    gy = rng.standard_normal((n, d)).astype(DT[dt][2])
+    gld = rng.standard_normal(n).astype(DT[dt][2])
+
+    @jax.jit
+    def jax_side(x, groups, gy, gld):
+        out, vjp = jax.vjp(lambda a, g: jax_cp.coupling_stack_fused(
+            a, g, jb.idx_even, jb.idx_odd, inverse=inverse, interpret=True),
+            x, groups)
+        return out, vjp((gy, gld))
+
+    (y_j, ld_j), (gx_j, gw_j) = jax_side(jnp.asarray(x), jb.groups,
+                                         jnp.asarray(gy), jnp.asarray(gld))
+    leaves = cc._leaves(tb.groups)
+    xt = torch.from_numpy(x).requires_grad_()
+    y_t, ld_t = cc.coupling_stack_fused(xt, tb.groups, tb.idx_even,
+                                        tb.idx_odd, inverse=inverse)
+    grads = torch.autograd.grad((y_t, ld_t), [xt] + leaves,
+                                (torch.from_numpy(gy), torch.from_numpy(gld)))
+    tol = TOL[dt]
+    _close(y_t, y_j, tol["y"], "y")
+    _close(ld_t, ld_j, tol["ld"], "ld")
+    _close(grads[0], gx_j, tol["g"], "gx")
+    jleaves = jax.tree_util.tree_leaves(gw_j)
+    assert len(jleaves) == len(leaves) == 4 * 2 * (len(hdims) + 1)
+    for i, (a, b) in enumerate(zip(grads[1:], jleaves)):
+        _close(a, b, tol["g"], f"leaf {i}")
+
+
+# (c) the hand-written reverse sweep against the tape
+@pytest.mark.parametrize("dt,d,inverse", [
+    ("f64", 5, False), ("f64", 5, True), ("f32", 2, False),
+    ("f32", 4, True)])
+def test_tile_flow_bwd_matches_autograd(dt, d, inverse):
+    _, tb = _fused_groups(dt, d, (8, 8), 3, seed=6)
+    sels = cc._sels(tb.idx_even, tb.idx_odd, d)
+    leaves = cc._leaves(tb.groups)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_draws(dt, d, 64, seed=8))
+    gy = torch.from_numpy(rng.standard_normal((64, d)).astype(DT[dt][2]))
+    gld = torch.from_numpy(rng.standard_normal(64).astype(DT[dt][2]))
+    xg = x.clone().requires_grad_()
+    y, ld = cc.tile_flow(xg, tb.groups, sels, inverse)
+    tape = torch.autograd.grad((y, ld), [xg] + leaves, (gy, gld))
+    gx, tree = cc.tile_flow_bwd(x, tb.groups, gy, gld, sels, inverse)
+    tol = (1e-10, 1e-12) if dt == "f64" else TOL["f32"]["g"]
+    for i, (a, b) in enumerate(zip([gx] + cc._leaves(tree), tape)):
+        _close(a, b.numpy(), tol, f"output {i}")
+
+
+# (d) one seed, two paths
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_fused_and_unfused_share_weights_and_elbo(dt):
+    tdt = DT[dt][1]
+    kw = dict(nlayers=3, dtype=tdt, device="cpu")
+    fused = nft.realnvp(torch.Generator().manual_seed(9), 4, (16, 16),
+                        fused=True, **kw)
+    plain = nft.realnvp(torch.Generator().manual_seed(9), 4, (16, 16), **kw)
+    fb, stack = fused.bijector.bijectors[0], plain.bijector.bijectors[0]
+    assert isinstance(fb, FusedRealNVP)
+    for grp in ("even", "odd"):
+        for net in ("s", "t"):
+            for li, (W, b) in enumerate(fb.groups[grp][net]):
+                for i, mlp in enumerate(stack.stacked[f"{net}_{grp}"]):
+                    assert torch.equal(W[i], mlp.layers[li].W)
+                    assert torch.equal(b[i], mlp.layers[li].b)
+
+    xs = torch.from_numpy(_draws(dt, 4, 64, seed=10))
+    target = nft.Banana(4, 1.0, 100.0)
+    vals = [nft.elbo_from_samples(xs, f, target.log_prob)
+            for f in (fused, plain)]
+    for v in vals:
+        v.backward()
+    _close(vals[0], vals[1].detach().numpy(), TOL[dt]["ld"])
+    for grp in ("even", "odd"):
+        for net in ("s", "t"):
+            for li, (W, b) in enumerate(fb.groups[grp][net]):
+                want = [torch.stack([m.layers[li].__getattr__(k).grad
+                                     for m in stack.stacked[f"{net}_{grp}"]])
+                        for k in ("W", "b")]
+                _close(W.grad, want[0].numpy(), TOL[dt]["g"])
+                _close(b.grad, want[1].numpy(), TOL[dt]["g"])
+
+
+# (e) remat
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_remat_gives_the_same_loss_and_gradients(dt):
+    tdt = DT[dt][1]
+    flows = [nft.realnvp(torch.Generator().manual_seed(11), 5, (8, 8),
+                         nlayers=3, dtype=tdt, device="cpu", remat=r)
+             for r in (False, True)]
+    assert flows[1].bijector.bijectors[0].remat
+    xs = torch.from_numpy(_draws(dt, 5, 64, seed=12))
+    target = nft.Banana(5, 1.0, 10.0)
+    out = []
+    for f in flows:
+        v = nft.elbo_from_samples(xs, f, target.log_prob)
+        v.backward()
+        y, ld = f.bijector.inverse_and_log_det(xs)
+        out.append((v.detach(), y.detach(), ld.detach(),
+                    [p.grad for p in f.parameters() if p.grad is not None]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])
+    assert len(out[0][3]) == len(out[1][3]) == 4 * 3 * 3 * 2 + 2  # + base
+    for a, b in zip(out[0][3], out[1][3]):
+        assert torch.equal(a, b)
+
+
+def _jax_train(jflow, target, draws, lr):
+    """bench.py's `make_train_chunk` step, one jitted step per draw."""
+    optimizer = optax.adam(lr)
+    mask = trainable_mask(jflow, frozen=lambda m: m is jflow.base)
+
+    @jax.jit
+    def step(f, st, xs):
+        loss, grads = jax.value_and_grad(
+            lambda f: -nf.elbo_from_samples(xs, f, target.log_prob))(f)
+        grads = apply_mask(grads, mask)
+        updates, st = optimizer.update(grads, st, f)
+        return optax.apply_updates(f, updates), st, loss
+
+    st, losses = optimizer.init(jflow), []
+    for xs in draws:
+        jflow, st, loss = step(jflow, st, jnp.asarray(xs))
+        losses.append(float(loss))
+    return jflow, np.asarray(losses)
+
+
+def _presampled(draws):
+    draws = torch.from_numpy(draws)
+    pos = [0]
+
+    def gen(generator, flow, chunk):
+        out = draws[pos[0]:pos[0] + chunk]
+        pos[0] += chunk
+        return out
+
+    return gen
+
+
+# (f) the slice's main path at a small size: 5 Adam steps on given draws
+@pytest.mark.parametrize("dt,fused", [("f64", False), ("f64", True),
+                                      ("f32", True)])
+def test_train_flow_matches_jax(dt, fused):
+    """The demo model (d=2, [16,16]x3) on Banana(2, 1, 100), 16 draws a
+    step, Adam(5e-4): losses and final parameters."""
+    jflow, tflow = _pair(dt, 2, (16, 16), 3, fused=fused)
+    draws = np.random.default_rng(13).standard_normal((5, 16, 2)).astype(
+        DT[dt][2])
+    jflow, losses_j = _jax_train(jflow, nf.Banana(2, 1.0, 100.0), draws,
+                                 5e-4)
+    res = nft.train_flow(
+        torch.Generator(), lambda xs, f, logp: nft.elbo_from_samples(
+            xs, f, logp), tflow, nft.Banana(2, 1.0, 100.0).log_prob,
+        max_iters=5, check_every=2, scan_inputs=_presampled(draws),
+        optimizer=lambda p: torch.optim.Adam(p, lr=5e-4))
+    rtol, atol = TRAIN_TOL[dt]
+    np.testing.assert_allclose(res.stats["loss"], losses_j, rtol=rtol,
+                               atol=atol)
+    ref = dict(load_jax_params(copy.deepcopy(tflow),
+                               jax_arrays(jflow)).named_parameters())
+    for name, p in res.flow.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   ref[name].detach().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+# (g) the card by default
+@pytest.mark.parametrize("fused", [False, True])
+def test_realnvp_builds_on_the_card_unless_asked(fused):
+    g = torch.Generator().manual_seed(0)
+    if torch.cuda.is_available():
+        flow = nft.realnvp(g, 2, fused=fused)
+        assert next(flow.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            nft.realnvp(g, 2, fused=fused)
+    flow = nft.realnvp(g, 2, fused=fused, device="cpu")
+    assert {p.device.type for p in flow.parameters()} == {"cpu"}
+
+
+# (h) no fallback
+def test_backend_cuda_on_cpu_tensors_raises():
+    _, tb = _fused_groups("f64", 4, (8, 8), 2)
+    x = torch.zeros((8, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        cc.coupling_stack_fused(x, tb.groups, tb.idx_even, tb.idx_odd,
+                                backend="cuda")
+    tb.backend = "cuda"
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.forward_and_log_det(x)
+    with pytest.raises(ValueError, match="backend"):
+        cc.coupling_stack_fused(x, tb.groups, tb.idx_even, tb.idx_odd,
+                                backend="pallas")
+    with pytest.raises(ValueError, match="backend"):
+        FusedRealNVP(tb.groups, tb.idx_even, tb.idx_odd, backend="pallas")
+
+
+def test_kernel_arguments_outside_the_bounds_raise():
+    """Shapes the kernels are not instantiated for raise before any launch
+    (d > 8, a layer wider than 32, more than 4 or fewer than 2 layers), as
+    do unequal
+    conditioner depths; CPU tensors are refused by the kernel path."""
+    def groups_of(d, hdims, nlayers):
+        flow = nft.realnvp(torch.Generator().manual_seed(0), d, hdims,
+                           nlayers=nlayers, fused=True, device="cpu")
+        fb = flow.bijector.bijectors[0]
+        return fb, cc._sels(fb.idx_even, fb.idx_odd, d)
+
+    for d, hdims in ((10, (8, 8)), (4, (64, 8)), (4, (8, 8, 8, 8)), (4, ())):
+        fb, sels = groups_of(d, hdims, 1)
+        with pytest.raises(ValueError, match="instantiated bounds"):
+            cc._kernel_args(torch.zeros((4, d)), cc._leaves(fb.groups), sels,
+                            len(hdims) + 1)
+    fb, sels = groups_of(4, (8, 8), 2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cc._kernel_args(torch.zeros((4, 4)), cc._leaves(fb.groups), sels, 3)
+    uneven = {"even": fb.groups["even"],
+              "odd": {"s": list(fb.groups["odd"]["s"])[:2],
+                      "t": fb.groups["odd"]["t"]}}
+    with pytest.raises(ValueError, match="same depth"):
+        cc.coupling_stack_fused(torch.zeros((4, 4)), uneven, fb.idx_even,
+                                fb.idx_odd)
+
+
+@pytest.mark.parametrize("dt,nlayers,cap", [("f64", 15, 14), ("f64", 14, None),
+                                            ("f32", 15, None)])
+def test_backward_shared_memory_cap(dt, nlayers, cap):
+    """K5 keeps every coupling's input tile in shared memory: at d=8 with
+    [32,32] conditioners float64 takes at most 14 blocks. Past the cap the
+    backward's check raises (and with it a forward that will be
+    differentiated); a forward alone, or a stack within the cap, goes on to
+    the device check."""
+    tdt = DT[dt][1]
+    flow = nft.realnvp(torch.Generator().manual_seed(0), 8, (32, 32),
+                       nlayers=nlayers, dtype=tdt, fused=True, device="cpu")
+    fb = flow.bijector.bijectors[0]
+    sels = cc._sels(fb.idx_even, fb.idx_odd, 8)
+    x, leaves = torch.zeros((4, 8), dtype=tdt), cc._leaves(fb.groups)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cc._kernel_args(x, leaves, sels, 3)
+    if cap is None:
+        with pytest.raises(ValueError, match="CUDA device"):
+            cc._kernel_args(x, leaves, sels, 3, backward=True)
+    else:
+        with pytest.raises(ValueError, match=f"at most {cap} blocks"):
+            cc._kernel_args(x, leaves, sels, 3, backward=True)
+
+
+# (i) options not ported yet
+@pytest.mark.parametrize("fused", [False, True])
+def test_compute_dtype_raises(fused):
+    with pytest.raises(NotImplementedError):
+        nft.realnvp(torch.Generator().manual_seed(0), 2, fused=fused,
+                    compute_dtype=torch.bfloat16, device="cpu")
+
+
+def test_round_trip_and_sampling_within_the_port():
+    """log_prob(y) through the inverse equals sample_and_log_prob's value,
+    on the fused and the unfused flow (f64)."""
+    for fused in (False, True):
+        _, tflow = _pair("f64", 4, (16, 16), 3, fused=fused)
+        g = torch.Generator().manual_seed(14)
+        with torch.no_grad():
+            y, lq = tflow.sample_and_log_prob(g, (64,))
+            _close(tflow.log_prob(y), lq.numpy(), (1e-10, 1e-10))

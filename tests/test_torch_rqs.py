@@ -254,14 +254,20 @@ def test_bad_raw_shape_raises():
 
 
 def test_ctypes_argtypes_match_the_c_entries():
-    """Each extern "C" entry of csrc/rqs.cu is bound, with one argtype per
-    C parameter."""
-    src = (_build.CSRC / "rqs.cu").read_text()
-    block = src[src.index('extern "C" {'):]
-    sigs = dict(re.findall(r"int (rqs_\w+)\(([^)]*)\)", block))
+    """Each extern "C" entry of csrc/*.cu (rqs.cu, coupling.cu) is bound,
+    with one argtype per C parameter; rqs.cu is built without
+    contraction."""
+    sigs = {}
+    for path in _build._sources():
+        if path.suffix == ".cu":
+            src = path.read_text()
+            block = src[src.index('extern "C" {'):]
+            sigs.update(re.findall(r"int (\w+)\(([^)]*)\)", block))
     assert set(sigs) == set(_build.ENTRIES)
     for name, params in sigs.items():
         assert len(params.split(",")) == len(_build.ENTRIES[name]), name
-    assert Path(_build.CSRC, "rqs.cu") in _build._sources()
+    for name in ("rqs.cu", "coupling.cu"):
+        assert Path(_build.CSRC, name) in _build._sources()
+    assert "--fmad=false" in _build.SOURCE_FLAGS["rqs.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
