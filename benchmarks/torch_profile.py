@@ -13,7 +13,11 @@ Prints one JSON object (and writes it to ``--out`` if given):
   coupling kernels (rnvp_fused) and the unfused module path
   (rnvp_unfused), the reference default ([32,32]x10, batch 256, fused;
   rnvp_ref) and the wide unfused shape (d=128, [256,256]x10, batch 4096,
-  Adam(1e-3)) with and without remat (rnvp_wide, rnvp_wide_noremat):
+  Adam(1e-3)) with and without remat (rnvp_wide, rnvp_wide_noremat); the
+  demo again through `train_realnvp_fused`, many steps a launch of the
+  whole-run kernel K6 (rnvp_whole_run; each call draws its steps' base
+  samples and starts Adam afresh), and its eager fused step captured in a
+  CUDA graph and replayed (rnvp_graph, `capture_train_step`):
   steps/s by host clock (3 runs, taken before any profiler run, which
   slows later launches) and the peak device memory of those runs beside
   what was allocated before them (this and earlier cells' flows and
@@ -23,8 +27,8 @@ Prints one JSON object (and writes it to ``--out`` if given):
   and device time by category (rqs, coupling, gemm, optimizer, reduce,
   elementwise) and by kernel.
 
-The times of K1–K5 against their plain versions are `chip_smoke.py`'s
-(phases 3 and 12). Needs a CUDA device; builds the kernels from
+The times of K1–K6 against their plain versions are `chip_smoke.py`'s
+(phases 3, 12, 18 and 20). Needs a CUDA device; builds the kernels from
 ``normalizingflows_torch/csrc``.
 """
 
@@ -61,7 +65,41 @@ CELLS = (("demo", dict(q0=2, hdims=(32, 32)), 2, 64, 5e-4, 20),
          ("rnvp_ref", dict(q0=2, hdims=(32, 32), nlayers=10, fused=True), 2,
           256, 5e-4, 50),
          ("rnvp_wide", dict(RNVP_WIDE, remat=True), 128, 4096, 1e-3, 5),
-         ("rnvp_wide_noremat", RNVP_WIDE, 128, 4096, 1e-3, 5))
+         ("rnvp_wide_noremat", RNVP_WIDE, 128, 4096, 1e-3, 5),
+         ("rnvp_whole_run", dict(q0=2, hdims=(16, 16), nlayers=3,
+                                 fused=True), 2, 16, 5e-4, 50),
+         ("rnvp_graph", dict(q0=2, hdims=(16, 16), nlayers=3, fused=True), 2,
+          16, 5e-4, 50))
+
+
+def capture_train_step(flow, target, batch: int, lr: float, side=None):
+    """One eager ELBO train step of a fused RealNVP flow (base draws from
+    the default CUDA generator, which a graph replays; forward, ELBO,
+    backward, Adam(capturable=True) on the stack's weights) captured in a
+    CUDA graph after 3 steps on the side stream ``side`` (a new one if
+    None): (graph, its loss). `chip_smoke.py` phase 21 times it too."""
+    fb = flow.bijector.bijectors[0]
+    opt = torch.optim.Adam(fb.parameters(), lr=lr, capturable=True)
+
+    def step():
+        xs = flow.base.sample(None, (batch,))
+        loss = -nft.elbo_from_samples(xs, flow, target.log_prob)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    side = side or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            flow.zero_grad(set_to_none=True)
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    flow.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss = step()
+    return graph, loss
 
 
 def _kernel_events(prof):
@@ -76,7 +114,7 @@ def _category(name: str) -> str:
     low = name.lower()
     if "rqs_" in name:
         return "rqs"
-    if "coupling_" in name:
+    if "coupling_" in name or "realnvp_train" in name:
         return "coupling"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
@@ -144,6 +182,20 @@ def _cell(name, cfg, dim, batch, lr, gen):
         return run, run(None, 10)  # warm: cuBLAS handles, allocator
 
     target = nft.Banana(dim, 1.0, 100.0)
+    if name == "rnvp_whole_run":
+        def run(state, steps):
+            return nft.train_realnvp_fused(gen, flow, target, batch,
+                                           max_iters=steps,
+                                           learning_rate=lr).state
+        return run, run(None, 10)
+    if name == "rnvp_graph":
+        graph, _ = capture_train_step(flow, target, batch, lr)
+
+        def run(state, steps):
+            for _ in range(steps):
+                graph.replay()
+            return state
+        return run, run(None, 10)
 
     def run(state, steps):
         return nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,

@@ -62,6 +62,25 @@ Then RealNVP (the fused coupling-stack kernels K4 `coupling_fwd` and K5
 17. wide unfused RealNVP (d=128, [256,256]x10, batch 4096, remat=True,
     float32) for 20 steps after 2: steps/s and peak memory, no kernel.
 
+Then the whole-run training kernel K6 `realnvp_train` (many Adam/ELBO steps
+of the fused stack a launch):
+
+18. K6 against its plain version (`adam_train_plain`) on the card: 25 steps
+    of the demo at batch 16, the reference default at batch 256 (4 row
+    tiles) and d=5 [8,8]x2 at batch 100 (a ragged tile), float32 and
+    float64; the losses and every trained weight; K6 twice, and in chunks
+    of 8 against one launch, with identical bits; the plain version's
+    device time a step;
+19. K6 against the eager K4/K5 step (`elbo_from_samples`, torch.optim.Adam)
+    on the same 25 draws of the demo: the first loss and the trajectory;
+20. the main path: `train_realnvp_fused` on the demo (1,000 steps, batch 16,
+    Adam(5e-4)) in two K6 launches and no K4/K5 launch, steps/s and the
+    device time of each launch (CUDA events), the ELBO beside phase 14's;
+    then the reference default (batch 256, 50 steps);
+21. the yardstick: one eager K4/K5 train step of the demo (base draws,
+    forward, ELBO, backward, Adam(capturable=True)) captured in a CUDA
+    graph and replayed 1,000 times: steps/s and device time a step.
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -78,6 +97,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -114,6 +134,10 @@ CPL_TIMED = (("demo", 16), ("ref", 256), ("demo", 262144))
 CPL_CFG = {"demo": RNVP_DEMO, "ref": RNVP_REF, "odd": RNVP_ODD}
 KERNELS = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir")
 CPL_KERNELS = ("coupling_fwd", "coupling_bwd")
+# K6: (model, batch) of the phase-18 comparisons, their steps, and the
+# reference default's steps on phase 20
+TRAIN_SHAPES = (("demo", RNVP_BATCH), ("ref", RNVP_REF_BATCH), ("odd", 100))
+TRAIN_CMP_STEPS, TRAIN_REF_STEPS, GRAPH_STEPS = 25, 50, 1000
 REPLACES = {
     "rqs_fwd": "normalizingflows/jl_tpu/ops/rqs_pallas.py:649, :541, :685",
     "rqs_bwd_fwddir": "normalizingflows/jl_tpu/ops/rqs_pallas.py:717, :576 "
@@ -124,6 +148,8 @@ REPLACES = {
                     ":371",
     "coupling_bwd": "normalizingflows/jl_tpu/experimental/coupling_pallas.py"
                     ":438",
+    "realnvp_train": "normalizingflows/jl_tpu/experimental/train_pallas.py"
+                     ":254",
 }
 # Kernel against plain version. f32: tests/test_rqs_kernel.py:43-44 (values
 # rtol/atol 1e-5; log-dets rtol 1e-4, atol 1e-5) and :78-79 (gradients rtol
@@ -148,6 +174,13 @@ ROUND_TRIP_TOL = (1e-3, 1e-2)
 # through cuBLAS and sum in another order. The cotangents are those of a
 # mean over the batch (scaled by 1/N), as the ELBO's are, so the weight
 # gradients' batch sums stay of order 1 at every N.
+# K6 against its plain version: the training tolerances of
+# tests/test_torch_coupling.py:54 (losses and trained weights); against the
+# eager K4/K5 step with torch.optim.Adam: the bounds of
+# tests/test_train_kernel.py:83-85 (first loss rel 1e-6, trajectory max
+# |Δ|/(|loss| + 1) 5e-5).
+TRAIN_TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-8, 1e-12)}
+FIRST_LOSS_REL, TRAJECTORY_REL = 1e-6, 5e-5
 
 
 def say(phase: int, msg: str):
@@ -234,23 +267,28 @@ def launch_counts(rqs_cuda) -> dict:
 
 
 def all_counts() -> dict:
-    """Every kernel's launch count: the RQS and the coupling ones."""
+    """Every kernel's launch count: the RQS, the coupling and the training
+    ones."""
     from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.experimental import train_cuda as tc
     from normalizingflows_torch.ops import rqs_cuda
 
     return {**launch_counts(rqs_cuda),
             "coupling_fwd": cc.COUPLING_FWD_LAUNCHES,
-            "coupling_bwd": cc.COUPLING_BWD_LAUNCHES}
+            "coupling_bwd": cc.COUPLING_BWD_LAUNCHES,
+            "realnvp_train": tc.TRAIN_LAUNCHES}
 
 
 def reset_counts():
-    """Every kernel's launch count to 0 (the RQS and the coupling ones)."""
+    """Every kernel's launch count to 0."""
     from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.experimental import train_cuda as tc
     from normalizingflows_torch.ops import rqs_cuda
 
     rqs_cuda.FWD_LAUNCHES = rqs_cuda.BWD_LAUNCHES = 0
     rqs_cuda.BWD_INV_LAUNCHES = 0
     cc.COUPLING_FWD_LAUNCHES = cc.COUPLING_BWD_LAUNCHES = 0
+    tc.TRAIN_LAUNCHES = 0
 
 
 def expect_counts(label: str, **want):
@@ -563,7 +601,7 @@ def phase_main_path(gen, name):
     per_step = 2 * DEMO["nlayers"]
     want = {"rqs_fwd": per_step * DEMO_STEPS,
             "rqs_bwd_fwddir": per_step * DEMO_STEPS, "rqs_bwd_invdir": 0,
-            "coupling_fwd": 0, "coupling_bwd": 0}
+            "coupling_fwd": 0, "coupling_bwd": 0, "realnvp_train": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} in {DEMO_STEPS} steps, "
                              f"expected {want}")
@@ -692,7 +730,7 @@ def phase_mle(gen, name):
     per_step = 2 * DEMO["nlayers"]
     want = {"rqs_fwd": per_step * MLE_STEPS, "rqs_bwd_fwddir": 0,
             "rqs_bwd_invdir": per_step * MLE_STEPS, "coupling_fwd": 0,
-            "coupling_bwd": 0}
+            "coupling_bwd": 0, "realnvp_train": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} in {MLE_STEPS} steps, "
                              f"expected {want}")
@@ -748,6 +786,17 @@ def phase_mle_wide(gen, name):
 # RealNVP: the fused coupling-stack kernels K4/K5 and the unfused path
 # ---------------------------------------------------------------------------
 
+def rnvp_n_params(cfg: dict) -> int:
+    """The weights of a RealNVP stack of ``cfg``: per coupling and net, a
+    Dense chain n_B → hidden... → n_A."""
+    d, hdims, L = cfg["q0"], cfg["hdims"], cfg["nlayers"]
+    n = 0
+    for n_a in ((d + 1) // 2, d // 2):
+        widths = [d - n_a, *hdims, n_a]
+        n += L * 2 * sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    return n
+
+
 def coupling_work(kernel: str, cfg: dict, n: int, word_bytes: int):
     """(operations, bytes) one call of K4 or K5 needs on n rows, counted
     from csrc/coupling.cu. Per coupling and net: a multiply and an add per
@@ -762,13 +811,12 @@ def coupling_work(kernel: str, cfg: dict, n: int, word_bytes: int):
     K4 reads x and the weights and writes y and ld; K5 reads x, gy, gld and
     the weights and writes gx and the weight gradients."""
     d, hdims, L = cfg["q0"], cfg["hdims"], cfg["nlayers"]
-    ops, n_params = 0, 0
+    ops, n_params = 0, rnvp_n_params(cfg)
     for n_a in ((d + 1) // 2, d // 2):
         widths = [d - n_a, *hdims, n_a]
         macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
         units = sum(widths[1:])
         fwd = 2 * (2 * macs + 2 * units) + 4 * n_a
-        n_params += L * 2 * (macs + units)
         if kernel == "coupling_fwd":
             ops += L * fwd
         else:
@@ -1027,11 +1075,12 @@ def _train_rate(flow, gen, target, batch, steps, lr, check_every):
 
 def phase_rnvp_main(name):
     """The slice's main path: fused RealNVP demo training, then the unfused
-    flow of the same seed on the same draws."""
+    flow of the same seed on the same draws. Returns the flows, the fused
+    run's launches and its ELBO and rate (for phase 20)."""
     import normalizingflows_torch as nft
 
     target = nft.Banana(2, 1.0, 100.0)
-    flows, launches = {}, None
+    flows, launches, summary = {}, None, None
     for fused in (True, False):
         flow = _rnvp(RNVP_DEMO, 0, fused)
         gen = torch.Generator(device=DEVICE).manual_seed(40)
@@ -1054,7 +1103,9 @@ def phase_rnvp_main(name):
         flows[label] = flow
         if fused:
             launches = counts
-    return flows, launches
+            summary = dict(first=-losses[0], last=-losses[-1],
+                           first100=-first, last100=-last, steady=steady)
+    return flows, launches, summary
 
 
 def phase_rnvp_sampling(flows, gen, name):
@@ -1132,6 +1183,260 @@ def phase_rnvp_wide(gen, name):
             f"{losses[-1]:.2f}, no kernel launched, on {name}")
 
 
+# ---------------------------------------------------------------------------
+# The whole-run training kernel K6 and its yardsticks
+# ---------------------------------------------------------------------------
+
+def train_bound_ms(cfg: dict, n: int, launch_steps):
+    """The float32 bound of one K6 step on n rows, for a run made of
+    launches of ``launch_steps`` steps each: what each launch's function
+    must move and do, over the run's steps. Bytes: its steps' draws read,
+    one loss a step written, the weights and both Adam moments read once
+    and written once (6 words a weight); the cotangents, the input
+    cotangent and the weight gradients never leave the launch. Operations:
+    K5's a step (one forward and the backward, `coupling_work`) plus Adam's
+    14 a weight (the two moments, the bias corrections, the square root and
+    the update)."""
+    d, n_params = cfg["q0"], rnvp_n_params(cfg)
+    steps = sum(launch_steps)
+    ops = steps * (coupling_work("coupling_bwd", cfg, n, 4)[0]
+                   + 14 * n_params)
+    words = steps * (n * d + 1) + len(launch_steps) * 6 * n_params
+    t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops) / steps, (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _train_args(cfg: dict, dtype, batch: int, steps: int, seed: int, gen,
+                perturb=True):
+    """adam_train_realnvp_fused's arguments for a fused flow of ``cfg`` on
+    the card and ``steps`` draws of its base: (flow, args)."""
+    import normalizingflows_torch as nft
+
+    flow = _rnvp(cfg, seed, True, dtype)
+    if perturb:
+        flow = _perturbed(flow)
+    fb = flow.bijector.bijectors[0]
+    xs = flow.base.sample(gen, (steps, batch)).detach()
+    return flow, (xs, fb.groups, fb.idx_even, fb.idx_odd,
+                  nft.Banana(cfg["q0"], 1.0, 100.0), flow.base.loc,
+                  flow.base.scale, RNVP_LR)
+
+
+def _train_outputs(res):
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    groups, losses = res
+    return [losses] + cc._leaves(groups)
+
+
+def phase_train_kernel(gen):
+    """K6 against its plain version on the card; identical bits on two runs
+    and across chunk sizes; the plain version's device time a step."""
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    err, n_cmp = 0.0, 0
+    for dtype in (torch.float32, torch.float64):
+        for model, batch in TRAIN_SHAPES:
+            _, args = _train_args(CPL_CFG[model], dtype, batch,
+                                  TRAIN_CMP_STEPS, 31, gen)
+            tag = f"{str(dtype)[6:]} {model} batch {batch}"
+            got = _train_outputs(tc.adam_train_realnvp_fused(
+                *args, backend="cuda"))
+            again = _train_outputs(tc.adam_train_realnvp_fused(
+                *args, backend="cuda"))
+            chunked = _train_outputs(tc.adam_train_realnvp_fused(
+                *args, chunk=8, backend="cuda"))
+            for i, (a, b, c) in enumerate(zip(got, again, chunked)):
+                _same(f"K6 {tag} output {i}, two runs", a, b)
+                _same(f"K6 {tag} output {i}, chunks of 8", a, c)
+            want = _train_outputs(tc.adam_train_plain(*args))
+            e = max(compare(f"K6 {tag} {'losses' if i == 0 else f'leaf {i}'}",
+                            a, b, TRAIN_TOL[dtype], quiet=i > 0)
+                    for i, (a, b) in enumerate(zip(got, want)))
+            n_cmp += len(got)
+            if dtype == torch.float32 and model == "demo":
+                err = e
+    torch.cuda.synchronize()
+    say(18, f"{n_cmp} K6-vs-plain comparisons within tolerance (losses and "
+            f"every trained weight, {TRAIN_CMP_STEPS} steps, float32 and "
+            f"float64, demo, reference default, d=5); K6 gave identical "
+            f"bits on two runs and in chunks of 8 against one launch")
+
+    # the plain version's device time a step: 10 steps a call
+    _, args = _train_args(RNVP_DEMO, torch.float32, RNVP_BATCH, 10, 32, gen)
+    plain_ms = device_ms(lambda: tc.adam_train_plain(*args), reps=5,
+                         inner=2) / 10
+    say(18, f"adam_train_plain demo batch {RNVP_BATCH} f32: {plain_ms:.5f} ms "
+            f"a step (device time: median of 5 CUDA-graph replays of 2 "
+            f"calls of 10 steps, CUDA events)")
+    return {"err": err, "plain_ms": plain_ms}
+
+
+def phase_train_vs_eager(gen):
+    """K6 against the eager K4/K5 step on the same draws."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    flow, args = _train_args(RNVP_DEMO, torch.float32, RNVP_BATCH,
+                             TRAIN_CMP_STEPS, 33, gen, perturb=False)
+    xs, target = args[0], args[4]
+    reset_counts()
+    _, losses = tc.adam_train_realnvp_fused(*args)
+    torch.cuda.synchronize()
+    expect_counts("phase 19, K6", realnvp_train=1)
+    fb = flow.bijector.bijectors[0]
+    opt = torch.optim.Adam(fb.parameters(), lr=RNVP_LR)
+    eager = []
+    reset_counts()
+    for x in xs:
+        opt.zero_grad(set_to_none=True)
+        loss = -nft.elbo_from_samples(x, flow, target.log_prob)
+        loss.backward()
+        opt.step()
+        eager.append(loss.detach())
+    torch.cuda.synchronize()
+    expect_counts("phase 19, eager", coupling_fwd=TRAIN_CMP_STEPS,
+                  coupling_bwd=TRAIN_CMP_STEPS)
+    eager = torch.stack(eager).double()
+    losses = losses.double()
+    first = float((losses[0] - eager[0]).abs() / eager[0].abs())
+    traj = float(((losses - eager).abs() / (eager.abs() + 1.0)).max())
+    if not (first < FIRST_LOSS_REL and traj < TRAJECTORY_REL):
+        raise AssertionError(f"K6 against the eager step: first loss rel "
+                             f"{first:.3e} (< {FIRST_LOSS_REL}), trajectory "
+                             f"{traj:.3e} (< {TRAJECTORY_REL})")
+    say(19, f"K6 against the eager K4/K5 step + torch.optim.Adam, "
+            f"{TRAIN_CMP_STEPS} steps of the demo on the same draws: first "
+            f"loss rel {first:.3e}, trajectory max |Δ|/(|loss|+1) "
+            f"{traj:.3e}; loss {float(eager[0]):.4f} -> "
+            f"{float(eager[-1]):.4f}")
+
+
+def _timed_train(flow, gen, target, batch, steps):
+    """train_realnvp_fused with CUDA events around each K6 launch: (result,
+    host seconds, [device ms of each launch], [steps of each launch])."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    events, launch_steps = [], []
+    launch = tc._launch_chunk
+
+    def timed(fn, xs, w, m, v, grad, losses, run, step0, n, args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(fn, xs, w, m, v, grad, losses, run, step0, n, args)
+        stop.record()
+        events.append((start, stop))
+        launch_steps.append(n)
+
+    tc._launch_chunk = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = nft.train_realnvp_fused(gen, flow, target, batch,
+                                      max_iters=steps, learning_rate=RNVP_LR)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        tc._launch_chunk = launch
+    losses = res.stats["loss"]
+    if losses.shape != (steps,) or not torch.isfinite(
+            torch.from_numpy(losses)).all():
+        raise AssertionError("whole-run training gave non-finite losses")
+    return res, dt, [a.elapsed_time(b) for a, b in events], launch_steps
+
+
+def phase_train_main(name, eager):
+    """The slice's main path: the demo through train_realnvp_fused, then the
+    reference default."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    flow = _rnvp(RNVP_DEMO, 0, True)
+    gen = torch.Generator(device=DEVICE).manual_seed(80)
+    reset_counts()
+    res, dt, launch_ms, launch_steps = _timed_train(
+        flow, gen, target, RNVP_BATCH, RNVP_STEPS)
+    counts = expect_counts("phase 20", realnvp_train=2)
+    losses = res.stats["loss"]
+    first, last = losses[:100].mean(), losses[-100:].mean()
+    if not last < first:
+        raise AssertionError(f"ELBO did not rise: {-first} -> {-last}")
+    step_ms = sum(launch_ms) / RNVP_STEPS
+    bms, by = train_bound_ms(RNVP_DEMO, RNVP_BATCH, launch_steps)
+    say(20, f"train_realnvp_fused demo: ELBO {-losses[0]:.4f} -> "
+            f"{-losses[-1]:.4f} (mean of first 100 {-first:.4f}, last 100 "
+            f"{-last:.4f}); {RNVP_STEPS} steps in {dt:.4f} s = "
+            f"{RNVP_STEPS / dt:.1f} steps/s; K6 launches of {launch_steps} "
+            f"steps {launch_ms} ms (CUDA events) = {step_ms:.5f} ms a step "
+            f"on the device, bound {bms:.3e} ms a step ({by}); launches "
+            f"{counts}, on {name}")
+    say(20, f"phase 14 (eager K4/K5, other draws): ELBO {eager['first']:.4f}"
+            f" -> {eager['last']:.4f} (mean of first 100 "
+            f"{eager['first100']:.4f}, last 100 {eager['last100']:.4f}), "
+            f"{eager['steady']:.1f} steps/s after the first chunk")
+
+    flow = _rnvp(RNVP_REF, 50, True)
+    reset_counts()
+    res_ref, dt_ref, ref_ms, ref_steps = _timed_train(
+        flow, gen, target, RNVP_REF_BATCH, TRAIN_REF_STEPS)
+    ref_counts = expect_counts("phase 20, reference default",
+                               realnvp_train=1)
+    ref_bms, ref_by = train_bound_ms(RNVP_REF, RNVP_REF_BATCH, ref_steps)
+    losses = res_ref.stats["loss"]
+    say(20, f"reference default [32,32]x10, batch {RNVP_REF_BATCH}: "
+            f"{TRAIN_REF_STEPS} steps in {dt_ref:.4f} s = "
+            f"{TRAIN_REF_STEPS / dt_ref:.1f} steps/s, K6 {ref_ms[0]:.3f} ms "
+            f"= {ref_ms[0] / TRAIN_REF_STEPS:.5f} ms a step on the device, "
+            f"bound {ref_bms:.3e} ms a step ({ref_by}), loss "
+            f"{losses[0]:.2f} -> {losses[-1]:.2f}, launches {ref_counts}, "
+            f"on {name}")
+    return counts, {"ms": step_ms, "ms_per_launch": launch_ms,
+                    "steps_per_s": RNVP_STEPS / dt, "bound_ms": bms,
+                    "bound_by": by, "ref_ms": ref_ms[0] / TRAIN_REF_STEPS,
+                    "ref_steps_per_s": TRAIN_REF_STEPS / dt_ref,
+                    "ref_bound_ms": ref_bms, "ref_bound_by": ref_by}
+
+
+def phase_graph_step(name):
+    """One eager K4/K5 train step of the demo captured in a CUDA graph and
+    replayed: the yardstick of K6. The capture is the profiler's
+    (benchmarks/torch_profile.py), so both time the same graph."""
+    import normalizingflows_torch as nft
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    from torch_profile import capture_train_step
+
+    flow = _rnvp(RNVP_DEMO, 0, True)
+    reset_counts()
+    graph, loss = capture_train_step(flow, nft.Banana(2, 1.0, 100.0),
+                                     RNVP_BATCH, RNVP_LR, _warmup_stream())
+    # the counters count at capture: 3 warm steps and the captured one
+    expect_counts("phase 21, capture", coupling_fwd=4, coupling_bwd=4)
+    reset_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(GRAPH_STEPS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_ms = start.elapsed_time(stop) / GRAPH_STEPS
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("the graphed step gave a non-finite loss")
+    say(21, f"CUDA graph of one eager K4/K5 demo step, {GRAPH_STEPS} "
+            f"replays: {GRAPH_STEPS / dt:.1f} steps/s, {step_ms:.5f} ms a "
+            f"step on the device (CUDA events), last loss {float(loss):.4f},"
+            f" on {name}")
+    return {"graph_step_ms": step_ms, "graph_steps_per_s": GRAPH_STEPS / dt}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1151,20 +1456,28 @@ def main() -> int:
     phase_mle_wide(gen, name)
     cpl = phase_coupling_kernels(gen)
     phase_rnvp_same_step(gen)
-    rnvp_flows, rnvp_launches = phase_rnvp_main(name)
+    rnvp_flows, rnvp_launches, rnvp_summary = phase_rnvp_main(name)
     phase_rnvp_sampling(rnvp_flows, gen, name)
     phase_rnvp_ref(gen, name)
     phase_rnvp_wide(gen, name)
+    train = phase_train_kernel(gen)
+    phase_train_vs_eager(gen)
+    train_launches, train_main = phase_train_main(name, rnvp_summary)
+    graph = phase_graph_step(name)
     torch.cuda.synchronize()
+    train.update(train_main, **graph,
+                 eager_step_ms=1e3 / rnvp_summary["steady"])
 
     # each kernel's launches on the path it serves: K2 on the ELBO path,
     # K1 and K3 on the density path (K1 runs on both), K4 and K5 on the
-    # RealNVP demo's
+    # RealNVP demo's, K6 on the demo's whole-run training
     paths = {"elbo_demo": elbo_launches, "mle_demo": mle_launches,
-             "realnvp_demo": rnvp_launches}
+             "realnvp_demo": rnvp_launches,
+             "realnvp_train_demo": train_launches}
     own = {"rqs_fwd": "mle_demo", "rqs_bwd_fwddir": "elbo_demo",
            "rqs_bwd_invdir": "mle_demo", "coupling_fwd": "realnvp_demo",
-           "coupling_bwd": "realnvp_demo"}
+           "coupling_bwd": "realnvp_demo",
+           "realnvp_train": "realnvp_train_demo"}
 
     def entry(k, source, r, extra):
         return {"name": k, "route": "cuda",
@@ -1186,7 +1499,12 @@ def main() -> int:
         entry(k, "coupling.cu", cpl[k],
               ("unfused_ms", "ms_by_n", "plain_ms_by_n", "bound_ms_by_n",
                "unfused_ms_by_n"))
-        for k in CPL_KERNELS]}), flush=True)
+        for k in CPL_KERNELS] + [
+        entry("realnvp_train", "train.cu", train,
+              ("ms_per_launch", "steps_per_s", "graph_step_ms",
+               "graph_steps_per_s", "eager_step_ms", "ref_ms",
+               "ref_steps_per_s", "ref_bound_ms", "ref_bound_by"))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,14 @@ The PyTorch port of `normalizingflows.jl_tpu`, with the same public names.
 Its tree mirrors the JAX package's (`models/`, `ops/`, `utils/`,
 `objectives.py`, `train.py`), so each module's counterpart sits at the same
 relative path. The hand-written kernels (the neural spline flow's fused
-rational-quadratic spline, the fused RealNVP coupling stack) are CUDA C++
-in `csrc/`, built with nvcc at first use.
+rational-quadratic spline, the fused RealNVP coupling stack and its
+whole training run) are CUDA C++ in `csrc/`, built with nvcc at first use.
 
 The port covers reverse-KL ELBO training of the neural spline flow, its
 density path (log_prob with gradients) and maximum-likelihood training, and
-RealNVP, unfused or through the fused coupling-stack kernels:
+RealNVP, unfused or through the fused coupling-stack kernels, whose whole
+ELBO training run `train_realnvp_fused` takes one kernel launch per chunk
+of steps:
   train_flow, train_flow_mle, optimize -> .train
   elbo, elbo_batch, elbo_from_samples, elbo_stl, elbo_iw,
   loglikelihood                        -> .objectives
@@ -17,7 +19,8 @@ RealNVP, unfused or through the fused coupling-stack kernels:
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
   realnvp, RealNVP_layer, AffineCoupling, CouplingPairStack
                                        -> .models.coupling
-  realnvp(fused=True): FusedRealNVP    -> .experimental
+  realnvp(fused=True): FusedRealNVP,
+  train_realnvp_fused (lazy)           -> .experimental
   MLP, fnn                             -> .models.nets
   Banana                               -> .models.targets
   utils.data.make_loader, NumpyLoader  -> .utils.data
@@ -80,6 +83,18 @@ from .train import (  # noqa: E402
 from .utils import data as _data  # noqa: E402,F401  (nft.utils.data)
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    # The fused RealNVP path lives in `.experimental`, which a plain import
+    # does not load; `nft.train_realnvp_fused` and `nft.FusedRealNVP` load it
+    # on first use, as the JAX package's names do.
+    if name in ("FusedRealNVP", "train_realnvp_fused"):
+        from . import experimental
+
+        return getattr(experimental, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     # bijectors

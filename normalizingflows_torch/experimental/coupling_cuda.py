@@ -304,22 +304,24 @@ def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False):
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _bwd_smem_bytes(d, n_blocks, depth, hidden, word):
-    """K5's dynamic shared memory (`launch_bwd_h`, csrc/coupling.cu): one
-    coupling's two padded nets, every coupling's saved (BWD_ROWS, d) input,
-    the two nets' activations and one layer's cotangents, in words of T."""
+def _bwd_smem_bytes(d, n_blocks, depth, hidden, word, extra_words=0):
+    """K5's dynamic shared memory (`bwd_words`, csrc/coupling_device.cuh):
+    one coupling's two padded nets, every coupling's saved (BWD_ROWS, d)
+    input, the two nets' activations and one layer's cotangents, in words
+    of T; ``extra_words`` more for a kernel that adds to K5's layout."""
     half, stride = KERNEL_MAX_D // 2, BWD_ROWS + 1
     H = 16 if hidden <= 16 else 32
     net = half * H + H + (depth - 2) * (H * H + H) + H * half + half
     acts = stride * (half + (depth - 1) * H) + stride * half
     return word * (2 * net + 2 * n_blocks * BWD_ROWS * d + 2 * acts
-                   + stride * H)
+                   + stride * H + extra_words)
 
 
-def _kernel_args(x, leaves, sels, depth, backward=False):
+def _kernel_args(x, leaves, sels, depth, backward=False, extra_words=0):
     """Check what the kernels take (shapes first, then dtype and device);
-    ``backward`` also checks K5's shared memory. Returns (suffix, widths,
-    idx) with the int arrays of the C interface."""
+    ``backward`` also checks the shared memory of K5's layout plus
+    ``extra_words``. Returns (suffix, widths, idx) with the int arrays of
+    the C interface."""
     n, d = x.shape
     groups = _unflatten(leaves, depth)
     widths = []
@@ -341,12 +343,13 @@ def _kernel_args(x, leaves, sels, depth, backward=False):
         word, n_blocks = x.element_size(), leaves[0].shape[0]
         hidden = max(widths[g * (depth + 1) + l] for g in (0, 1)
                      for l in range(1, depth))
-        need = _bwd_smem_bytes(d, n_blocks, depth, hidden, word)
+        need = _bwd_smem_bytes(d, n_blocks, depth, hidden, word,
+                               extra_words)
         if need > KERNEL_MAX_SMEM:
             cap = n_blocks - -(-(need - KERNEL_MAX_SMEM)
                                // (2 * BWD_ROWS * d * word))
             raise ValueError(
-                f"coupling_bwd needs {need} bytes of shared memory for "
+                f"the backward sweep needs {need} bytes of shared memory for "
                 f"{n_blocks} blocks at d={d} in {x.dtype}, over the "
                 f"{KERNEL_MAX_SMEM} a block may use; this shape takes at "
                 f"most {cap} blocks")

@@ -1,19 +1,25 @@
-"""`FusedRealNVP`: a whole RealNVP stack through the fused coupling kernels.
+"""`FusedRealNVP` and `train_realnvp_fused`: a whole RealNVP stack through
+the fused coupling kernels, and its whole training run through one kernel.
 
-Counterpart of `normalizingflows/jl_tpu/experimental/fused_flow.py` without
-`train_realnvp_fused`, whose whole-run kernel is not ported yet.
-`realnvp(..., fused=True)` imports this module lazily.
+Counterpart of `normalizingflows/jl_tpu/experimental/fused_flow.py`.
+`FusedRealNVP` runs the stack through K4/K5 (`coupling_cuda`);
+`train_realnvp_fused` trains it by reverse KL with Adam through K6, one
+launch per chunk of steps (`train_cuda`). `realnvp(..., fused=True)`
+imports this module lazily.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..models.bijector import Bijector
-from .coupling_cuda import BACKENDS, coupling_stack_fused
+from ..models.distributions import DiagNormal
+from ..train import TrainResult, TrainState
+from .coupling_cuda import BACKENDS, _leaves, coupling_stack_fused
 
-__all__ = ["FusedRealNVP"]
+__all__ = ["FusedRealNVP", "train_realnvp_fused"]
 
 
 def _stacked(mlps) -> nn.ModuleList:
@@ -66,3 +72,48 @@ class FusedRealNVP(Bijector):
         return coupling_stack_fused(y, self.groups, self.idx_even,
                                     self.idx_odd, inverse=True,
                                     backend=self.backend)
+
+
+def train_realnvp_fused(generator, flow, target, n_samples: int,
+                        max_iters: int = 1000, learning_rate: float = 5e-4,
+                        b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                        chunk: int = 512) -> TrainResult:
+    """ELBO-train a fused RealNVP flow with the whole-run kernel K6.
+
+    Draws every step's ``n_samples`` base samples up front from
+    ``generator`` (on the flow's device), then runs all ``max_iters`` Adam
+    steps in launches of ``chunk`` steps (`train_cuda.
+    adam_train_realnvp_fused`): one launch per 512 steps by default, with
+    the host out of the loop. Same math as ``train_flow(generator,
+    elbo_batch, flow, target.log_prob, n_samples)`` with
+    ``torch.optim.Adam(lr=learning_rate)`` and the base frozen.
+
+    Requirements: ``flow`` built with ``realnvp(..., fused=True)``, a
+    `DiagNormal` base, and ``target`` an `nft.Banana` of the flow's
+    dimension (or its ``log_prob``): K6 evaluates the target's log-density
+    and gradient itself. The flow's `FusedRealNVP` backend decides where the
+    run goes ("auto": K6 for a flow on the card, the plain version for one
+    on the CPU). The flow is trained in place: `TrainResult.flow` is the
+    module passed in; its state holds no optimizer.
+    """
+    from .train_cuda import adam_train_realnvp_fused
+
+    bijectors = getattr(flow.bijector, "bijectors", (flow.bijector,))
+    if len(bijectors) != 1 or not isinstance(bijectors[0], FusedRealNVP):
+        raise ValueError(
+            "train_realnvp_fused requires a flow built with "
+            "realnvp(..., fused=True); got " + type(flow.bijector).__name__)
+    if not isinstance(flow.base, DiagNormal):
+        raise ValueError("train_realnvp_fused requires a DiagNormal base")
+    fb = bijectors[0]
+    with torch.no_grad():
+        xs = flow.base.sample(generator, (max_iters, n_samples))
+        groups, losses = adam_train_realnvp_fused(
+            xs, fb.groups, fb.idx_even, fb.idx_odd, target, flow.base.loc,
+            flow.base.scale, learning_rate, b1=b1, b2=b2, eps=eps,
+            chunk=chunk, backend=fb.backend)
+        for p, new in zip(_leaves(fb.groups), _leaves(groups)):
+            p.copy_(new)
+    stats = {"iteration": np.arange(1, max_iters + 1),
+             "loss": losses.cpu().numpy()}
+    return TrainResult(flow, stats, TrainState(flow, None, max_iters))

@@ -33,21 +33,24 @@ NVCC_FLAGS = ARCH + (
 # kernels round exactly as their plain torch versions (one op per
 # elementwise kernel) do; near the 1e-3 derivative floor the spline
 # amplifies single roundings far past the f32 tolerances, and the
-# comparison on the card would measure that instead. coupling.cu keeps
-# nvcc's FMA contraction: it is held to tolerances, its plain version's
-# matmuls summing in cuBLAS's order.
+# comparison on the card would measure that instead. coupling.cu and
+# train.cu keep nvcc's FMA contraction: they are held to tolerances, their
+# plain versions' matmuls summing in cuBLAS's order.
 SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",)}
 
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
-# entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu and
-# csrc/coupling.cu); int arrays and pointer tables go in as ctypes arrays
+# entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu,
+# csrc/coupling.cu and csrc/train.cu); int and double arrays and pointer
+# tables go in as ctypes arrays
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _I32, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
              _I32, _F64, _P]
 _CPL_FWD_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _P]
 _CPL_BWD_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P,
                  _I32, _I32, _P]
+_TRAIN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32,
+               _I32, _P, _P, _P, _P]
 ENTRIES = {
     "rqs_fwd_f32": _FWD_ARGS,
     "rqs_fwd_f64": _FWD_ARGS,
@@ -59,6 +62,8 @@ ENTRIES = {
     "coupling_fwd_f64": _CPL_FWD_ARGS,
     "coupling_bwd_f32": _CPL_BWD_ARGS,
     "coupling_bwd_f64": _CPL_BWD_ARGS,
+    "realnvp_train_f32": _TRAIN_ARGS,
+    "realnvp_train_f64": _TRAIN_ARGS,
 }
 
 

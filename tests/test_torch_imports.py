@@ -18,7 +18,10 @@ PKG = ROOT / "normalizingflows_torch"
 
 def test_imports_with_jax_blocked():
     """With ``sys.modules["jax"] = None`` any ``import jax`` fails; the
-    package and every module of it still import."""
+    package and every module of it (the kernels' wrappers
+    `ops.rqs_cuda`, `experimental.coupling_cuda` and
+    `experimental.train_cuda` among them) still import, and importing them
+    builds no kernel."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
@@ -30,7 +33,10 @@ def test_imports_with_jax_blocked():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "assert 'normalizingflows' not in sys.modules\n"
+        "from normalizingflows_torch.ops import _build\n"
+        "assert _build._LIB is None\n"
         "print(len(nft.__all__))\n")
+    assert "normalizingflows_torch.experimental.train_cuda" in modules
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -56,3 +62,25 @@ def test_public_names_are_spelled_as_in_the_jax_package():
     missing = [n for n in nft.__all__ if not hasattr(nft, n)]
     assert not missing
     assert set(nft.__all__) <= set(nf.__all__)
+
+
+def test_fused_path_loads_lazily():
+    """`import normalizingflows_torch` does not load `experimental`;
+    `nft.train_realnvp_fused` and `nft.FusedRealNVP` load it on first use,
+    as the JAX package's names do."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import normalizingflows_torch as nft\n"
+        "assert 'normalizingflows_torch.experimental' not in sys.modules\n"
+        "from normalizingflows_torch import experimental\n"
+        "assert nft.train_realnvp_fused is experimental.train_realnvp_fused\n"
+        "assert nft.FusedRealNVP is experimental.FusedRealNVP\n"
+        "try:\n"
+        "    nft.no_such_name\n"
+        "except AttributeError:\n"
+        "    print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
