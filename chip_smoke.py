@@ -2,15 +2,20 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the hand-written CUDA kernels from ``normalizingflows_torch/csrc``
-and drives the port's paths through them: reverse-KL ELBO training of the
+``--phases 1,2,12,18-21`` runs only those phases (phase 1 always; 7 adds 5
+and 15 adds 14, whose flows they take) and ends with the device line alone;
+with no argument every phase runs. It builds the hand-written CUDA kernels
+from ``normalizingflows_torch/csrc`` and drives the port's paths through
+them: reverse-KL ELBO training of the
 neural spline flow (K1 forward, K2), its density path, maximum-likelihood
 training through `log_prob` (K1 inverse, K3), and RealNVP (K4, K5, from
 phase 12 on):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc of csrc/*.cu, one process per source, its seconds and the
-   ptxas register/spill report (K1–K5);
+2. build: nvcc of csrc/*.cu, one process per source, its seconds and
+   ptxas's registers and spill bytes of every kernel instantiation (K1–K6:
+   K5 and K6 in float32/float64 × H 16/32, K5 in both directions); a
+   float32 K5 or K6 that spills fails;
 3. kernels against their plain torch versions on the card: K1 forward and
    inverse, K2's and K3's gx/graw, at N = 64 (demo), 1000 (ragged) and
    131072 (wide), K 8 and 10, float32 and float64, raw read elem-major and
@@ -41,12 +46,14 @@ Then RealNVP (the fused coupling-stack kernels K4 `coupling_fwd` and K5
 `coupling_bwd`, and the unfused module path beside them):
 
 12. K4 and K5 against their plain versions (`tile_flow`, `tile_flow_bwd`)
-    on the card: the demo model (d=2, [16,16]x3) at N 16, 300 and 262,144,
-    the reference default ([32,32]x10) at N 256, d=5 with [8,8]x2 at N 300;
+    on the card: the demo model (d=2, [16,16]x3) at N 16, 300 and 262,144
+    (K5's lane tile, then its row tile), the reference default
+    ([32,32]x10) at N 256, d=5 with [8,8]x2 at N 300;
     float32 and float64, forward and inverse; y, ld, gx and every weight
-    gradient; K5 twice with identical bits. Device times at N 16, 256 and
-    262,144 of K4, K5 (both passes), the plain versions and the unfused
-    `CouplingPairStack` forward and forward+backward on the same weights;
+    gradient; K4 and K5 twice with identical bits. Device times at N 16,
+    256 and 262,144 of K4, K5 (both passes), the plain versions and the
+    unfused `CouplingPairStack` forward and forward+backward on the same
+    weights;
 13. one `elbo_from_samples` value-and-grad on the demo through
     `realnvp(fused=True)` on the card, the same flow with backend "plain",
     and the unfused `realnvp` of the same seed (same weights);
@@ -66,8 +73,9 @@ Then the whole-run training kernel K6 `realnvp_train` (many Adam/ELBO steps
 of the fused stack a launch):
 
 18. K6 against its plain version (`adam_train_plain`) on the card: 25 steps
-    of the demo at batch 16, the reference default at batch 256 (4 row
-    tiles) and d=5 [8,8]x2 at batch 100 (a ragged tile), float32 and
+    of the demo at batch 16, the reference default at batch 256 (8 row
+    tiles in float32) and at batch 16 (one tile of 16 rows on 32 lanes
+    each), and d=5 [8,8]x2 at batch 100 (a ragged tile), float32 and
     float64; the losses and every trained weight; K6 twice, and in chunks
     of 8 against one launch, with identical bits; the plain version's
     device time a step;
@@ -89,10 +97,12 @@ per-kernel JSON.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -136,7 +146,8 @@ KERNELS = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir")
 CPL_KERNELS = ("coupling_fwd", "coupling_bwd")
 # K6: (model, batch) of the phase-18 comparisons, their steps, and the
 # reference default's steps on phase 20
-TRAIN_SHAPES = (("demo", RNVP_BATCH), ("ref", RNVP_REF_BATCH), ("odd", 100))
+TRAIN_SHAPES = (("demo", RNVP_BATCH), ("ref", RNVP_REF_BATCH),
+                ("ref", RNVP_BATCH), ("odd", 100))
 TRAIN_CMP_STEPS, TRAIN_REF_STEPS, GRAPH_STEPS = 25, 50, 1000
 REPLACES = {
     "rqs_fwd": "normalizingflows/jl_tpu/ops/rqs_pallas.py:649, :541, :685",
@@ -181,6 +192,23 @@ ROUND_TRIP_TOL = (1e-3, 1e-2)
 # |Δ|/(|loss| + 1) 5e-5).
 TRAIN_TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-8, 1e-12)}
 FIRST_LOSS_REL, TRAJECTORY_REL = 1e-6, 5e-5
+ALL_PHASES = tuple(range(1, 22))
+
+
+def parse_phases(text: str) -> tuple:
+    """"1,2,12,18-21" -> (1, 2, 12, 18, 19, 20, 21); anything else than
+    phases or ranges of phases 1..21 raises ValueError."""
+    out = set()
+    for part in text.split(","):
+        lo, dash, hi = part.strip().partition("-")
+        if not (lo.isdigit() and (hi.isdigit() or not dash)):
+            raise ValueError(f"not a phase or a range of phases: {part!r}")
+        a, b = int(lo), int(hi) if dash else int(lo)
+        if not 1 <= a <= b <= ALL_PHASES[-1]:
+            raise ValueError(f"phases run from 1 to {ALL_PHASES[-1]}: "
+                             f"{part!r}")
+        out.update(range(a, b + 1))
+    return tuple(sorted(out))
 
 
 def say(phase: int, msg: str):
@@ -315,14 +343,61 @@ def phase_device() -> str:
     return smi
 
 
+# a kernel's mangled name in ptxas's report: its name, its type (f or d),
+# then its bool (Lb0/Lb1: INVERSE) and int (Li16: H, or K for RQS)
+# template arguments in order
+_KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
+                          r"coupling_bwd|coupling_fwd|"
+                          r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
+                          r"rqs_bwd_invdir)I([fd])((?:L[bi]\d+E)*)")
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function in nvcc's -Xptxas -v log, the kernel spelled as
+    name<type, K=.., fwd/inv, H=..>."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _KERNEL_NAME.search(line)
+            name = None
+            if m:
+                kind, t, rest = m.groups()
+                args = ["f32" if t == "f" else "f64"]
+                for flag, value in re.findall(r"L([bi])(\d+)E", rest):
+                    args.append(("inv" if value == "1" else "fwd")
+                                if flag == "b" else
+                                f"{'K' if kind.startswith('rqs') else 'H'}"
+                                f"={value}")
+                name = f"{kind}<{', '.join(args)}>"
+            spills = (0, 0)
+        elif "spill stores" in line and name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif "Used" in line and "registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append((name, regs, *spills))
+            name = None
+    return out
+
+
 def phase_build():
     from normalizingflows_torch.ops import _build
 
     build = _build.build()
     say(2, f"nvcc {build.seconds:.1f} s -> {build.path.name}")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("    " + line.strip(), flush=True)
+    report = ptxas_report(build.log)
+    for kernel, regs, stores, loads in sorted(set(report)):
+        print(f"    {kernel}: {regs} registers, {stores} bytes spill stores, "
+              f"{loads} bytes spill loads", flush=True)
+    if build.log and not any(k.startswith("coupling_bwd<") for k, *_ in
+                             report):
+        raise AssertionError("no K5 instantiation in ptxas's report")
+    spilled = [k for k, _, stores, _ in report if stores and "f32" in k
+               and k.startswith(("coupling_bwd", "realnvp_train<"))]
+    if spilled:
+        raise AssertionError(f"float32 K5/K6 spill registers: {spilled}")
     _build.library()
 
 
@@ -932,7 +1007,8 @@ def phase_coupling_kernels(gen):
     torch.cuda.synchronize()
     say(12, f"{n_cmp} K4/K5-vs-plain comparisons within tolerance (float32 "
             f"and float64, forward and inverse, y, ld, gx and every weight "
-            f"gradient); K4 and K5 gave identical bits on two runs each")
+            f"gradient); K4 (y, ld) and K5 (gx, every weight gradient) gave "
+            f"identical bits on two runs each")
 
     for model, n in CPL_TIMED:
         cfg = CPL_CFG[model]
@@ -1260,8 +1336,9 @@ def phase_train_kernel(gen):
     torch.cuda.synchronize()
     say(18, f"{n_cmp} K6-vs-plain comparisons within tolerance (losses and "
             f"every trained weight, {TRAIN_CMP_STEPS} steps, float32 and "
-            f"float64, demo, reference default, d=5); K6 gave identical "
-            f"bits on two runs and in chunks of 8 against one launch")
+            f"float64, demo, reference default at batch 256 and 16, d=5); K6 "
+            f"gave identical bits on two runs and in chunks of 8 against one "
+            f"launch")
 
     # the plain version's device time a step: 10 steps a call
     _, args = _train_args(RNVP_DEMO, torch.float32, RNVP_BATCH, 10, 32, gen)
@@ -1373,10 +1450,12 @@ def phase_train_main(name, eager):
             f"steps {launch_ms} ms (CUDA events) = {step_ms:.5f} ms a step "
             f"on the device, bound {bms:.3e} ms a step ({by}); launches "
             f"{counts}, on {name}")
-    say(20, f"phase 14 (eager K4/K5, other draws): ELBO {eager['first']:.4f}"
-            f" -> {eager['last']:.4f} (mean of first 100 "
-            f"{eager['first100']:.4f}, last 100 {eager['last100']:.4f}), "
-            f"{eager['steady']:.1f} steps/s after the first chunk")
+    if eager:
+        say(20, f"phase 14 (eager K4/K5, other draws): ELBO "
+                f"{eager['first']:.4f} -> {eager['last']:.4f} (mean of first "
+                f"100 {eager['first100']:.4f}, last 100 "
+                f"{eager['last100']:.4f}), {eager['steady']:.1f} steps/s "
+                f"after the first chunk")
 
     flow = _rnvp(RNVP_REF, 50, True)
     reset_counts()
@@ -1437,34 +1516,78 @@ def phase_graph_step(name):
     return {"graph_step_ms": step_ms, "graph_steps_per_s": GRAPH_STEPS / dt}
 
 
-def main() -> int:
+def selected_phases(argv=None) -> set:
+    """The phases a command line asks for, with phase 1 and the phases
+    whose results a selected one takes: 7 takes 5's flow, 15 takes 14's."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", type=parse_phases, default=ALL_PHASES,
+                        help="phases to run, e.g. 1,2,12,18-21 (default: "
+                             "all)")
+    phases = set(parser.parse_args(argv).phases) | {1}
+    phases |= {5} if 7 in phases else set()
+    phases |= {14} if 15 in phases else set()
+    return phases
+
+
+def main(argv=None) -> int:
+    phases = selected_phases(argv)
     t_start = time.perf_counter()
     smi = phase_device()
     import normalizingflows_torch  # noqa: F401  (fails outside a checkout)
 
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    phase_build()
-    kernels = phase_kernels(gen)
-    phase_same_step(gen)
-    flow, elbo_launches = phase_main_path(gen, name)
-    phase_wide(gen, name)
-    phase_round_trip(flow, gen)
-    phase_loglikelihood(gen)
-    phase_stl()
-    mle_launches = phase_mle(gen, name)
-    phase_mle_wide(gen, name)
-    cpl = phase_coupling_kernels(gen)
-    phase_rnvp_same_step(gen)
-    rnvp_flows, rnvp_launches, rnvp_summary = phase_rnvp_main(name)
-    phase_rnvp_sampling(rnvp_flows, gen, name)
-    phase_rnvp_ref(gen, name)
-    phase_rnvp_wide(gen, name)
-    train = phase_train_kernel(gen)
-    phase_train_vs_eager(gen)
-    train_launches, train_main = phase_train_main(name, rnvp_summary)
-    graph = phase_graph_step(name)
+    if 2 in phases:
+        phase_build()
+    if 3 in phases:
+        kernels = phase_kernels(gen)
+    if 4 in phases:
+        phase_same_step(gen)
+    if 5 in phases:
+        flow, elbo_launches = phase_main_path(gen, name)
+    if 6 in phases:
+        phase_wide(gen, name)
+    if 7 in phases:
+        phase_round_trip(flow, gen)
+    if 8 in phases:
+        phase_loglikelihood(gen)
+    if 9 in phases:
+        phase_stl()
+    if 10 in phases:
+        mle_launches = phase_mle(gen, name)
+    if 11 in phases:
+        phase_mle_wide(gen, name)
+    if 12 in phases:
+        cpl = phase_coupling_kernels(gen)
+    if 13 in phases:
+        phase_rnvp_same_step(gen)
+    rnvp_summary = None
+    if 14 in phases:
+        rnvp_flows, rnvp_launches, rnvp_summary = phase_rnvp_main(name)
+    if 15 in phases:
+        phase_rnvp_sampling(rnvp_flows, gen, name)
+    if 16 in phases:
+        phase_rnvp_ref(gen, name)
+    if 17 in phases:
+        phase_rnvp_wide(gen, name)
+    if 18 in phases:
+        train = phase_train_kernel(gen)
+    if 19 in phases:
+        phase_train_vs_eager(gen)
+    if 20 in phases:
+        train_launches, train_main = phase_train_main(name, rnvp_summary)
+    if 21 in phases:
+        graph = phase_graph_step(name)
     torch.cuda.synchronize()
+    device_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}})
+    if phases != set(ALL_PHASES):
+        print(f"chip_smoke.py: phases {sorted(phases)} passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"card: {smi}", flush=True)
+        print(device_line, flush=True)
+        return 0
     train.update(train_main, **graph,
                  eager_step_ms=1e3 / rnvp_summary["steady"])
 
@@ -1505,9 +1628,7 @@ def main() -> int:
                "graph_steps_per_s", "eager_step_ms", "ref_ms",
                "ref_steps_per_s", "ref_bound_ms", "ref_bound_by"))]}),
           flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(device_line, flush=True)
     return 0
 
 

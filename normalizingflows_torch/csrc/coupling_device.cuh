@@ -1,12 +1,15 @@
 // Device code of the fused RealNVP coupling-stack kernels, shared by K4/K5
 // (csrc/coupling.cu) and K6 (csrc/train.cu): the stack's description
-// (`Stack`), staging one coupling's weights in shared memory, the
-// conditioner MLPs on one row, one coupling forward, the per-layer
-// backward with the CTA's weight-gradient sums, one row tile of the
-// stack's VJP (`tile_vjp`), and the host helpers that fill a `Stack` and
-// size K5's shared memory. The design is described at the top of
-// csrc/coupling.cu. Everything is in an anonymous namespace: each source
-// that includes this file gets its own copy.
+// (`Stack`), staging one coupling's weights in shared memory, and two
+// mappings of a batch row onto threads. One row a thread: K4 and K5's row
+// tile at large batches (`dense`, `mlp_row`, `coupling_parts`,
+// `apply_coupling`, `layer_bwd`, `mlp_bwd`, `row_tile_vjp`). One row on H
+// lanes of a warp, one hidden unit a lane: K6 and K5's lane tile at small
+// batches (`lane_dense`, `lane_mlp`, `lane_layer_bwd`, `lane_mlp_bwd`,
+// `tile_vjp`). Last, the host helpers that fill a `Stack` and size the two
+// tiles' shared memory. The designs are described
+// at the top of csrc/coupling.cu. Everything is in an anonymous namespace:
+// each source that includes this file gets its own copy.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -21,10 +24,49 @@ constexpr int kMaxD = 8;   // flow dimension
 constexpr int kHalf = 4;   // bound of a coupling's n_A and n_B
 constexpr int kMaxL = 4;   // Dense layers a conditioner, at least 2
 constexpr int kFwdRows = 128;
-constexpr int kBwdRows = 64;  // coupling_cuda.py's BWD_ROWS
-constexpr int kStride = kBwdRows + 1;  // K5's unit-major row stride
+// Rows R a K5/K6 lane tile holds at most, R·H threads (coupling_cuda.py's
+// BWD_ROWS): 1,024 threads in float32; half that in float64, whose values
+// take two registers each.
+constexpr int kBwdRowsF32H16 = 64;
+constexpr int kBwdRowsF32H32 = 32;
+constexpr int kBwdRowsF64H16 = 32;
+constexpr int kBwdRowsF64H32 = 16;
+// Past kLaneMaxTiles lane tiles (about one wave on the H100's 132 SMs)
+// K5 runs the row tile instead: kRowTileRows rows, one a thread, whose
+// caches are unit-major with a row stride of kRowStride (coupling_cuda.py's
+// LANE_MAX_TILES and ROW_TILE_ROWS).
+constexpr int kLaneMaxTiles = 128;
+constexpr int kRowTileRows = 64;
+constexpr int kRowStride = kRowTileRows + 1;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxLeaves = 2 * 2 * kMaxL * 2;
+constexpr unsigned kWarp = 0xffffffffu;
+
+template <typename T, int H>
+__host__ __device__ constexpr int bwd_rows() {
+  return sizeof(T) == 4 ? (H == 16 ? kBwdRowsF32H16 : kBwdRowsF32H32)
+                        : (H == 16 ? kBwdRowsF64H16 : kBwdRowsF64H32);
+}
+
+// Rows of a lane tile holding n rows: n in whole warps (32/H rows), at most
+// R (coupling_cuda.py's lane_rows).
+template <typename T, int H>
+int lane_rows(int64_t n) {
+  constexpr int R = bwd_rows<T, H>(), per_warp = 32 / H;
+  const int64_t rows = (n + per_warp - 1) / per_warp * per_warp;
+  return rows < R ? (int)rows : R;
+}
+
+// Rows of K5's lane tile for a batch of n rows: n / kLaneMaxTiles, so that
+// the tiles spread over the SMs, but at least 8 warps (256/H rows), whose
+// latencies hide each other, and no more than the batch
+// (coupling_cuda.py's k5_lane_rows).
+template <typename T, int H>
+int k5_lane_rows(int64_t n) {
+  const int64_t spread = (n + kLaneMaxTiles - 1) / kLaneMaxTiles;
+  const int64_t want = spread > 256 / H ? spread : 256 / H;
+  return lane_rows<T, H>(n < want ? n : want);
+}
 
 // The stack's shapes and weights, passed by value as a kernel parameter.
 struct Stack {
@@ -36,8 +78,9 @@ struct Stack {
   int idx_a[2][kHalf];      // transformed index set, −1 padded
   int idx_b[2][kHalf];      // conditioner index set, −1 padded
   int wnet;                 // words of one net's padded weights
-  // K5's shared-memory layout, in words of T
-  int sm_saved, sm_acts, sm_acts_net, sm_g;
+  // K5/K6: rows of the lane tile, and the tile's shared-memory layout in
+  // words of T
+  int rows, sm_saved, sm_acts, sm_acts_net, sm_g;
 };
 
 struct GradTable {
@@ -62,24 +105,36 @@ __device__ __forceinline__ void ld16(const double* p, double* o) {
 }
 
 // Padded geometry of one net: layer l is (in_bound, out_bound), W then b.
+// W's rows are out_bound + pad words apart: pad 0 for one row a thread
+// (16-byte row loads), 1 for the lane tile, whose lane k reads row k of W
+// in the backward, so that the H lanes' reads of one column fall in
+// distinct banks.
 __host__ __device__ constexpr int in_bound(int H, int l) {
   return l == 0 ? kHalf : H;
 }
 __host__ __device__ constexpr int out_bound(int H, int l, int depth) {
   return l == depth - 1 ? kHalf : H;
 }
-__host__ __device__ inline int layer_off(int H, int l) {
-  return l == 0 ? 0 : (kHalf * H + H) + (l - 1) * (H * H + H);
+__host__ __device__ inline int layer_off(int H, int l, int pad = 0) {
+  return l == 0 ? 0 : (kHalf * (H + pad) + H) + (l - 1) * (H * (H + pad) + H);
 }
-__host__ __device__ inline int net_words(int H, int depth) {
-  return layer_off(H, depth - 1) + H * kHalf + kHalf;
+__host__ __device__ inline int net_words(int H, int depth, int pad = 0) {
+  return layer_off(H, depth - 1, pad) + H * (kHalf + pad) + kHalf;
 }
-// offset of activation level m (0: the input, depth: the output), unit-major
-__host__ __device__ inline int level_off(int H, int m) {
-  return m == 0 ? 0 : kStride * (kHalf + (m - 1) * H);
+// The row tile: offset of activation level m (0: the input, depth: the
+// output), unit-major
+__host__ __device__ inline int row_level_off(int H, int m) {
+  return m == 0 ? 0 : kRowStride * (kHalf + (m - 1) * H);
+}
+// The lane tile: offset of activation level m (0: the input x_B, depth: the
+// output) in one net's cache of the tile's rows; a level is row-major,
+// kHalf units a row at levels 0 and depth, H between
+__host__ __device__ inline int level_off(int H, int m, int rows) {
+  return m == 0 ? 0 : rows * (kHalf + (m - 1) * H);
 }
 
-// Block blk's s and t weights of group g into w, zero-padded.
+// Block blk's s and t weights of group g into w, zero-padded, W's rows ob
+// words apart (K4 and K5's row tile: one thread a row, a few warps).
 template <typename T, int H>
 __device__ void stage(const Stack& st, int g, int blk, T* w) {
   __syncthreads();  // every thread is done with the previous coupling
@@ -109,6 +164,62 @@ __device__ void stage(const Stack& st, int g, int blk, T* w) {
   }
   __syncthreads();
 }
+
+// Word e of one coupling's weights in the lane tile's layout (block blk of
+// group g: both nets, each layer's W zero-padded with its rows ob + 1 words
+// apart, then b), read from the stacked weights.
+template <typename T, int H>
+__device__ __forceinline__ T lane_staged_word(const Stack& st, int g,
+                                              int blk, int e) {
+  const int depth = st.depth, per_net = net_words(H, depth, 1);
+  const int net = e >= per_net ? 1 : 0;
+  e -= net * per_net;
+  int l = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxL; ++k)
+    l += (k < depth && e >= layer_off(H, k, 1)) ? 1 : 0;
+  e -= layer_off(H, l, 1);
+  const int ib = in_bound(H, l), os = out_bound(H, l, depth) + 1;
+  const int in = st.width[g][l], o = st.width[g][l + 1];
+  if (e < ib * os) {
+    const int k = e / os, j = e - (e / os) * os;
+    return (k < in && j < o) ? static_cast<const T*>(st.W[g][net][l])
+                                   [(int64_t)blk * in * o + k * o + j]
+                             : T(0);
+  }
+  e -= ib * os;
+  return e < o ? static_cast<const T*>(st.b[g][net][l])[(int64_t)blk * o + e]
+               : T(0);
+}
+
+// Block blk's s and t weights of group g into w in the lane tile's layout.
+// One loop over both nets' words, each thread with kInFlight loads from
+// device memory outstanding before it stores them: about one round trip a
+// coupling, where a loop per layer makes one a layer.
+template <typename T, int H>
+__device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
+  constexpr int kInFlight = 4;
+  __syncthreads();  // every thread is done with the previous coupling
+  const int n = 2 * st.wnet;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kInFlight * blockDim.x) {
+    T v[kInFlight];
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int e = e0 + i * blockDim.x;
+      v[i] = e < n ? lane_staged_word<T, H>(st, g, blk, e) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e < n) w[e] = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// One row a thread (K4; K5's row tile)
+// ---------------------------------------------------------------------------
 
 // out[k] = v[idx[k]] (0 where idx[k] is −1).
 template <typename T>
@@ -167,14 +278,16 @@ __device__ __forceinline__ void dense(const T* W, const T (&h)[H],
 
 enum Act { kLeaky, kTanh, kLinear };
 
+template <typename T>
+__device__ __forceinline__ T act(Act a, T v) {
+  return a == kLeaky ? (v >= T(0) ? v : T(0.01) * v)
+                     : (a == kTanh ? th(v) : v);
+}
+
 template <typename T, int H, int OB>
 __device__ __forceinline__ void activate(Act a, const T (&z)[H], T (&h)[H]) {
 #pragma unroll
-  for (int j = 0; j < H; ++j) {
-    const T v = j < OB ? z[j] : T(0);
-    h[j] = a == kLeaky ? (v >= T(0) ? v : T(0.01) * v)
-                       : (a == kTanh ? th(v) : v);
-  }
+  for (int j = 0; j < H; ++j) h[j] = act(a, j < OB ? z[j] : T(0));
 }
 
 // level m's OB values of this row into the cache (unit-major)
@@ -182,9 +295,9 @@ template <typename T, int H, int OB>
 __device__ __forceinline__ void keep(T* cache, int m, int row,
                                      const T (&h)[H]) {
   if (!cache) return;
-  T* c = cache + level_off(H, m) + row;
+  T* c = cache + row_level_off(H, m) + row;
 #pragma unroll
-  for (int j = 0; j < OB; ++j) c[j * kStride] = h[j];
+  for (int j = 0; j < OB; ++j) c[j * kRowStride] = h[j];
 }
 
 // One conditioner MLP (net 0: s, tanh head; net 1: t) on one row. With
@@ -260,6 +373,7 @@ __device__ __forceinline__ void coupling_at(const Stack& st, int c, int& g,
   blk = INVERSE ? st.n_blocks - 1 - c / 2 : c / 2;
   g = INVERSE ? 1 - (c & 1) : (c & 1);
 }
+
 // `_mlp_bwd` of layer l (padded IB → OB) over the CTA's rows: the row's
 // cotangent gc goes through the activation slope (from the cached
 // post-activation: leaky-relu 1 where h ≥ 0, else 0.01; tanh' = 1 − h²),
@@ -273,18 +387,18 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
                                           T* __restrict__ part, bool first) {
   constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x;
-  const T* h_in = cache + level_off(H, l);
-  const T* h_out = cache + level_off(H, l + 1);
+  const T* h_in = cache + row_level_off(H, l);
+  const T* h_out = cache + row_level_off(H, l + 1);
 #pragma unroll
   for (int j = 0; j < OB; ++j) {
-    const T a = h_out[j * kStride + tid];
+    const T a = h_out[j * kRowStride + tid];
     if (act == kLeaky) gc[j] = gc[j] * (a >= T(0) ? T(1) : T(0.01));
     else if (act == kTanh) gc[j] = gc[j] * (T(1) - a * a);
-    gbuf[j * kStride + tid] = gc[j];
+    gbuf[j * kRowStride + tid] = gc[j];
   }
   __syncthreads();
   // the CTA's partial weight gradient, one entry per thread at a time,
-  // summed over rows 0..kBwdRows−1 in order
+  // summed over rows 0..kRowTileRows−1 in order
   const int in = st.width[g][l], o = st.width[g][l + 1];
   const int n_w = in * o;
   const int64_t offW = st.leaf_off[g][net][l][0] + (int64_t)blk * n_w;
@@ -294,13 +408,13 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
     int64_t dst;
     if (e < n_w) {
       const int k = e / o, j = e - (e / o) * o;
-      const T* hk = h_in + k * kStride;
-      const T* gj = gbuf + j * kStride;
-      for (int r = 0; r < kBwdRows; ++r) acc = acc + hk[r] * gj[r];
+      const T* hk = h_in + k * kRowStride;
+      const T* gj = gbuf + j * kRowStride;
+      for (int r = 0; r < kRowTileRows; ++r) acc = acc + hk[r] * gj[r];
       dst = offW + e;
     } else {
-      const T* gj = gbuf + (e - n_w) * kStride;
-      for (int r = 0; r < kBwdRows; ++r) acc = acc + gj[r];
+      const T* gj = gbuf + (e - n_w) * kRowStride;
+      for (int r = 0; r < kRowTileRows; ++r) acc = acc + gj[r];
       dst = offb + (e - n_w);
     }
     part[dst] = first ? acc : part[dst] + acc;
@@ -350,37 +464,34 @@ __device__ __forceinline__ void mlp_bwd(const Stack& st, int g, int net,
   for (int k = 0; k < kHalf; ++k) gin[k] = gc[k];
 }
 
-// One row tile of the stack's VJP over the CTA's kBwdRows rows, one row a
-// thread, as K5 runs it. On entry xr holds the row's input, gr and gl the
-// cotangents of the stack's output and of its log-det. Steps 0..C−1
-// recompute the forward, saving each coupling's input and summing the
-// row's log-det; then cot(y, ld, gr, gl) may set the cotangents from the
-// row's output y and log-det ld (K6; K5 passes them in and its cot does
-// nothing); steps C..2C−1 walk the couplings back, rebuilding one
-// coupling's caches at a time (one call site for both, so the MLP code is
+// The row tile of the stack's VJP over the CTA's kRowTileRows rows, one row
+// a thread, as K5 runs it at large batches. On entry xr holds the row's
+// input, gr and gl the cotangents of the stack's output and of its
+// log-det. Steps 0..C−1 recompute the forward, saving each coupling's
+// input; steps C..2C−1 walk the couplings back, rebuilding one coupling's
+// caches at a time (one call site for both, so the MLP code is
 // instantiated once), and add the CTA's weight gradients to part (first
 // tile: written). On return gr holds the row's gx.
-template <typename T, bool INVERSE, int H, typename Cot>
-__device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
-                                         bool first, T (&xr)[kMaxD],
-                                         T (&gr)[kMaxD], T gl, Cot cot) {
+template <typename T, bool INVERSE, int H>
+__device__ __forceinline__ void row_tile_vjp(const Stack& st, T* w,
+                                             T* part, bool first,
+                                             T (&xr)[kMaxD], T (&gr)[kMaxD],
+                                             T gl) {
   T* saved = w + st.sm_saved;
   T* cache = w + st.sm_acts;
   T* gbuf = w + st.sm_g;
   const int tid = threadIdx.x;
   const int d = st.d;
   const int n_c = 2 * st.n_blocks;
-  T l = T(0);
 
 #pragma unroll 1
   for (int step = 0; step < 2 * n_c; ++step) {
     const bool rev = step >= n_c;
-    if (step == n_c) cot(xr, l, gr, gl);
     const int c = rev ? 2 * n_c - 1 - step : step;
     int g, blk;
     coupling_at<INVERSE>(st, c, g, blk);
     stage<T, H>(st, g, blk, w);
-    T* sv = saved + ((int64_t)c * kBwdRows + tid) * d;
+    T* sv = saved + ((int64_t)c * kRowTileRows + tid) * d;
     T xin[kMaxD];
 #pragma unroll
     for (int j = 0; j < kMaxD; ++j) {
@@ -395,8 +506,7 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     coupling_parts<T, H>(st, g, w, xin, xa, xb, s, t,
                          rev ? cache : nullptr, tid);
     if (!rev) {
-      const T sum = apply_coupling<T, INVERSE>(st, g, xa, s, t, xr);
-      l = INVERSE ? l - sum : l + sum;
+      apply_coupling<T, INVERSE>(st, g, xa, s, t, xr);
       continue;
     }
     // `_coupling_bwd`: gld reaches every coupling's s
@@ -435,6 +545,255 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     scatter(g_xb, st.idx_b[g], gr);
   }
 }
+
+// ---------------------------------------------------------------------------
+// One row on H lanes, one unit a lane (K6; K5's lane tile)
+// ---------------------------------------------------------------------------
+//
+// Lane u of a row holds one value of each vector of the row: x_u and its
+// cotangent for u < d; unit u of every layer's activation and cotangent;
+// the coupling's x_A[u], s_u, t_u for u < kHalf. The row's H lanes are an
+// aligned segment of a warp, so a value of another lane of the row is one
+// shuffle of width H away. Every lane runs every shuffle: branches that
+// depend on the lane only select values.
+
+// v of lane src of this row
+template <int H, typename T>
+__device__ __forceinline__ T lane(T v, int src) {
+  return __shfl_sync(kWarp, v, src, H);
+}
+// v of lane src, or 0 where src is −1
+template <int H, typename T>
+__device__ __forceinline__ T lane_or_0(T v, int src) {
+  const T r = __shfl_sync(kWarp, v, src < 0 ? 0 : src, H);
+  return src < 0 ? T(0) : r;
+}
+// idx[u] (−1 for u ≥ kHalf or a padded entry)
+__device__ __forceinline__ int entry(const int (&idx)[kHalf], int u) {
+  int p = -1;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) p = (u == k) ? idx[k] : p;
+  return p;
+}
+// the k with idx[k] = j, or −1
+__device__ __forceinline__ int slot(const int (&idx)[kHalf], int j) {
+  int p = -1;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) p = (idx[k] == j) ? k : p;
+  return p;
+}
+
+// z_u = Σ_k h_k·W[k][u], summed over k in order, then + b_u, on lane u
+// (0 on lanes u ≥ OB); h_k is lane k's h. W (IB, OB), rows OB + 1 apart,
+// then b, in shared memory: the row order of `dense`.
+template <typename T, int H, int IB, int OB>
+__device__ __forceinline__ T lane_dense(const T* W, T h, int u) {
+  constexpr int S = OB + 1;
+  const int j = u < OB ? u : 0;
+  T z = T(0);
+#pragma unroll
+  for (int k = 0; k < IB; ++k) z = z + lane<H>(h, k) * W[k * S + j];
+  z = z + W[IB * S + j];
+  return u < OB ? z : T(0);
+}
+
+// One conditioner MLP on one row, lane u's h the input x_B[u] (0 past n_B).
+// With cache != nullptr every level's post-activations go to the net's
+// cache at this row. Returns lane u's output (u < kHalf; 0 elsewhere).
+template <typename T, int H>
+__device__ __forceinline__ T lane_mlp(const Stack& st, int net, const T* w,
+                                      T h, T* cache, int row, int u) {
+  const int depth = st.depth, rows = st.rows;
+  if (cache && u < kHalf) cache[row * kHalf + u] = h;
+  h = act(kLeaky, lane_dense<T, H, kHalf, H>(w, h, u));
+  if (cache) cache[level_off(H, 1, rows) + row * H + u] = h;
+#pragma unroll 1
+  for (int l = 1; l < depth - 1; ++l) {
+    h = act(kLeaky, lane_dense<T, H, H, H>(w + layer_off(H, l, 1), h, u));
+    if (cache) cache[level_off(H, l + 1, rows) + row * H + u] = h;
+  }
+  h = act(net == 0 ? kTanh : kLinear,
+          lane_dense<T, H, H, kHalf>(w + layer_off(H, depth - 1, 1), h, u));
+  if (cache && u < kHalf)
+    cache[level_off(H, depth, rows) + row * kHalf + u] = h;
+  return h;
+}
+
+// `_mlp_bwd` of layer l (padded IB → OB) over the tile's rows: lane u's
+// cotangent gc goes through the activation slope (from the cached
+// post-activation: leaky-relu 1 where h ≥ 0, else 0.01; tanh' = 1 − h²),
+// the tile's partial gW = Hᵀ·G and gb = Σ_rows G go to part (first tile:
+// written, later tiles: added), one thread an entry summing the rows in
+// order, and lane k gets the input cotangent Σ_j gc_j·W[k][j], summed over
+// j in order (0 on lanes k ≥ IB).
+template <typename T, int H, int IB, int OB>
+__device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
+                                            int blk, int l, Act a, const T* W,
+                                            const T* cache, T* gbuf, T gc,
+                                            T* __restrict__ part, bool first,
+                                            int row, int u) {
+  constexpr int S = OB + 1;
+  const int rows = st.rows;
+  if (u < OB) {
+    const T h = cache[level_off(H, l + 1, rows) + row * OB + u];
+    if (a == kLeaky) gc = gc * (h >= T(0) ? T(1) : T(0.01));
+    else if (a == kTanh) gc = gc * (T(1) - h * h);
+  }
+  gbuf[row * H + u] = gc;
+  __syncthreads();
+  const T* h_in = cache + level_off(H, l, rows);
+  const int in = st.width[g][l], o = st.width[g][l + 1];
+  const int n_w = in * o;
+  const int64_t offW = st.leaf_off[g][net][l][0] + (int64_t)blk * n_w;
+  const int64_t offb = st.leaf_off[g][net][l][1] + (int64_t)blk * o;
+  for (int e = threadIdx.x; e < n_w + o; e += blockDim.x) {
+    T acc = T(0);
+    int64_t dst;
+    if (e < n_w) {
+      const int k = e / o, j = e - (e / o) * o;
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r)
+        acc = acc + h_in[r * IB + k] * gbuf[r * H + j];
+      dst = offW + e;
+    } else {
+      const int j = e - n_w;
+#pragma unroll 8
+      for (int r = 0; r < rows; ++r) acc = acc + gbuf[r * H + j];
+      dst = offb + j;
+    }
+    part[dst] = first ? acc : part[dst] + acc;
+  }
+  const int k = u < IB ? u : 0;
+  T gn = T(0);
+#pragma unroll
+  for (int j = 0; j < OB; ++j) gn = gn + lane<H>(gc, j) * W[k * S + j];
+  __syncthreads();  // gbuf is the next layer's
+  return u < IB ? gn : T(0);
+}
+
+// `_mlp_bwd` of one net of coupling (g, blk): lane u's output cotangent
+// (u < kHalf) → its input cotangent (u < kHalf).
+template <typename T, int H>
+__device__ __forceinline__ T lane_mlp_bwd(const Stack& st, int g, int net,
+                                          int blk, const T* w, const T* cache,
+                                          T* gbuf, T gc, T* __restrict__ part,
+                                          bool first, int row, int u) {
+  const int depth = st.depth;
+  gc = lane_layer_bwd<T, H, H, kHalf>(st, g, net, blk, depth - 1,
+                                      net == 0 ? kTanh : kLinear,
+                                      w + layer_off(H, depth - 1, 1), cache,
+                                      gbuf, gc, part, first, row, u);
+#pragma unroll 1
+  for (int l = depth - 2; l >= 1; --l)
+    gc = lane_layer_bwd<T, H, H, H>(st, g, net, blk, l, kLeaky,
+                                    w + layer_off(H, l, 1), cache, gbuf, gc,
+                                    part, first, row, u);
+  return lane_layer_bwd<T, H, kHalf, H>(st, g, net, blk, 0, kLeaky, w, cache,
+                                        gbuf, gc, part, first, row, u);
+}
+
+// The lane tile of the stack's VJP over st.rows rows, H lanes a row, as K6
+// and K5 at small batches run it. On entry lane u's xv holds x_u of its row and gv the
+// cotangent of the stack's output y_u (u < d; 0 on the other lanes), gl the
+// cotangent of the row's log-det. Steps 0..C−1 recompute the forward,
+// saving each coupling's input and summing the row's log-det; then
+// cot(y_u, ld, gv, gl) may set the cotangents from the row's output and
+// log-det (K6; K5's cot does nothing), on every lane; steps C..2C−1 walk
+// the couplings back, rebuilding one coupling's caches at a time (one call
+// site for both, so the MLP code is instantiated once), and add the tile's
+// weight gradients to part (first tile: written). On return gv holds gx_u.
+template <typename T, bool INVERSE, int H, typename Cot>
+__device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
+                                         bool first, T& xv, T& gv, T gl,
+                                         Cot cot) {
+  T* saved = w + st.sm_saved;
+  T* cache = w + st.sm_acts;
+  T* gbuf = w + st.sm_g;
+  const int row = threadIdx.x / H, u = threadIdx.x % H;
+  const int d = st.d;
+  const int n_c = 2 * st.n_blocks;
+  T l = T(0);
+
+#pragma unroll 1
+  for (int step = 0; step < 2 * n_c; ++step) {
+    const bool rev = step >= n_c;
+    if (step == n_c) cot(xv, l, gv, gl);
+    const int c = rev ? 2 * n_c - 1 - step : step;
+    int g, blk;
+    coupling_at<INVERSE>(st, c, g, blk);
+    lane_stage<T, H>(st, g, blk, w);
+    T* sv = saved + ((int64_t)c * st.rows + row) * d;
+    T xin = T(0);
+    if (!rev) {
+      xin = xv;
+      if (u < d) sv[u] = xv;
+    } else if (u < d) {
+      xin = sv[u];
+    }
+    // lane k < kHalf: x_A[k]; every lane: x_B from lanes 0..kHalf−1
+    const int ia = entry(st.idx_a[g], u), ib = entry(st.idx_b[g], u);
+    const T xa = lane_or_0<H>(xin, ia);
+    const T xb = lane_or_0<H>(xin, ib);
+    T s = T(0), t = T(0);
+#pragma unroll 1
+    for (int net = 0; net < 2; ++net) {
+      const T o = lane_mlp<T, H>(
+          st, net, w + net * st.wnet, xb,
+          rev ? cache + net * st.sm_acts_net : nullptr, row, u);
+      if (net == 0) s = o;
+      else t = o;
+    }
+    const int na = st.width[g][st.depth];
+    const int pa = slot(st.idx_a[g], u);
+    if (!rev) {
+      // y_A[k] on lane k, to lane idx_a[k]; Σ s over k < n_A in order
+      const T ya = INVERSE ? (xa - t) * ex(-s) : xa * ex(s) + t;
+      T sum = lane<H>(s, 0);
+#pragma unroll
+      for (int k = 1; k < kHalf; ++k) {
+        const T sk = lane<H>(s, k);
+        if (k < na) sum = sum + sk;
+      }
+      const T y = lane_or_0<H>(ya, pa);
+      if (pa >= 0) xv = y;
+      l = INVERSE ? l - sum : l + sum;
+      continue;
+    }
+    // `_coupling_bwd` on lane k < kHalf: gld reaches every coupling's s
+    const T g_ya = lane_or_0<H>(gv, ia);
+    T g_xb = lane_or_0<H>(gv, ib);
+    T g_xa, g_s, g_t;
+    if (INVERSE) {
+      const T e = ex(-s);
+      g_xa = g_ya * e;
+      g_t = -g_xa;
+      g_s = -g_ya * (xa - t) * e - gl;
+    } else {
+      const T e = ex(s);
+      g_xa = g_ya * e;
+      g_t = g_ya;
+      g_s = g_ya * xa * e + gl;
+    }
+    // padded outputs of s and t take no cotangent
+    if (u >= na) g_s = g_t = T(0);
+    // g_xb + (s net's input cotangent) + (t net's), in that order
+#pragma unroll 1
+    for (int net = 0; net < 2; ++net)
+      g_xb = g_xb + lane_mlp_bwd<T, H>(st, g, net, blk, w + net * st.wnet,
+                                       cache + net * st.sm_acts_net, gbuf,
+                                       net == 0 ? g_s : g_t, part, first, row,
+                                       u);
+    const int pb = slot(st.idx_b[g], u);
+    const T from_a = lane_or_0<H>(g_xa, pa);
+    const T from_b = lane_or_0<H>(g_xb, pb);
+    if (pa >= 0) gv = from_a;
+    if (pb >= 0) gv = from_b;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host helpers
+// ---------------------------------------------------------------------------
 
 constexpr int kInvalid = (int)cudaErrorInvalidValue;
 
@@ -512,16 +871,31 @@ int allow_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// K5's shared-memory layout, set in st; returns its size in words of T:
-// one coupling's padded weights | saved inputs | the coupling's activations
-// (two nets) | one layer's cotangents.
+// The row tile's shared-memory layout, set in st; returns its size in
+// words of T: one coupling's padded weights | saved inputs | the
+// coupling's activations (two nets) | one layer's cotangents.
 template <int H>
-int bwd_words(Stack& st) {
+int row_bwd_words(Stack& st) {
   st.sm_saved = 2 * st.wnet;
-  st.sm_acts = st.sm_saved + 2 * st.n_blocks * kBwdRows * st.d;
-  st.sm_acts_net = level_off(H, st.depth) + kStride * kHalf;
+  st.sm_acts = st.sm_saved + 2 * st.n_blocks * kRowTileRows * st.d;
+  st.sm_acts_net = row_level_off(H, st.depth) + kRowStride * kHalf;
   st.sm_g = st.sm_acts + 2 * st.sm_acts_net;
-  return st.sm_g + kStride * H;
+  return st.sm_g + kRowStride * H;
+}
+
+// The lane tile's shared-memory layout for st.rows rows, set in st;
+// returns its size in words of T: one coupling's padded weights (rows of
+// W one word apart more than K4's) | every coupling's saved input (rows ×
+// d) | the coupling's activations (two nets) | one layer's cotangents
+// (rows × H).
+template <int H>
+int lane_bwd_words(Stack& st) {
+  st.wnet = net_words(H, st.depth, 1);
+  st.sm_saved = 2 * st.wnet;
+  st.sm_acts = st.sm_saved + 2 * st.n_blocks * st.rows * st.d;
+  st.sm_acts_net = level_off(H, st.depth, st.rows) + st.rows * kHalf;
+  st.sm_g = st.sm_acts + 2 * st.sm_acts_net;
+  return st.sm_g + st.rows * H;
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 // train_pallas.py): one launch runs c consecutive steps of reverse-KL ELBO
 // training of a fused RealNVP stack with Adam, as the Pallas grid of c
 // steps does. Per step, on that step's base draws x (batch, d):
-//   y, ld = the stack forward of x (K4's arithmetic)
+//   y, ld = the stack forward of x (K5's forward recompute)
 //   term  = log p(y) − log q0(x) + ld per row, p the Banana target, q0 the
 //           diagonal-Gaussian base; loss = −(1/batch)·Σ term → losses[step]
 //   the VJP under the constant cotangents gy = −(1/batch)·∇log p(y) and
@@ -17,27 +17,35 @@
 // are Banana(d, b, var)'s, written out below, with b, var and log Z from
 // the launch (the Python-scalar closure constants of the JAX contract).
 //
-// Design (right and simple first). One CTA of kBwdRows = 64 threads runs
-// every step, walking the batch in row tiles of 64 with K5's own device
-// code (`tile_vjp`, csrc/coupling_device.cuh) and K5's shared-memory
-// layout, plus 64 words for the tile's ELBO terms. The weight gradients go
-// to a global buffer through K5's per-CTA path with one CTA: the first tile
+// Design. One CTA runs every step, walking the batch in row tiles with
+// K5's lane tile (`tile_vjp`, csrc/coupling_device.cuh): one row on H
+// lanes, one hidden unit a lane, and its shared-memory layout, plus one
+// word a row for the tile's ELBO terms. The tile holds the fewest rows that
+// cover the batch, a multiple of 32/H rows (whole warps) and at most K5's
+// R: the demo's 16 rows are 256 threads, and no warp walks padded rows;
+// rows past the batch get x = 0, a zero term and zero cotangents. The
+// Banana hook runs on every lane of a row and takes y₀, y₁ and Σ y_j² by
+// shuffles; lane 0 writes the row's term. The weight gradients go to a
+// global buffer through K5's per-CTA path with one CTA: the first tile
 // writes, later tiles add, so the batch sum has a fixed order; thread 0
-// sums the terms in row order. Only after the last tile does Adam run, over
-// the flat parameter vector with the threads strided, so every tile of a
-// step sees the pre-update weights. The flat weights, Adam moments and
-// gradient buffer live in device memory (the reference default's 46,120
-// weights with their moments would not fit in shared memory); K5's
-// `stage()` reads the weights from there at every coupling. Those reads go
-// through plain pointers, never the read-only path (no __restrict__ or
+// sums the terms in row order. Only after the last tile does Adam run,
+// over the flat parameter vector with the threads strided, so every tile
+// of a step sees the pre-update weights. The flat weights, Adam moments
+// and gradient buffer live in device memory (the reference default's
+// 46,120 weights with their moments would not fit in shared memory);
+// `lane_stage()` reads the weights from there at every coupling. Those reads
+// go through plain pointers, never the read-only path (no __restrict__ or
 // __ldg on the weights), and a __syncthreads() separates the Adam pass from
-// the next step's first stage(): K6 writes what it reads next.
+// the next step's first lane_stage(): K6 writes what it reads next.
 //
-// What bounds it on this card: at the demo (16 rows, 3,852 weights) the
-// step is one thread's serial chain through K5's forward and reverse
-// sweeps, latency, far from either bound; Adam's 7 words a weight move in
-// a few µs. The launch removes the host from the loop: one launch per
-// chunk of steps instead of ~48 kernels a step.
+// What bounds it on this card: at the demo (16 rows, 3,852 weights) one
+// row's dependent chain through the forward and reverse sweeps, and the
+// 4·n_blocks lane_stage() calls a step, each a round trip to device memory
+// (L2), far from either bound; Adam's 7 words a weight move in a few µs,
+// two weights a thread in flight. The launch removes the host from the
+// loop: one launch per chunk of steps instead of ~48 kernels a step. Past
+// R rows the one CTA walks the tiles in turn (a thread-block cluster that
+// splits them is the next design).
 //
 // Built with FMA contraction, as csrc/coupling.cu is; forward direction
 // only (the JAX kernel trains the forward flow).
@@ -64,7 +72,7 @@ struct Train {
 };
 
 template <typename T, int H>
-__global__ void __launch_bounds__(kBwdRows)
+__global__ void __launch_bounds__(bwd_rows<T, H>() * H, 1)
 realnvp_train(const T* __restrict__ xs, T* w, T* m, T* v, T* grad,
               T* __restrict__ losses, const T* __restrict__ loc,
               const T* __restrict__ scale, int steps, int64_t step0,
@@ -72,10 +80,11 @@ realnvp_train(const T* __restrict__ xs, T* w, T* m, T* v, T* grad,
               const __grid_constant__ Train<T> a,
               const __grid_constant__ Stack st) {
   T* sm = reinterpret_cast<T*>(coupling_smem);
-  T* terms = sm + st.sm_g + kStride * H;  // after K5's layout
-  const int tid = threadIdx.x;
+  const int rows = st.rows;
+  T* terms = sm + st.sm_g + rows * H;  // after the lane tile's layout
+  const int tid = threadIdx.x, row = tid / H, u = tid % H;
   const int d = st.d;
-  const int64_t tiles = (batch + kBwdRows - 1) / kBwdRows;
+  const int64_t tiles = (batch + rows - 1) / rows;
   T log_scale_sum = T(0);
   for (int j = 0; j < d; ++j) log_scale_sum = log_scale_sum + lg(scale[j]);
 
@@ -85,47 +94,47 @@ realnvp_train(const T* __restrict__ xs, T* w, T* m, T* v, T* grad,
     T acc = T(0);  // thread 0: Σ term over the rows so far, in row order
 #pragma unroll 1
     for (int64_t tile = 0; tile < tiles; ++tile) {
-      const int64_t row = tile * kBwdRows + tid;
-      const bool active = row < batch;
+      const int64_t r = tile * rows + row;
+      const bool active = r < batch;
       // rows past the end get x = 0, a zero term and zero cotangents
-      T xr[kMaxD], gr[kMaxD] = {};
+      T xv = (active && u < d) ? x[r * d + u] : T(0), gv = T(0);
+      const T zu = u < d ? (xv - loc[u]) / scale[u] : T(0);
       T zz = T(0);
 #pragma unroll
       for (int j = 0; j < kMaxD; ++j) {
-        xr[j] = (active && j < d) ? x[row * d + j] : T(0);
-        if (j < d) {
-          const T z = (xr[j] - loc[j]) / scale[j];
-          zz = zz + z * z;
-        }
+        const T z = lane<H>(zu, j);
+        if (j < d) zz = zz + z * z;
       }
       const T log_q0 = T(-0.5) * zz - log_scale_sum - a.half_d_log_2pi;
       tile_vjp<T, false, H>(
-          st, sm, grad, tile == 0, xr, gr, T(0),
-          [&](const T(&y)[kMaxD], T ld, T(&g)[kMaxD], T& gl) {
+          st, sm, grad, tile == 0, xv, gv, T(0),
+          [&](T y_u, T ld, T& g_u, T& gl) {
             // Banana: z = y₁ + b·y₀² − var·b, quad = y₀²/var + z² + Σ_{j≥2}
             // y_j²; ∂log p/∂y₀ = −(y₀/var + 2b·y₀·z), ∂/∂y₁ = −z,
             // ∂/∂y_j = −y_j
-            const T y0 = y[0], y1 = y[1];
+            const T y0 = lane<H>(y_u, 0), y1 = lane<H>(y_u, 1);
             const T z = y1 + a.bb * (y0 * y0) - a.var * a.bb;
             T rest = T(0);
 #pragma unroll
-            for (int j = 2; j < kMaxD; ++j)
-              if (j < d) rest = rest + y[j] * y[j];
+            for (int j = 2; j < kMaxD; ++j) {
+              const T yj = lane<H>(y_u, j);
+              if (j < d) rest = rest + yj * yj;
+            }
             const T log_p =
                 -a.log_z - T(0.5) * ((y0 * y0) / a.var + z * z + rest);
-            terms[tid] = active ? log_p - log_q0 + ld : T(0);
+            if (u == 0) terms[row] = active ? log_p - log_q0 + ld : T(0);
             const T c = active ? a.neg_inv_b : T(0);
-            g[0] = c * -(y0 / a.var + T(2) * a.bb * y0 * z);
-            g[1] = c * -z;
-#pragma unroll
-            for (int j = 2; j < kMaxD; ++j) g[j] = j < d ? c * -y[j] : T(0);
+            g_u = u == 0   ? c * -(y0 / a.var + T(2) * a.bb * y0 * z)
+                  : u == 1 ? c * -z
+                  : u < d  ? c * -y_u
+                           : T(0);
             gl = c;
           });
-      // the terms were written before the reverse sweep's first stage()
+      // the terms were written before the reverse sweep's first lane_stage()
       if (tid == 0) {
-        const int64_t live = batch - tile * kBwdRows;
-        const int n = live < kBwdRows ? (int)live : kBwdRows;
-        for (int r = 0; r < n; ++r) acc = acc + terms[r];
+        const int64_t live = batch - tile * rows;
+        const int n = live < rows ? (int)live : rows;
+        for (int i = 0; i < n; ++i) acc = acc + terms[i];
       }
     }
     if (tid == 0) losses[s] = -acc / T(batch);
@@ -134,15 +143,28 @@ realnvp_train(const T* __restrict__ xs, T* w, T* m, T* v, T* grad,
     const T t = T(step0 + s + 1);
     const T c1 = T(1) - ex(t * a.log_b1);
     const T c2 = T(1) - ex(t * a.log_b2);
-    for (int64_t p = tid; p < n_params; p += blockDim.x) {
-      const T gp = grad[p];
-      const T mp = a.b1 * m[p] + a.one_m_b1 * gp;
-      const T vp = a.b2 * v[p] + a.one_m_b2 * gp * gp;
-      m[p] = mp;
-      v[p] = vp;
-      w[p] = w[p] - a.lr * ((mp / c1) / (sq(vp / c2) + a.eps));
+    // kInFlight weights a thread at a time: every load before any store
+    constexpr int kInFlight = 2;
+    for (int64_t p0 = tid; p0 < n_params; p0 += kInFlight * blockDim.x) {
+      T gp[kInFlight], mp[kInFlight], vp[kInFlight], wp[kInFlight];
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i) {
+        const int64_t p = p0 + (int64_t)i * blockDim.x;
+        if (p < n_params) gp[i] = grad[p], mp[i] = m[p], vp[i] = v[p],
+                          wp[i] = w[p];
+      }
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i) {
+        const int64_t p = p0 + (int64_t)i * blockDim.x;
+        if (p >= n_params) continue;
+        const T mi = a.b1 * mp[i] + a.one_m_b1 * gp[i];
+        const T vi = a.b2 * vp[i] + a.one_m_b2 * gp[i] * gp[i];
+        m[p] = mi;
+        v[p] = vi;
+        w[p] = wp[i] - a.lr * ((mi / c1) / (sq(vi / c2) + a.eps));
+      }
     }
-    __syncthreads();  // the next step's stage() reads the new weights
+    __syncthreads();  // the next step's lane_stage() reads the new weights
   }
 }
 
@@ -151,12 +173,14 @@ int launch_train_h(const T* xs, T* w, T* m, T* v, T* grad, T* losses,
                    const T* loc, const T* scale, int steps, int64_t step0,
                    int64_t batch, int64_t n_params, const Train<T>& a,
                    Stack& st, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)bwd_words<H>(st) + kBwdRows);
+  st.rows = lane_rows<T, H>(batch);
+  const size_t smem = sizeof(T) * ((size_t)lane_bwd_words<H>(st) + st.rows);
   const auto kern = &realnvp_train<T, H>;
   const int err = allow_smem((const void*)kern, smem);
   if (err) return err;
-  kern<<<1, kBwdRows, smem, stream>>>(xs, w, m, v, grad, losses, loc, scale,
-                                      steps, step0, batch, n_params, a, st);
+  kern<<<1, st.rows * H, smem, stream>>>(xs, w, m, v, grad, losses, loc,
+                                         scale, steps, step0, batch,
+                                         n_params, a, st);
   return (int)cudaGetLastError();
 }
 

@@ -27,11 +27,15 @@ versions for CPU tensors; ``"plain"`` always runs the plain versions;
 ``"cuda"`` raises without CUDA tensors. Nothing falls back: on a CUDA tensor
 a build failure, a launch error, or a shape outside the kernels' bounds
 (``KERNEL_MAX_D``, ``KERNEL_MAX_WIDTH``, ``KERNEL_MAX_DEPTH``) raises. K5
-also keeps every coupling's input tile in shared memory, so the blocks a
-stack may have are capped by ``KERNEL_MAX_SMEM`` (`_bwd_smem_bytes`): about
-171 in float32 at d=2 with [32,32] conditioners, 14 in float64 at d=8. A
-forward that autograd will differentiate is refused past that cap too, so
-the failure comes before the forward runs, not in the backward.
+runs a tile of rows (`_bwd_tile`: at small batches one row on H lanes, at
+large ones one row a thread) and keeps every coupling's input tile in
+shared memory, so the blocks a stack may have are capped by
+``KERNEL_MAX_SMEM``: at a full lane tile 387 in float32 at d=2 with
+[32,32] conditioners, 199 with [16,16], 91 in float64 at d=8 with [32,32];
+at the row tile (past 128 lane tiles) 171, 199 and 14; more at smaller
+batches, whose tile is smaller. A forward that autograd will differentiate
+is refused past that cap too, so the failure comes before the forward
+runs, not in the backward.
 ``COUPLING_FWD_LAUNCHES`` counts K4 launches, ``COUPLING_BWD_LAUNCHES`` K5
 calls (two kernels each).
 
@@ -58,7 +62,11 @@ __all__ = [
 # the bounds the kernels are instantiated for (csrc/coupling.cu): d, the
 # hidden widths, and the Dense layers a conditioner (at least 2)
 KERNEL_MAX_D, KERNEL_MAX_WIDTH, KERNEL_MAX_DEPTH = 8, 32, 4
-BWD_ROWS = 64          # rows a K5 CTA takes at a time (kBwdRows)
+# rows R of a K5/K6 lane tile by (word bytes, hidden bound H), R·H threads
+# (kBwdRowsF32H16 ... in csrc/coupling_device.cuh); past LANE_MAX_TILES
+# lane tiles K5 runs its row tile of ROW_TILE_ROWS rows, one a thread
+BWD_ROWS = {(4, 16): 64, (4, 32): 32, (8, 16): 32, (8, 32): 16}
+LANE_MAX_TILES, ROW_TILE_ROWS = 128, 64
 KERNEL_MAX_SMEM = 227 * 1024  # dynamic shared memory a block may opt into
 BWD_MAX_CTAS = 1024    # K5 CTAs at most: the partial slices to sum
 BACKENDS = ("auto", "plain", "cuda")
@@ -304,24 +312,80 @@ def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False):
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _bwd_smem_bytes(d, n_blocks, depth, hidden, word, extra_words=0):
-    """K5's dynamic shared memory (`bwd_words`, csrc/coupling_device.cuh):
-    one coupling's two padded nets, every coupling's saved (BWD_ROWS, d)
-    input, the two nets' activations and one layer's cotangents, in words
-    of T; ``extra_words`` more for a kernel that adds to K5's layout."""
-    half, stride = KERNEL_MAX_D // 2, BWD_ROWS + 1
-    H = 16 if hidden <= 16 else 32
+def _hidden_bound(hidden: int) -> int:
+    """H, the padded hidden width the kernels are instantiated for."""
+    return 16 if hidden <= 16 else 32
+
+
+def bwd_rows(word: int, hidden: int) -> int:
+    """R, the most rows of a lane tile (`bwd_rows<T, H>`), for words of
+    ``word`` bytes and a widest hidden layer of ``hidden``."""
+    return BWD_ROWS[(word, _hidden_bound(hidden))]
+
+
+def lane_rows(word: int, hidden: int, n: int) -> int:
+    """Rows of a lane tile holding n rows (`lane_rows<T, H>`): n in whole
+    warps of 32/H rows, at most R. K6's tile holds its batch."""
+    per_warp = 32 // _hidden_bound(hidden)
+    return min(bwd_rows(word, hidden), -(-n // per_warp) * per_warp)
+
+
+def k5_lane_rows(word: int, hidden: int, n: int) -> int:
+    """Rows of K5's lane tile for a batch of n rows (`k5_lane_rows<T, H>`):
+    n / LANE_MAX_TILES, so that the tiles spread over the SMs, but at least
+    8 warps (256/H rows) and no more than the batch."""
+    want = max(-(-n // LANE_MAX_TILES), 256 // _hidden_bound(hidden))
+    return lane_rows(word, hidden, min(n, want))
+
+
+def _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows, extra_words=0):
+    """The lane tile's dynamic shared memory (`lane_bwd_words`,
+    csrc/coupling_device.cuh) for ``rows`` rows, in bytes: one coupling's
+    two padded nets (W's rows one word apart more than K4's), every
+    coupling's saved (rows, d) input, the two nets' activations and one
+    layer's cotangents; ``extra_words`` more (K6's ELBO terms)."""
+    half, H = KERNEL_MAX_D // 2, _hidden_bound(hidden)
+    net = (half * (H + 1) + H + (depth - 2) * (H * (H + 1) + H)
+           + H * (half + 1) + half)
+    acts = rows * (half + (depth - 1) * H) + rows * half
+    return word * (2 * net + 2 * n_blocks * rows * d + 2 * acts + rows * H
+                   + extra_words)
+
+
+def _row_smem_bytes(d, n_blocks, depth, hidden, word):
+    """The row tile's (`row_bwd_words`): the same parts for ROW_TILE_ROWS
+    rows, W's rows unpadded, the caches unit-major with a row stride of
+    ROW_TILE_ROWS + 1."""
+    half, H = KERNEL_MAX_D // 2, _hidden_bound(hidden)
+    rows, stride = ROW_TILE_ROWS, ROW_TILE_ROWS + 1
     net = half * H + H + (depth - 2) * (H * H + H) + H * half + half
     acts = stride * (half + (depth - 1) * H) + stride * half
-    return word * (2 * net + 2 * n_blocks * BWD_ROWS * d + 2 * acts
-                   + stride * H + extra_words)
+    return word * (2 * net + 2 * n_blocks * rows * d + 2 * acts + stride * H)
 
 
-def _kernel_args(x, leaves, sels, depth, backward=False, extra_words=0):
+def _bwd_tile(d, n_blocks, depth, hidden, word, n, train=False):
+    """(rows, shared-memory bytes) of the tile K5 runs on n rows: the lane
+    tile while n is at most LANE_MAX_TILES lane tiles, else the row tile;
+    with ``train``, K6's lane tile for a batch of n with its ELBO terms."""
+    n = max(n, 1)
+    if train or -(-n // bwd_rows(word, hidden)) <= LANE_MAX_TILES:
+        rows = (lane_rows if train else k5_lane_rows)(word, hidden, n)
+        return rows, _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows,
+                                      rows if train else 0)
+    return ROW_TILE_ROWS, _row_smem_bytes(d, n_blocks, depth, hidden, word)
+
+
+def _hidden_of(widths, depth: int) -> int:
+    """The widest hidden layer of the C interface's widths array."""
+    return max(widths[g * (depth + 1) + l] for g in (0, 1)
+               for l in range(1, depth))
+
+
+def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
     """Check what the kernels take (shapes first, then dtype and device);
-    ``backward`` also checks the shared memory of K5's layout plus
-    ``extra_words``. Returns (suffix, widths, idx) with the int arrays of
-    the C interface."""
+    ``backward`` also checks the shared memory of K5's tile for x's rows,
+    or with ``train_batch`` that of K6's tile for that batch. Returns
+    (suffix, widths, idx) with the int arrays of the C interface."""
     n, d = x.shape
     groups = _unflatten(leaves, depth)
     widths = []
@@ -341,13 +405,12 @@ def _kernel_args(x, leaves, sels, depth, backward=False, extra_words=0):
             f"{KERNEL_MAX_DEPTH}): d={d}, widths={widths}, depth={depth}")
     if backward and x.dtype in _DTYPE_SUFFIX:
         word, n_blocks = x.element_size(), leaves[0].shape[0]
-        hidden = max(widths[g * (depth + 1) + l] for g in (0, 1)
-                     for l in range(1, depth))
-        need = _bwd_smem_bytes(d, n_blocks, depth, hidden, word,
-                               extra_words)
+        rows, need = _bwd_tile(
+            d, n_blocks, depth, _hidden_of(widths, depth), word,
+            n if train_batch is None else train_batch, train_batch is not None)
         if need > KERNEL_MAX_SMEM:
             cap = n_blocks - -(-(need - KERNEL_MAX_SMEM)
-                               // (2 * BWD_ROWS * d * word))
+                               // (2 * rows * d * word))
             raise ValueError(
                 f"the backward sweep needs {need} bytes of shared memory for "
                 f"{n_blocks} blocks at d={d} in {x.dtype}, over the "
@@ -415,7 +478,9 @@ def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
     grads = [torch.empty_like(t) for t in leaves]
     if n == 0:
         return gx, [g.zero_() for g in grads]
-    n_ctas = min(-(-n // BWD_ROWS), BWD_MAX_CTAS)
+    rows, _ = _bwd_tile(d, leaves[0].shape[0], depth,
+                        _hidden_of(widths, depth), x.element_size(), n)
+    n_ctas = min(-(-n // rows), BWD_MAX_CTAS)
     scratch = x.new_empty(n_ctas * sum(t.numel() for t in leaves))
     with torch.cuda.device(x.device):
         err = getattr(library(), f"coupling_bwd_{sfx}")(

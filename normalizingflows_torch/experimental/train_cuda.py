@@ -24,9 +24,10 @@ written-out gradient, `tile_flow_bwd` under those cotangents over the whole
 batch, and the same Adam formula. ``backend="auto"`` launches K6 for CUDA
 tensors and runs the plain version for CPU tensors; ``"plain"`` always
 runs the plain version; ``"cuda"`` raises without CUDA tensors. Nothing
-falls back. K6 keeps K5's shared-memory layout (plus the tile's ELBO
-terms), so it has K5's cap on blocks and raises before any step runs
-(`coupling_cuda._kernel_args`). ``TRAIN_LAUNCHES`` counts K6 launches.
+falls back. K6 runs K5's lane tile, its rows fitted to the batch, plus a
+word a row for the ELBO terms, so it has a cap on blocks like K5's and
+raises before any step runs (`coupling_cuda._kernel_args`).
+``TRAIN_LAUNCHES`` counts K6 launches.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import torch
 
 from ..models.targets import Banana
 from .coupling_cuda import (
-    BWD_ROWS,
     _depth,
     _kernel_args,
     _leaves,
@@ -214,10 +214,10 @@ def _launch(xs, leaves, run: _Run, chunk: int):
     losses)."""
     from ..ops._build import library
 
-    # K5's layout plus the tile's ELBO terms, checked before any step
+    # K6's tile and its ELBO terms, checked before any step
     sfx, widths, idx = _kernel_args(xs.flatten(0, 1), leaves, run.sels,
                                     run.depth, backward=True,
-                                    extra_words=BWD_ROWS)
+                                    train_batch=xs.shape[1])
     xs = xs.contiguous()
     w = torch.cat([t.reshape(-1) for t in leaves])
     m, v, grad = torch.zeros_like(w), torch.zeros_like(w), torch.empty_like(w)

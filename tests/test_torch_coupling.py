@@ -23,6 +23,7 @@ gradients rtol 2e-3 atol 1e-4. Training: f64 rtol 1e-8, f32 rtol 1e-4 atol
 """
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -383,11 +384,12 @@ def test_kernel_arguments_outside_the_bounds_raise():
                                 fb.idx_odd)
 
 
-@pytest.mark.parametrize("dt,nlayers,cap", [("f64", 15, 14), ("f64", 14, None),
-                                            ("f32", 15, None)])
+@pytest.mark.parametrize("dt,nlayers,cap", [("f64", 92, 91), ("f64", 91, None),
+                                            ("f32", 92, None)])
 def test_backward_shared_memory_cap(dt, nlayers, cap):
     """K5 keeps every coupling's input tile in shared memory: at d=8 with
-    [32,32] conditioners float64 takes at most 14 blocks. Past the cap the
+    [32,32] conditioners and 2,048 rows (16-row lane tiles) float64 takes
+    at most 91 blocks. Past the cap the
     backward's check raises (and with it a forward that will be
     differentiated); a forward alone, or a stack within the cap, goes on to
     the device check."""
@@ -396,7 +398,7 @@ def test_backward_shared_memory_cap(dt, nlayers, cap):
                        nlayers=nlayers, dtype=tdt, fused=True, device="cpu")
     fb = flow.bijector.bijectors[0]
     sels = cc._sels(fb.idx_even, fb.idx_odd, 8)
-    x, leaves = torch.zeros((4, 8), dtype=tdt), cc._leaves(fb.groups)
+    x, leaves = torch.zeros((2048, 8), dtype=tdt), cc._leaves(fb.groups)
     with pytest.raises(ValueError, match="CUDA device"):
         cc._kernel_args(x, leaves, sels, 3)
     if cap is None:
@@ -424,3 +426,127 @@ def test_round_trip_and_sampling_within_the_port():
         with torch.no_grad():
             y, lq = tflow.sample_and_log_prob(g, (64,))
             _close(tflow.log_prob(y), lq.numpy(), (1e-10, 1e-10))
+
+
+# (j) the host-side sizing of K5/K6's row tile (the only part of the tile
+# that runs here)
+ROOT = Path(__file__).resolve().parents[1]
+F32, F64 = 4, 8
+
+
+# (word, d, blocks, depth, hidden, n rows, K6?, tile rows, bytes). The lane
+# tile (K5 while n is at most 128 tiles of R rows; K6 always): padded net, W's rows one
+# word apart more than K4's, kHalf·(H+1) + H + (depth−2)·(H·(H+1) + H) +
+# H·(kHalf+1) + kHalf words; saved inputs 2·blocks·rows·d; activations of
+# two nets 2·rows·(kHalf + (depth−1)·H + kHalf); cotangents rows·H; K6
+# adds rows. The row tile (64 rows): net kHalf·H + H + (depth−2)·(H·H + H)
+# + H·kHalf + kHalf; saved 2·blocks·64·d; activations 2·65·(kHalf +
+# (depth−1)·H + kHalf); cotangents 65·H.
+@pytest.mark.parametrize("word,d,blocks,depth,hidden,n,k6,rows,nbytes", [
+    # demo, N 16 (16 rows, H=16): net 68+16+288+80+4 = 456;
+    # 912 + 192 + 1280 + 256 = 2640 words
+    (F32, 2, 3, 3, 16, 16, False, 16, 4 * 2640),
+    # through K6 at batch 16: + 16 terms
+    (F32, 2, 3, 3, 16, 16, True, 16, 4 * 2656),
+    # demo, N 300: 300/128 rows, at least 8 warps: 16 rows
+    (F32, 2, 3, 3, 16, 300, False, 16, 4 * 2640),
+    # demo, N 4,096: 32 rows; 912 + 384 + 2560 + 512 = 4368
+    (F32, 2, 3, 3, 16, 4096, False, 32, 4 * 4368),
+    # demo, N 262,144 (4,096 lane tiles: the row tile): net 80+272+68 = 420;
+    # 840 + 768 + 5200 + 1040 = 7848
+    (F32, 2, 3, 3, 16, 262144, False, 64, 4 * 7848),
+    # reference default, N 256 (8 warps of 1 row, H=32): net
+    # 132+32+1088+160+4 = 1416; 2832 + 320 + 1152 + 256 = 4560
+    (F32, 2, 10, 3, 32, 256, False, 8, 4 * 4560),
+    # through K6 at batch 256 (32 rows): 2832 + 1280 + 4608 + 1024 + 32
+    (F32, 2, 10, 3, 32, 256, True, 32, 4 * 9776),
+    # d=8 [32,32] float64, 14 blocks, N 2,048 (16-row tiles): 2832 + 3584 +
+    # 2304 + 512 = 9232
+    (F64, 8, 14, 3, 32, 2048, False, 16, 8 * 9232),
+    # d=5 [8,8]x2 float32 through K6 at batch 100 (H=16, 64 rows): 912 +
+    # 1280 + 5120 + 1024 + 64 = 8400
+    (F32, 5, 2, 3, 8, 100, True, 64, 4 * 8400),
+])
+def test_row_tile_sizes_match_hand_counts(word, d, blocks, depth, hidden, n,
+                                          k6, rows, nbytes):
+    assert cc._bwd_tile(d, blocks, depth, hidden, word, n, k6) == (rows,
+                                                                   nbytes)
+
+
+def _parent_smem_bytes(d, n_blocks, depth, H, word, extra_words):
+    """K5's shared memory before the lane tile: 64 rows a tile, caches
+    unit-major with a row stride of 65, W's rows unpadded."""
+    half, stride = 4, 65
+    net = half * H + H + (depth - 2) * (H * H + H) + H * half + half
+    acts = stride * (half + (depth - 1) * H) + stride * half
+    return word * (2 * net + 2 * n_blocks * 64 * d + 2 * acts + stride * H
+                   + extra_words)
+
+
+@pytest.mark.parametrize("word,H", [(F32, 16), (F32, 32), (F64, 16),
+                                    (F64, 32)])
+def test_every_stack_accepted_before_is_still_accepted(word, H):
+    """At every d and depth, the most blocks the 64-row tile took (K5, and
+    K6 with its 64 words of terms) still fit, at any batch."""
+    cap = cc.KERNEL_MAX_SMEM
+    for d in range(2, 9):
+        for depth in range(2, 5):
+            for k6 in (False, True):
+                n_max = 1
+                while _parent_smem_bytes(d, n_max + 1, depth, H, word,
+                                         64 * k6) <= cap:
+                    n_max += 1
+                for n in (1, 16, 17, 100, 300, 8192, 10**4, 10**6):
+                    _, need = cc._bwd_tile(d, n_max, depth, H, word, n, k6)
+                    assert need <= cap, (d, depth, k6, n, n_max)
+
+
+def test_rows_match_the_device_header():
+    """The lane tile's rows that csrc/coupling_device.cuh declares for each
+    (type, H), and its switch to the row tile, are coupling_cuda's; each
+    lane tile is whole warps of at most 1,024 threads."""
+    import re
+
+    text = (ROOT / "normalizingflows_torch" / "csrc"
+            / "coupling_device.cuh").read_text()
+    declared = {(F32 if t == "F32" else F64, int(h)): int(r)
+                for t, h, r in re.findall(
+                    r"constexpr int kBwdRows(F32|F64)H(16|32) = (\d+);",
+                    text)}
+    assert declared == cc.BWD_ROWS
+    for (_, H), rows in declared.items():
+        assert rows * H <= 1024 and rows * H % 32 == 0
+    for name, value in (("kLaneMaxTiles", cc.LANE_MAX_TILES),
+                        ("kRowTileRows", cc.ROW_TILE_ROWS)):
+        assert f"constexpr int {name} = {value};" in text
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], set(range(1, 22))),
+    (["--phases", "1,2,12,18-21"], {1, 2, 12, 18, 19, 20, 21}),
+    (["--phases", "12"], {1, 12}),
+    (["--phases", "7,15"], {1, 5, 7, 14, 15}),
+])
+def test_chip_smoke_phase_selection(argv, want):
+    cs = _chip_smoke()
+    assert cs.selected_phases(argv) == want
+
+
+@pytest.mark.parametrize("text", ["0", "22", "3-1", "x", "1,,2", "-3",
+                                  "1-"])
+def test_chip_smoke_rejects_bad_phases(text):
+    cs = _chip_smoke()
+    with pytest.raises(ValueError):
+        cs.parse_phases(text)
+    with pytest.raises(SystemExit):
+        cs.selected_phases(["--phases", text])

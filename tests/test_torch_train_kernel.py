@@ -242,14 +242,15 @@ def test_kernel_path_refuses_before_any_step(case, monkeypatch):
         _, flow = _pair("f64")
         match, d, blocks = "CUDA", 2, None
     else:
-        # K6 keeps K5's layout: at d=8 with [32,32] float64 takes 14 blocks
+        # K6 keeps K5's layout: at d=8 with [32,32] float64 and batch 16
+        # (one 16-row tile) it takes 91 blocks
         flow = nft.realnvp(torch.Generator().manual_seed(0), 8, (32, 32),
-                           nlayers=15, dtype=torch.float64, fused=True,
+                           nlayers=92, dtype=torch.float64, fused=True,
                            device="cpu")
-        match, d, blocks = "at most 14 blocks", 8, 15
+        match, d, blocks = "at most 91 blocks", 8, 92
     fb = flow.bijector.bijectors[0]
     assert blocks is None or fb.groups["even"]["s"][0][0].shape[0] == blocks
-    xs = torch.zeros((3, 4, d), dtype=torch.float64)
+    xs = torch.zeros((3, 16, d), dtype=torch.float64)
     args = (xs, fb.groups, fb.idx_even, fb.idx_odd, nft.Banana(d),
             flow.base.loc, flow.base.scale, LR)
     with pytest.raises(ValueError, match=match):
