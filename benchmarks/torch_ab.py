@@ -1,4 +1,4 @@
-"""K4, K5 and K6 of two checkouts of this repository on one GPU, in turns.
+"""K1–K6 of two checkouts of this repository on one GPU, in turns.
 
     python benchmarks/torch_ab.py --parent DIR [--out FILE]
 
@@ -17,7 +17,17 @@ own ``build/``), on fixed seeds:
   N 262,144;
 * K6 through ``train_realnvp_fused``: the demo (1,000 steps, batch 16) and
   the reference default (50 steps, batch 256), device time a step by CUDA
-  events around each launch (``chip_smoke._timed_train``), and steps/s.
+  events around each launch (``chip_smoke._timed_train``), and steps/s;
+* K1, K2 and K3 through autograd of ``rqs_cuda.rqs_fused`` (elem-major raw
+  as the conditioner's (batch, n_t·(3K−1)) output viewed per element),
+  ``rqs_fused_e`` (raw padded to 3K+2 columns) and ``rqs_fused_t``
+  (param-major raw): y, ld, gx and graw at float32 and float64, K 8 and
+  10, N 64, 257, 1,000 and 131,072, both directions, kept as SHA-256
+  digests of their bytes (the tensors would fill gigabytes);
+* device times of K1 (both directions), K2 and K3 (``rqs_cuda._launch_fwd``
+  / ``_launch_bwd``) in float32 at K=10, N 64, 256 and 131,072 (the last
+  in the wide layout, n_t = 32), warm, and at 131,072 also with a cold L2
+  (a 64 MiB buffer written before each call, its own time subtracted).
 
 Prints one JSON object (and writes it to ``--out``): the card, each run's
 times, and per output whether DIR and this checkout gave identical bits
@@ -27,6 +37,7 @@ and whether this checkout's two runs did. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -36,6 +47,7 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = (("demo", 16), ("demo", 300), ("ref", 256), ("odd", 300))
+RQS_N, RQS_TIMED, WIDE_N = (64, 257, 1000, 131072), (64, 256, 131072), 131072
 
 
 def _outputs(cs, cc) -> dict:
@@ -99,14 +111,89 @@ def _times(cs, cc) -> dict:
     return ms
 
 
+def _rqs_inputs(cs, n, K, dtype, seed):
+    """x over [−1.5B, 1.5B], elem-major raw (the wide layout's view at
+    131,072), gy and gld, on the card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P, n_t = 3 * K - 1, 32 if n == WIDE_N else 1
+    x = (torch.rand((n,), generator=gen, device="cuda", dtype=dtype) * 3
+         - 1.5) * cs.B
+    raw = 3.0 * torch.randn((n // n_t, n_t * P), generator=gen, device="cuda",
+                            dtype=dtype).view(n, P)
+    gy = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+    gld = torch.randn((n,), generator=gen, device="cuda", dtype=dtype)
+    return x, raw, gy, gld, gen
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _rqs_outputs(cs, rq) -> dict:
+    """K1's (y, ld) and K2's or K3's (gx, graw) in three layouts of raw."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for K in (8, 10):
+            for n in RQS_N:
+                x, raw, gy, gld, gen = _rqs_inputs(cs, n, K, dtype, 10 * n + K)
+                padded = torch.cat([raw, torch.randn(
+                    (n, 3), generator=gen, device="cuda", dtype=dtype)], 1)
+                layouts = {
+                    "dense": (raw, lambda a, r, inv: rq.rqs_fused(
+                        a, r, cs.B, inverse=inv, backend="cuda")),
+                    "padded": (padded, lambda a, r, inv: rq.rqs_fused_e(
+                        a, r, cs.B, K, inverse=inv, backend="cuda")),
+                    "param-major": (raw.T.contiguous(),
+                                    lambda a, r, inv: rq.rqs_fused_t(
+                                        a, r, cs.B, inverse=inv,
+                                        backend="cuda"))}
+                for inverse in (False, True):
+                    for layout, (r, fused) in layouts.items():
+                        y, ld, gx, graw = cs._grads(
+                            lambda a, rr: fused(a, rr, inverse), x, r, gy,
+                            gld)
+                        tag = (f"{str(dtype)[6:]} K={K} N={n} {layout} "
+                               f"{'inv' if inverse else 'fwd'}")
+                        kb = "K3" if inverse else "K2"
+                        out[f"K1 {tag} y"], out[f"K1 {tag} ld"] = \
+                            _digest(y), _digest(ld)
+                        out[f"{kb} {tag} gx"], out[f"{kb} {tag} graw"] = \
+                            _digest(gx), _digest(graw)
+    return out
+
+
+def _rqs_times(cs, rq) -> dict:
+    ms, K = {}, 10
+    flush = torch.empty(16 << 20, device="cuda")  # 64 MiB, over the L2
+    flush_ms = cs.device_ms(flush.zero_)
+    for n in RQS_TIMED:
+        x, raw, gy, gld, _ = _rqs_inputs(cs, n, K, torch.float32, n)
+        calls = {
+            "K1": lambda: rq._launch_fwd(x, raw, cs.B, K, False),
+            "K1 inv": lambda: rq._launch_fwd(x, raw, cs.B, K, True),
+            "K2": lambda: rq._launch_bwd(x, raw, gy, gld, cs.B, K, False),
+            "K3": lambda: rq._launch_bwd(x, raw, gy, gld, cs.B, K, True)}
+        for name, fn in calls.items():
+            ms[f"{name} N={n}"] = cs.device_ms(fn)
+            if n == WIDE_N:
+                ms[f"{name} N={n} cold"] = cs.device_ms(
+                    lambda: (flush.zero_(), fn())) - flush_ms
+    return ms
+
+
 def worker(root: Path, out: Path) -> None:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.ops import rqs_cuda as rq
 
-    if not Path(cc.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"imported {cc.__file__}, not {root}'s package")
-    torch.save({"outputs": _outputs(cs, cc), "ms": _times(cs, cc)}, out)
+    for mod in (cc, rq):
+        if not Path(mod.__file__).resolve().is_relative_to(root):
+            raise RuntimeError(f"imported {mod.__file__}, not {root}'s "
+                               f"package")
+    torch.save({"outputs": {**_outputs(cs, cc), **_rqs_outputs(cs, rq)},
+                "ms": {**_times(cs, cc), **_rqs_times(cs, rq)}}, out)
 
 
 def main() -> int:
@@ -141,11 +228,13 @@ def main() -> int:
 
     def same(a, b, prefix):
         keys = [k for k in a if k.startswith(prefix)]
-        return sum(torch.equal(a[k], b[k]) for k in keys), len(keys)
+        return sum(torch.equal(a[k], b[k]) if torch.is_tensor(a[k])
+                   else a[k] == b[k] for k in keys), len(keys)
 
     bits = {}
-    for prefix in ("K4 float32", "K4 float64", "K5 float32 demo",
-                   "K5 float32", "K5 float64"):
+    for prefix in ("K1 float32", "K1 float64", "K2 float32", "K2 float64",
+                   "K3 float32", "K3 float64", "K4 float32", "K4 float64",
+                   "K5 float32 demo", "K5 float32", "K5 float64"):
         bits[prefix] = {"parent_vs_change": same(p0, c1, prefix),
                         "change_twice": same(c1, c2, prefix)}
     result = {"card": smi, "device": torch.cuda.get_device_name(0),

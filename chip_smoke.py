@@ -14,15 +14,19 @@ phase 12 on):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of csrc/*.cu, one process per source, its seconds and
    ptxas's registers and spill bytes of every kernel instantiation (K1–K6:
-   K5 and K6 in float32/float64 × H 16/32, K5 in both directions); a
-   float32 K5 or K6 that spills fails;
+   K2/K3 staged and direct, K5 and K6 in float32/float64 × H 16/32, K5 in
+   both directions); a float32 K2, K3, K5 or K6 that spills fails;
 3. kernels against their plain torch versions on the card: K1 forward and
-   inverse, K2's and K3's gx/graw, at N = 64 (demo), 1000 (ragged) and
-   131072 (wide), K 8 and 10, float32 and float64, raw read elem-major and
-   param-major; raw padded to P = 3K−1+3 through K1/K2/K3 (pad gradient
+   inverse, K2's and K3's gx/graw, at N = 64 (demo), 256 (MLE demo), 257
+   (one live thread in the last CTA), 1000 (ragged) and 131072 (wide), K 8
+   and 10, float32 and float64, raw read elem-major and param-major; K2/K3
+   on elem-major raw through the staged tile and the direct read, with
+   identical bits; raw padded to P = 3K−1+3 through K1/K2/K3 (pad gradient
    exactly 0, the rest equal to the unpadded call); the Pallas rows view
    (R=8, N/R=16384) through K1, equal to the flat param-major call; median
-   device times of kernel and plain version at N = 64 and 131072;
+   device times of kernel (K2/K3 also the direct read) and plain version
+   at N = 64, 256 and 131072 beside the bound and its share, warm, and at
+   131072 with a cold L2;
 4. one `elbo_from_samples` value-and-grad on the demo model with
    backend="cuda" and backend="plain" from identical parameters and draws;
 5. the ELBO path: `train_flow` on the demo slice (nsf on Banana(2, 1, 100),
@@ -50,7 +54,9 @@ Then RealNVP (the fused coupling-stack kernels K4 `coupling_fwd` and K5
     (K5's lane tile, then its row tile), the reference default
     ([32,32]x10) at N 256, d=5 with [8,8]x2 at N 300;
     float32 and float64, forward and inverse; y, ld, gx and every weight
-    gradient; K4 and K5 twice with identical bits. Device times at N 16,
+    gradient, on rows drawn off the leaky ReLU's kink (no pre-activation
+    within 1e-6 of 0, where gx has two one-sided values); K4 and K5 twice
+    with identical bits. Device times at N 16,
     256 and 262,144 of K4, K5 (both passes), the plain versions and the
     unfused `CouplingPairStack` forward and forward+backward on the same
     weights;
@@ -98,6 +104,7 @@ per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import gc
@@ -113,7 +120,12 @@ import torch
 
 DEVICE = "cuda"
 B = 30.0              # the NSF box half-width (nsf default)
-SIZES = (64, 1000, 131072)
+# phase 3: N of the comparisons (257 leaves one live thread in its last
+# CTA, 1000 a ragged one) and of the timings (the NSF demo's 64, the MLE
+# demo's 256, wide 131072)
+SIZES = (64, 256, 257, 1000, 131072)
+RQS_TIMED = (64, 256, 131072)
+FLUSH_BYTES = 64 << 20  # written between calls for a cold 50 MB L2
 DEMO = dict(q0=2, hdims=(32, 32), K=10, B=B, nlayers=10, identity_init=True)
 WIDE = dict(q0=64, hdims=(128, 128), K=10, B=B, nlayers=10,
             identity_init=True)
@@ -141,6 +153,9 @@ SAMPLE_BATCH, SAMPLE_REPS = 262144, 10
 CPL_SHAPES = (("demo", 16), ("demo", 300), ("demo", 262144), ("ref", 256),
               ("odd", 300))
 CPL_TIMED = (("demo", 16), ("ref", 256), ("demo", 262144))
+# phase 12 draws a row of x again where a leaky-ReLU pre-activation of the
+# stack lies within KINK of 0 (`_kink_rows`)
+KINK = 1e-6
 CPL_CFG = {"demo": RNVP_DEMO, "ref": RNVP_REF, "odd": RNVP_ODD}
 KERNELS = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir")
 CPL_KERNELS = ("coupling_fwd", "coupling_bwd")
@@ -344,8 +359,8 @@ def phase_device() -> str:
 
 
 # a kernel's mangled name in ptxas's report: its name, its type (f or d),
-# then its bool (Lb0/Lb1: INVERSE) and int (Li16: H, or K for RQS)
-# template arguments in order
+# then its bool (Lb0/Lb1: INVERSE, or STAGED for K2/K3) and int (Li16: H,
+# or K for RQS) template arguments in order
 _KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
                           r"coupling_bwd|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
@@ -364,9 +379,11 @@ def ptxas_report(log: str) -> list:
             if m:
                 kind, t, rest = m.groups()
                 args = ["f32" if t == "f" else "f64"]
+                # the bool is INVERSE, but STAGED for K2/K3
+                flags = (("direct", "staged") if kind.startswith("rqs_bwd")
+                         else ("fwd", "inv"))
                 for flag, value in re.findall(r"L([bi])(\d+)E", rest):
-                    args.append(("inv" if value == "1" else "fwd")
-                                if flag == "b" else
+                    args.append(flags[value == "1"] if flag == "b" else
                                 f"{'K' if kind.startswith('rqs') else 'H'}"
                                 f"={value}")
                 name = f"{kind}<{', '.join(args)}>"
@@ -391,13 +408,15 @@ def phase_build():
     for kernel, regs, stores, loads in sorted(set(report)):
         print(f"    {kernel}: {regs} registers, {stores} bytes spill stores, "
               f"{loads} bytes spill loads", flush=True)
-    if build.log and not any(k.startswith("coupling_bwd<") for k, *_ in
-                             report):
-        raise AssertionError("no K5 instantiation in ptxas's report")
+    for k in ("coupling_bwd<", "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
+        if build.log and not any(r[0].startswith(k) for r in report):
+            raise AssertionError(f"no {k[:-1]} in ptxas's report")
     spilled = [k for k, _, stores, _ in report if stores and "f32" in k
-               and k.startswith(("coupling_bwd", "realnvp_train<"))]
+               and k.startswith(("coupling_bwd", "realnvp_train<",
+                                 "rqs_bwd_"))]
     if spilled:
-        raise AssertionError(f"float32 K5/K6 spill registers: {spilled}")
+        raise AssertionError(f"float32 K2/K3/K5/K6 spill registers: "
+                             f"{spilled}")
     _build.library()
 
 
@@ -416,9 +435,23 @@ def _grads(fused, x, raw, gy, gld):
         (y, ld), (xg, rg), (gy.reshape(y.shape), gld.reshape(y.shape)))
 
 
+@contextlib.contextmanager
+def direct_read(rqs_cuda):
+    """K2/K3 on elem-major raw forced off the staged tile onto the direct
+    read (each thread its own row in device memory), param-major's path."""
+    plan = rqs_cuda.bwd_plan
+    rqs_cuda.bwd_plan = lambda *a: rqs_cuda.BwdPlan(False, rqs_cuda.BWD_ROWS,
+                                                    0, 0)
+    try:
+        yield
+    finally:
+        rqs_cuda.bwd_plan = plan
+
+
 def phase_kernels(gen):
     """K1 (forward, inverse), K2 and K3 against the plain tiles on the
-    card; padded elem-major raw and the rows view; device times."""
+    card; K2/K3 staged and direct; padded elem-major raw and the rows
+    view; device times, warm and with a cold L2."""
     from normalizingflows_torch.ops import rqs_cuda
 
     results = {k: {"err": 0.0} for k in KERNELS}
@@ -450,7 +483,7 @@ def phase_kernels(gen):
                 raw_pad = torch.cat([rawf, torch.randn(
                     (n, 3), generator=gen, device=DEVICE, dtype=dtype)], 1)
                 tag = f"{str(dtype)[6:]} K={K} N={n}"
-                main = dtype == torch.float32 and K == 10 and n != 1000
+                main = dtype == torch.float32 and K == 10 and n in RQS_TIMED
                 for inverse in (False, True):
                     d = "inv" if inverse else "fwd"
                     y, ld = rqs_cuda.rqs_fused(x, raw3, B, inverse=inverse,
@@ -477,6 +510,14 @@ def phase_kernels(gen):
                     e = max(errs[-2:])
                     if main:
                         results[kkey]["err"] = max(results[kkey]["err"], e)
+                    # the direct read of the same elem-major raw gives the
+                    # staged tile's bits
+                    with direct_read(rqs_cuda):
+                        gx_d, graw_d = rqs_cuda._launch_bwd(
+                            xf, rawf, gy, gld, B, K, inverse)
+                    _same(f"{kname} {tag} direct gx", gx_d, gx.reshape(-1))
+                    _same(f"{kname} {tag} direct graw", graw_d,
+                          graw.reshape(-1, P))
 
                     # param-major read of the same numbers (rqs_fused_t):
                     # identical values, graw back param-major
@@ -510,7 +551,7 @@ def phase_kernels(gen):
                             torch.isfinite(graw_e[:, P:]).all()):
                         raise AssertionError(f"{kname} {tag}: pad columns "
                                              "of graw are not exact zeros")
-                    checks += 12
+                    checks += 14
             # the Pallas rows view (`_call_fwd_rows`): x (R, N/R), raw
             # (3K−1, R, N/R); K1 over its flattened and its permuted view
             R, L = 8, 131072 // 8
@@ -531,49 +572,64 @@ def phase_kernels(gen):
     torch.cuda.synchronize()
     say(3, f"{sum(e == 0.0 for e in errs)} of {len(errs)} kernel-vs-plain "
            f"comparisons exact (max abs err 0), all within tolerance; "
-           f"{checks} layout checks identical: param-major read, padded "
-           f"elem-major (pad gradient exactly 0), rows view")
+           f"{checks} layout checks identical: K2/K3 staged and direct, "
+           f"param-major read, padded elem-major (pad gradient exactly 0), "
+           f"rows view")
 
-    # times at the demo and wide shapes, float32, K=10
-    K = 10
-    for n in (64, 131072):
+    # device times, float32, K=10, at the demo, MLE-demo and wide shapes:
+    # warm (20 calls on the same inputs, which stay in the 50 MB L2, as
+    # after the conditioner's write) and, at the wide shape, cold (a 64 MiB
+    # buffer written before each call, its own time subtracted)
+    K, P = 10, 29
+    flush = torch.empty(FLUSH_BYTES // 4, device=DEVICE)
+    flush_ms = device_ms(flush.zero_)
+    for n in RQS_TIMED:
         n_t = 32 if n == 131072 else 1
-        batch, P = n // n_t, 3 * K - 1
         x = (torch.rand((n,), generator=gen, device=DEVICE) * 3 - 1.5) * B
-        raw = 3.0 * torch.randn((batch, n_t * P), generator=gen,
+        raw = 3.0 * torch.randn((n // n_t, n_t * P), generator=gen,
                                 device=DEVICE).view(n, P)
         gy = torch.randn((n,), generator=gen, device=DEVICE)
         gld = torch.randn((n,), generator=gen, device=DEVICE)
-        t = {
-            "rqs_fwd": (
-                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, K, False)),
-                device_ms(lambda: rqs_cuda.tile_transform(x, raw, B))),
+        calls = {
+            "rqs_fwd": (lambda: rqs_cuda._launch_fwd(x, raw, B, K, False),
+                        lambda: rqs_cuda.tile_transform(x, raw, B)),
             "rqs_fwd inverse": (
-                device_ms(lambda: rqs_cuda._launch_fwd(x, raw, B, K, True)),
-                device_ms(lambda: rqs_cuda.tile_transform(x, raw, B, True))),
+                lambda: rqs_cuda._launch_fwd(x, raw, B, K, True),
+                lambda: rqs_cuda.tile_transform(x, raw, B, True)),
             "rqs_bwd_fwddir": (
-                device_ms(lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K,
-                                                       False)),
-                device_ms(lambda: rqs_cuda.tile_bwd_analytic(
-                    x, raw, gy, gld, B))),
+                lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K, False),
+                lambda: rqs_cuda.tile_bwd_analytic(x, raw, gy, gld, B)),
             "rqs_bwd_invdir": (
-                device_ms(lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K,
-                                                       True)),
-                device_ms(lambda: rqs_cuda.tile_bwd_analytic_inverse(
-                    x, raw, gy, gld, B))),
+                lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K, True),
+                lambda: rqs_cuda.tile_bwd_analytic_inverse(x, raw, gy, gld,
+                                                           B)),
         }
-        for name, (ms, plain_ms) in t.items():
+        for name, (launch, plain) in calls.items():
             kernel = name.split()[0]
+            ms, plain_ms = device_ms(launch), device_ms(plain)
             bms, by = bound_ms(kernel, n, K, 4)
-            if name in results:
-                key = "" if n == 131072 else "_demo"
-                results[name].update({"ms" + key: ms,
-                                      "plain_ms" + key: plain_ms,
-                                      "bound_ms" + key: bms, "bound_by": by})
-            say(3, f"{name} N={n} f32 K=10: kernel {ms:.5f} ms, plain "
-                   f"{plain_ms:.5f} ms, bound {bms:.5f} ms ({by}) (device "
-                   f"time a call: median of 7 CUDA-graph replays of 20 "
-                   f"calls, CUDA events)")
+            line = (f"{name} N={n} f32 K=10: kernel {ms:.5f} ms, plain "
+                    f"{plain_ms:.5f} ms, bound {bms:.5f} ms ({by}), "
+                    f"{100 * bms / ms:.1f} % of it")
+            r = results[kernel] if name in results else {}
+            r.setdefault("ms_by_n", {})[n] = ms
+            r.setdefault("plain_ms_by_n", {})[n] = plain_ms
+            r.setdefault("bound_ms_by_n", {})[n] = bms
+            r.setdefault("bound_share_by_n", {})[n] = bms / ms
+            if kernel != "rqs_fwd":
+                # the kernel ran the staged tile; the direct read beside it
+                with direct_read(rqs_cuda):
+                    direct = device_ms(launch)
+                r.setdefault("direct_ms_by_n", {})[n] = direct
+                line += f"; direct read {direct:.5f} ms"
+            if n == 131072:
+                cold = device_ms(lambda: (flush.zero_(), launch())) - flush_ms
+                r.update(cold_ms=cold, cold_bound_share=bms / cold)
+                line += (f"; cold L2 {cold:.5f} ms ({100 * bms / cold:.1f} % "
+                         f"of the bound)")
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            say(3, line + " (device time a call: median of 7 CUDA-graph "
+                          "replays of 20 calls, CUDA events)")
     return results
 
 
@@ -951,6 +1007,45 @@ def _cpl_run(cc, x, fb, gy, gld, inverse):
     return [y.detach(), ld.detach(), *grads]
 
 
+def _kink_rows(cc, x, groups, sels):
+    """Rows of x (n, d) at which a leaky-ReLU pre-activation of the stack,
+    forward or inverse, lies within KINK of 0 (computed in float64). There
+    the slope is 1 on one side and 0.01 on the other, and two correct
+    computations whose roundings put the pre-activation on different sides
+    (K5 and cuBLAS, or the plain version in float32 and in float64) give
+    that row's gx different one-sided derivatives."""
+    g64 = {grp: {net: [(layer[0].double(), layer[1].double())
+                       for layer in groups[grp][net]] for net in ("s", "t")}
+           for grp in ("even", "odd")}
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for inverse in (False, True):
+        h_x = x.double()
+        ld = h_x.new_zeros(x.shape[0])
+        for (_, _, idx_a, idx_b, s_w, t_w) in cc._couplings(g64, sels,
+                                                            inverse):
+            for net in (s_w, t_w):
+                h = cc._pick(h_x, idx_b)
+                for W, b in net[:-1]:
+                    z = h @ W + b
+                    near |= (z.abs() < KINK).any(1)
+                    h = cc._leaky_relu(z)
+            h_x, ld = cc._apply_coupling(h_x, ld, idx_a, idx_b, s_w, t_w,
+                                         inverse)
+    return near
+
+
+def _off_kinks(cc, x, groups, sels, gen):
+    """(x, draws): x with every row that `_kink_rows` flags drawn again
+    from ``gen`` until none is, so that K5 is held to its plain version
+    where the derivative is defined, and the rows drawn again."""
+    draws = 0
+    while bool((near := _kink_rows(cc, x, groups, sels)).any()):
+        draws += int(near.sum())
+        x[near] = torch.randn((int(near.sum()), x.shape[1]), generator=gen,
+                              device=x.device, dtype=x.dtype)
+    return x, draws
+
+
 def phase_coupling_kernels(gen):
     """K4 and K5 against their plain versions on the card; device times."""
     from normalizingflows_torch.experimental import coupling_cuda as cc
@@ -958,7 +1053,7 @@ def phase_coupling_kernels(gen):
     results = {k: {"err": 0.0, "ms_by_n": {}, "plain_ms_by_n": {},
                    "bound_ms_by_n": {}, "unfused_ms_by_n": {}}
                for k in CPL_KERNELS}
-    n_cmp = 0
+    n_cmp = redrawn = 0
     flows = {}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
@@ -970,7 +1065,10 @@ def phase_coupling_kernels(gen):
             fb = flows[(model, dtype)]
             d = cfg["q0"]
             sels = cc._sels(fb.idx_even, fb.idx_odd, d)
-            x = torch.randn((n, d), generator=gen, device=DEVICE, dtype=dtype)
+            x, draws = _off_kinks(cc, torch.randn((n, d), generator=gen,
+                                                  device=DEVICE, dtype=dtype),
+                                  fb.groups, sels, gen)
+            redrawn += draws
             gy = torch.randn((n, d), generator=gen, device=DEVICE,
                              dtype=dtype) / n
             gld = torch.randn((n,), generator=gen, device=DEVICE,
@@ -1008,7 +1106,8 @@ def phase_coupling_kernels(gen):
     say(12, f"{n_cmp} K4/K5-vs-plain comparisons within tolerance (float32 "
             f"and float64, forward and inverse, y, ld, gx and every weight "
             f"gradient); K4 (y, ld) and K5 (gx, every weight gradient) gave "
-            f"identical bits on two runs each")
+            f"identical bits on two runs each; {redrawn} rows drawn again "
+            f"off the leaky ReLU's kink")
 
     for model, n in CPL_TIMED:
         cfg = CPL_CFG[model]
@@ -1610,14 +1709,16 @@ def main(argv=None) -> int:
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None,
-                **{key: r[key] for key in extra}}
+                **{key: r[key] for key in extra if key in r}}
 
     print(f"chip_smoke.py: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": [
         entry(k, "rqs.cu", kernels[k],
-              ("ms_demo", "plain_ms_demo", "bound_ms_demo"))
+              ("ms_by_n", "plain_ms_by_n", "bound_ms_by_n",
+               "bound_share_by_n", "cold_ms", "cold_bound_share",
+               "direct_ms_by_n"))
         for k in KERNELS] + [
         entry(k, "coupling.cu", cpl[k],
               ("unfused_ms", "ms_by_n", "plain_ms_by_n", "bound_ms_by_n",

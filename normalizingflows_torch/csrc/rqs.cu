@@ -32,21 +32,39 @@
 //
 // What bounds it on this card: memory. K1 reads 3K words per element (x and
 // the 3K−1 raw parameters) and writes 2 (y, ld); K2 and K3 read 3K+2 (x,
-// raw, gy, gld) and write 3K (gx, graw). A few hundred flops per element
-// against ~130–250 bytes is far below the H100's ~20 flop/byte balance
-// point.
+// raw, gy, gld) and write 3K (gx, graw). Several hundred operations per
+// element (IEEE divisions, exp and log without contraction) against
+// ~130–250 bytes sits near the H100's balance point, so after the bytes
+// the instruction issue rate is the next limit.
 //
-// Design: one thread per element, 1-D grid of 256-thread blocks, ragged tail
-// masked. K is a template parameter (8 and 10, the values the repo's configs
-// use) and every loop over K is unrolled, so the K-length tables live in
-// registers: indexing a local array by the runtime bin index would spill it
-// to local memory, hence the compare-and-select. raw is read through
-// (stride_elem, stride_param), so the conditioner's native elem-major
-// (N, 3K−1) view, a padded (N, P > 3K−1) layout and the param-major
-// (3K−1, N) layout go through one kernel and no transpose is materialised.
-// K2/K3 write gx and graw through graw's own (stride_elem, stride_param)
-// into an (N, P ≥ 3K−1) buffer, the P − (3K−1) pad columns set to exact
-// zeros; each thread owns its element's row, so no atomics.
+// Design: one thread per element, 1-D grid of 256-thread blocks. K is a
+// template parameter (8 and 10, the values the repo's configs use) and
+// every loop over K is unrolled, so the K-length tables live in registers:
+// indexing a local array by the runtime bin index would spill it to local
+// memory, hence the compare-and-select. raw is read through (stride_elem,
+// stride_param), so the conditioner's native elem-major (N, 3K−1) view, a
+// padded (N, P > 3K−1) layout and the param-major (3K−1, N) layout go
+// through one kernel and no transpose is materialised. K2/K3 write gx and
+// graw through graw's own (stride_elem, stride_param) into an (N, P ≥ 3K−1)
+// buffer, the P − (3K−1) pad columns set to exact zeros; each thread owns
+// its element's row, so no atomics.
+//
+// K2/K3's staged tile (STAGED, every elem-major raw): in the elem-major
+// layout neighbouring threads' rows are 3K−1 words apart, so a thread that
+// reads or writes its own row touches a different 32-byte sector at every
+// load and store. Each CTA instead copies its (rows × (3K−1)) raw tile into
+// shared memory with neighbouring threads on neighbouring words (16-byte
+// vectors where the tile is dense and aligned, as in the conditioner's
+// (N, 3K−1) output), computes from its row there, writes its graw row
+// (gcols words, pad zeros included) over the same row, and after a barrier
+// the CTA copies the (rows × gcols) graw tile out the same way. The shared
+// row stride S is odd and ≥ gcols, so thread t's word j sits in bank
+// (t·S + j) mod 32: no conflicts in f32, none in either 16-thread phase
+// of an f64 access. A thread past n skips the math but reaches both
+// barriers. Param-major raw is coalesced as it is and keeps the direct
+// read (STAGED=false); which path and S the wrapper decides
+// (ops/rqs_cuda.py `bwd_plan`). The arithmetic is the same on both paths,
+// so the bits are; the registers each is planned for are BwdMinBlocks'.
 //
 // K3 recomputes the forward quantities at the root ξ* exactly as K1's
 // inverse finds it, then: the explicit partials of ld = −(log P − 2 log D)
@@ -56,9 +74,10 @@
 // spline's slope nears the 1e-3 floor ∂Y/∂ξ is tiny and the factor large,
 // in the Pallas tile as here.
 //
-// Left for a later PR: the elem-major raw read is uncoalesced (neighbouring
-// threads are 3K−1 words apart); staging the (block, 3K−1) tile through
-// shared memory would coalesce it.
+// Left for a later PR: K1 still reads elem-major raw one row a thread
+// (about half its byte bound); the staged tile would serve it too. K2/K3's
+// copy-in, math and copy-out run in turn within a CTA, overlapped only
+// across the CTAs an SM holds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -284,23 +303,22 @@ __device__ __forceinline__ void bin_grads_to_raw(
   for (int64_t j = 3 * K - 1; j < gcols; ++j) out[j * gsp] = T(0);
 }
 
-// K2: closed-form VJP of the forward direction with respect to x and raw.
+// K2's element: closed-form VJP of the forward direction with respect to x
+// and raw. Reads raw row r through (se, sp), writes its graw row at `out`
+// through gsp (pad columns up to gcols zeroed); returns gx. raw and out may
+// be the same row of the staged tile: every word read is read before the
+// first store, whose value depends on all of them.
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-rqs_bwd_fwddir(const T* __restrict__ x, const T* __restrict__ raw,
-               const T* __restrict__ gy, const T* __restrict__ gld,
-               T* __restrict__ gx, T* __restrict__ graw, int64_t n,
-               int64_t se, int64_t sp, int64_t gse, int64_t gsp,
-               int64_t gcols, double B) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const T xv = x[i];
+__device__ __forceinline__ T fwddir_grads(const T* raw, int64_t se,
+                                          int64_t sp, int64_t r, T xv,
+                                          T gyv, T gldv, double B, T* out,
+                                          int64_t gsp, int64_t gcols) {
   const T Bc = T(B);
   const bool inside = (xv >= -Bc) && (xv <= Bc);
   const T v = minv(maxv(xv, -Bc), Bc);
 
   Bin<T, K> bn;
-  load_bin<T, K, false>(raw, se, sp, i, B, v, bn);
+  load_bin<T, K, false>(raw, se, sp, r, B, v, bn);
   const T d_k = bn.d_k, d_k1 = bn.d_k1;
 
   const T tiny = T(1e-6 * 2.0 * B);
@@ -321,8 +339,8 @@ rqs_bwd_fwddir(const T* __restrict__ x, const T* __restrict__ raw,
   const T Pd = (s * s) * R;
 
   // outside the box the forward is y = x, ld = 0: zero the cotangents
-  const T gy_in = inside ? gy[i] : T(0);
-  const T gld_in = inside ? gld[i] : T(0);
+  const T gy_in = inside ? gyv : T(0);
+  const T gld_in = inside ? gldv : T(0);
 
   const T gD = gy_in * (-h * Ny / (D * D)) + gld_in * (T(-2) / D);
   const T gP = gld_in / Pd;
@@ -353,31 +371,27 @@ rqs_bwd_fwddir(const T* __restrict__ x, const T* __restrict__ raw,
   const T g_yk1 = g_h;
   const T g_yk = g_yk_direct - g_h;
 
-  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B,
-                         graw + i * gse, gsp, gcols);
-  gx[i] = inside ? g_v : gy[i];
+  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B, out,
+                         gsp, gcols);
+  return inside ? g_v : gyv;
 }
 
-// K3: closed-form VJP of the inverse direction with respect to x and raw,
-// by implicit differentiation of Y(ξ*; θ) = v (Pallas
+// K3's element: closed-form VJP of the inverse direction with respect to x
+// and raw, by implicit differentiation of Y(ξ*; θ) = v (Pallas
 // `_tile_bwd_analytic_inverse`). Here the incoming cotangents are those of
-// the inverse's outputs: g_out of x = x_k + ξ*·w, gld of its log-det.
+// the inverse's outputs: g_out of x = x_k + ξ*·w, gld of its log-det. Rows
+// and return value as fwddir_grads.
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-rqs_bwd_invdir(const T* __restrict__ x, const T* __restrict__ raw,
-               const T* __restrict__ g_out, const T* __restrict__ gld,
-               T* __restrict__ gx, T* __restrict__ graw, int64_t n,
-               int64_t se, int64_t sp, int64_t gse, int64_t gsp,
-               int64_t gcols, double B) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const T xv = x[i];
+__device__ __forceinline__ T invdir_grads(const T* raw, int64_t se,
+                                          int64_t sp, int64_t r, T xv,
+                                          T g_outv, T gldv, double B, T* out,
+                                          int64_t gsp, int64_t gcols) {
   const T Bc = T(B);
   const bool inside = (xv >= -Bc) && (xv <= Bc);
   const T v = minv(maxv(xv, -Bc), Bc);
 
   Bin<T, K> bn;
-  load_bin<T, K, true>(raw, se, sp, i, B, v, bn);
+  load_bin<T, K, true>(raw, se, sp, r, B, v, bn);
   const T d_k = bn.d_k, d_k1 = bn.d_k1;
 
   const T tiny = T(1e-6 * 2.0 * B);
@@ -405,8 +419,8 @@ rqs_bwd_invdir(const T* __restrict__ x, const T* __restrict__ raw,
   const T Pd = (s * s) * R;
 
   // outside the box the inverse is x = y, ld = 0: zero the cotangents
-  const T go_in = inside ? g_out[i] : T(0);
-  const T gld_in = inside ? gld[i] : T(0);
+  const T go_in = inside ? g_outv : T(0);
+  const T gld_in = inside ? gldv : T(0);
 
   // ld = −(log P − 2 log D): explicit partials at fixed ξ
   const T gP_e = -gld_in / Pd;
@@ -449,9 +463,132 @@ rqs_bwd_invdir(const T* __restrict__ x, const T* __restrict__ raw,
   const T g_yk1 = g_h;
   const T g_yk = coef - g_h;
 
-  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B,
-                         graw + i * gse, gsp, gcols);
-  gx[i] = inside ? g_v : g_out[i];
+  bin_grads_to_raw<T, K>(bn, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, B, out,
+                         gsp, gcols);
+  return inside ? g_v : g_outv;
+}
+
+// Rows [0, nr) × columns [0, cols) from src (row stride s_row, column
+// stride s_col) to dst (d_row, d_col), over the tile's linear index
+// e = r·cols + c, kThreads apart: neighbouring threads take neighbouring
+// columns, so an elem-major row is one coalesced run.
+template <typename T>
+__device__ __forceinline__ void copy_tile(const T* src, int64_t s_row,
+                                          int64_t s_col, T* dst,
+                                          int64_t d_row, int64_t d_col,
+                                          int nr, int cols) {
+  int r = threadIdx.x / cols, c = threadIdx.x % cols;
+  const int dr = kThreads / cols, dc = kThreads % cols;
+  while (r < nr) {
+    dst[r * d_row + c * d_col] = src[r * s_row + c * s_col];
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// `count` contiguous words from src to dst, both 16-byte aligned: 16-byte
+// vectors, kBatch of them in flight a thread, then the last words one by
+// one. A bit copy: the tile keeps every value exactly.
+template <typename T>
+__device__ __forceinline__ void copy_dense(const T* src, T* dst, int count) {
+  constexpr int kWords = 16 / sizeof(T), kBatch = 8;
+  const int nv = count / kWords;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int base = threadIdx.x; base < nv; base += kBatch * kThreads) {
+    uint4 buf[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (base + u * kThreads < nv) buf[u] = s[base + u * kThreads];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (base + u * kThreads < nv) d[base + u * kThreads] = buf[u];
+  }
+  for (int e = nv * kWords + threadIdx.x; e < count; e += kThreads)
+    dst[e] = src[e];
+}
+
+// K2/K3's staged tile, viewed as T words of row stride BwdArgs::stride
+extern __shared__ __align__(16) unsigned char rqs_smem[];
+
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const T* raw;
+  const T* gy;   // K3: the cotangent of the inverse's output
+  const T* gld;
+  T* gx;
+  T* graw;
+  int64_t n, se, sp, gse, gsp, gcols;
+  double B;
+  int stride;    // the staged tile's shared row stride S: odd, ≥ gcols
+  bool vec_in;   // raw's tile dense (sp = 1, se = S) and 16-byte aligned
+  bool vec_out;  // graw's tile dense (gsp = 1, gse = gcols = S), aligned
+};
+
+// One CTA of K2 (INVERSE=false) or K3: STAGED copies raw's tile in and
+// graw's out through shared memory (elem-major raw); otherwise each thread
+// reads and writes its own row in device memory (param-major raw).
+template <typename T, int K, bool INVERSE, bool STAGED>
+__device__ __forceinline__ void bwd_tile(const BwdArgs<T>& a) {
+  constexpr int P = 3 * K - 1;
+  T* tile = reinterpret_cast<T*>(rqs_smem);
+  const int t = threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * kThreads, i = i0 + t;
+  const int nr = (int)minv<int64_t>(kThreads, a.n - i0);
+  if (STAGED) {
+    const T* src = a.raw + i0 * a.se;
+    if (a.vec_in) copy_dense(src, tile, (nr - 1) * a.stride + P);
+    else copy_tile(src, a.se, a.sp, tile, a.stride, 1, nr, P);
+    __syncthreads();
+  }
+  if (t < nr) {
+    const T* raw = STAGED ? tile : a.raw;
+    const int64_t se = STAGED ? a.stride : a.se, sp = STAGED ? 1 : a.sp;
+    const int64_t r = STAGED ? t : i;
+    T* out = STAGED ? tile + t * a.stride : a.graw + i * a.gse;
+    const int64_t gsp = STAGED ? 1 : a.gsp;
+    if constexpr (INVERSE)
+      a.gx[i] = invdir_grads<T, K>(raw, se, sp, r, a.x[i], a.gy[i], a.gld[i],
+                                   a.B, out, gsp, a.gcols);
+    else
+      a.gx[i] = fwddir_grads<T, K>(raw, se, sp, r, a.x[i], a.gy[i], a.gld[i],
+                                   a.B, out, gsp, a.gcols);
+  }
+  if (STAGED) {
+    __syncthreads();
+    T* dst = a.graw + i0 * a.gse;
+    const int cols = (int)a.gcols;
+    if (a.vec_out) copy_dense(tile, dst, (nr - 1) * a.stride + cols);
+    else copy_tile(tile, a.stride, 1, dst, a.gse, a.gsp, nr, cols);
+  }
+}
+
+// The CTAs an SM that ptxas plans K2/K3's registers for: f32 direct 3 (at
+// most 80 registers), f32 staged 2 (at most 128: at 80 it spilled 120–196
+// bytes), f64 1. With the thread count alone ptxas took 64 at K=8 and
+// spilled.
+template <typename T, bool STAGED>
+struct BwdMinBlocks {
+  static constexpr int value = sizeof(T) == 4 ? (STAGED ? 2 : 3) : 1;
+};
+
+// K2: the forward direction's VJP.
+template <typename T, int K, bool STAGED>
+__global__ void __launch_bounds__(kThreads, BwdMinBlocks<T, STAGED>::value)
+rqs_bwd_fwddir(const BwdArgs<T> a) {
+  bwd_tile<T, K, false, STAGED>(a);
+}
+
+// K3: the inverse direction's VJP.
+template <typename T, int K, bool STAGED>
+__global__ void __launch_bounds__(kThreads, BwdMinBlocks<T, STAGED>::value)
+rqs_bwd_invdir(const BwdArgs<T> a) {
+  bwd_tile<T, K, true, STAGED>(a);
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -480,28 +617,69 @@ int launch_fwd(const void* x, const void* raw, void* y, void* ld, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// Raise a kernel's dynamic shared-memory cap to `bytes` past the default
+// 48 KB; an error if the card cannot give it.
+int allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int K, bool INVERSE, bool STAGED>
+int launch_bwd_tile(const BwdArgs<T>& a, cudaStream_t st) {
+  void (*kernel)(BwdArgs<T>) = INVERSE ? &rqs_bwd_invdir<T, K, STAGED>
+                                       : &rqs_bwd_fwddir<T, K, STAGED>;
+  const size_t smem = STAGED ? (size_t)kThreads * a.stride * sizeof(T) : 0;
+  const int err = allow_smem((const void*)kernel, smem);
+  if (err) return err;
+  kernel<<<blocks_for(a.n), kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 template <typename T, bool INVERSE>
 int launch_bwd(const void* x, const void* raw, const void* gy,
                const void* gld, void* gx, void* graw, int64_t n, int64_t se,
-               int64_t sp, int64_t gse, int64_t gsp, int64_t gcols, int K,
-               double B, void* stream) {
+               int64_t sp, int64_t gse, int64_t gsp, int64_t gcols,
+               int staged, int rows, int stride, int K, double B,
+               void* stream) {
   if (n <= 0) return 0;
-  if (gcols < 3 * K - 1) return (int)cudaErrorInvalidValue;
+  if (gcols < 3 * K - 1 || rows != kThreads)
+    return (int)cudaErrorInvalidValue;
+  if (staged && (stride < gcols || stride % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  BwdArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.raw = static_cast<const T*>(raw);
+  a.gy = static_cast<const T*>(gy);
+  a.gld = static_cast<const T*>(gld);
+  a.gx = static_cast<T*>(gx);
+  a.graw = static_cast<T*>(graw);
+  a.n = n;
+  a.se = se;
+  a.sp = sp;
+  a.gse = gse;
+  a.gsp = gsp;
+  a.gcols = gcols;
+  a.B = B;
+  a.stride = stride;
+  a.vec_in = staged && sp == 1 && se == stride && aligned16(raw);
+  a.vec_out = staged && gsp == 1 && gse == gcols && gcols == stride &&
+              aligned16(graw);
   const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = blocks_for(n);
-#define RQS_BWD(KERNEL, KK)                                                 \
-  KERNEL<T, KK><<<g, kThreads, 0, st>>>(                                    \
-      static_cast<const T*>(x), static_cast<const T*>(raw),                 \
-      static_cast<const T*>(gy), static_cast<const T*>(gld),                \
-      static_cast<T*>(gx), static_cast<T*>(graw), n, se, sp, gse, gsp,      \
-      gcols, B)
-  if (K == 8 && !INVERSE) RQS_BWD(rqs_bwd_fwddir, 8);
-  else if (K == 8 && INVERSE) RQS_BWD(rqs_bwd_invdir, 8);
-  else if (K == 10 && !INVERSE) RQS_BWD(rqs_bwd_fwddir, 10);
-  else if (K == 10 && INVERSE) RQS_BWD(rqs_bwd_invdir, 10);
-  else return (int)cudaErrorInvalidValue;
+#define RQS_BWD(KK, ST) return launch_bwd_tile<T, KK, INVERSE, ST>(a, st)
+  if (K == 8 && staged) RQS_BWD(8, true);
+  if (K == 8) RQS_BWD(8, false);
+  if (K == 10 && staged) RQS_BWD(10, true);
+  if (K == 10) RQS_BWD(10, false);
 #undef RQS_BWD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -510,9 +688,13 @@ int launch_bwd(const void* x, const void* raw, const void* gy,
 // pointers of contiguous x/y/ld/gy/gld/gx; raw element (i, p) is
 // raw[i*stride_elem + p*stride_param], and graw element (i, p) for p <
 // graw_cols is graw[i*graw_stride_elem + p*graw_stride_param] (columns
-// 3K−1 and up are written as zeros). The launch goes to the calling
-// thread's current device, which the wrapper sets to the tensors' device.
-// Each entry returns the launch's cudaGetLastError() (0 on success).
+// 3K−1 and up are written as zeros). K2/K3 take the wrapper's plan
+// (ops/rqs_cuda.py `bwd_plan`): staged (1) or direct (0), tile_rows (the
+// CTA's threads, 256) and the staged tile's shared row stride (odd, ≥
+// graw_cols); a plan the kernels do not take is an error. The launch goes
+// to the calling thread's current device, which the wrapper sets to the
+// tensors' device. Each entry returns the launch's cudaGetLastError() (0
+// on success).
 extern "C" {
 
 int rqs_fwd_f32(const void* x, const void* raw, void* y, void* ld,
@@ -534,10 +716,12 @@ int rqs_bwd_fwddir_f32(const void* x, const void* raw, const void* gy,
                        long long stride_elem, long long stride_param,
                        long long graw_stride_elem,
                        long long graw_stride_param, long long graw_cols,
-                       int K, double B, void* stream) {
+                       int staged, int tile_rows, int smem_stride, int K,
+                       double B, void* stream) {
   return launch_bwd<float, false>(x, raw, gy, gld, gx, graw, n, stride_elem,
                                   stride_param, graw_stride_elem,
-                                  graw_stride_param, graw_cols, K, B, stream);
+                                  graw_stride_param, graw_cols, staged,
+                                  tile_rows, smem_stride, K, B, stream);
 }
 
 int rqs_bwd_fwddir_f64(const void* x, const void* raw, const void* gy,
@@ -545,11 +729,12 @@ int rqs_bwd_fwddir_f64(const void* x, const void* raw, const void* gy,
                        long long stride_elem, long long stride_param,
                        long long graw_stride_elem,
                        long long graw_stride_param, long long graw_cols,
-                       int K, double B, void* stream) {
+                       int staged, int tile_rows, int smem_stride, int K,
+                       double B, void* stream) {
   return launch_bwd<double, false>(x, raw, gy, gld, gx, graw, n, stride_elem,
                                    stride_param, graw_stride_elem,
-                                   graw_stride_param, graw_cols, K, B,
-                                   stream);
+                                   graw_stride_param, graw_cols, staged,
+                                   tile_rows, smem_stride, K, B, stream);
 }
 
 int rqs_bwd_invdir_f32(const void* x, const void* raw, const void* g_out,
@@ -557,10 +742,12 @@ int rqs_bwd_invdir_f32(const void* x, const void* raw, const void* g_out,
                        long long stride_elem, long long stride_param,
                        long long graw_stride_elem,
                        long long graw_stride_param, long long graw_cols,
-                       int K, double B, void* stream) {
-  return launch_bwd<float, true>(x, raw, g_out, gld, gx, graw, n,
-                                 stride_elem, stride_param, graw_stride_elem,
-                                 graw_stride_param, graw_cols, K, B, stream);
+                       int staged, int tile_rows, int smem_stride, int K,
+                       double B, void* stream) {
+  return launch_bwd<float, true>(x, raw, g_out, gld, gx, graw, n, stride_elem,
+                                 stride_param, graw_stride_elem,
+                                 graw_stride_param, graw_cols, staged,
+                                 tile_rows, smem_stride, K, B, stream);
 }
 
 int rqs_bwd_invdir_f64(const void* x, const void* raw, const void* g_out,
@@ -568,10 +755,12 @@ int rqs_bwd_invdir_f64(const void* x, const void* raw, const void* g_out,
                        long long stride_elem, long long stride_param,
                        long long graw_stride_elem,
                        long long graw_stride_param, long long graw_cols,
-                       int K, double B, void* stream) {
-  return launch_bwd<double, true>(x, raw, g_out, gld, gx, graw, n,
-                                  stride_elem, stride_param, graw_stride_elem,
-                                  graw_stride_param, graw_cols, K, B, stream);
+                       int staged, int tile_rows, int smem_stride, int K,
+                       double B, void* stream) {
+  return launch_bwd<double, true>(x, raw, g_out, gld, gx, graw, n, stride_elem,
+                                  stride_param, graw_stride_elem,
+                                  graw_stride_param, graw_cols, staged,
+                                  tile_rows, smem_stride, K, B, stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,10 @@ failure, a launch error, or a K or dtype the kernels do not take raises.
 ``FWD_LAUNCHES``, ``BWD_LAUNCHES`` and ``BWD_INV_LAUNCHES`` count K1, K2 and
 K3 launches.
 
+K2/K3 stage an elem-major raw tile and its graw tile through shared memory,
+so that their device-memory loads and stores coalesce; `bwd_plan` decides
+the path and the tile's shared row stride, which the C entry takes.
+
 The JAX module's layout entries all reach the same three kernels through
 raw's strides, with no transpose and no copy of raw: `rqs_fused` (raw
 (..., 3K−1)), `rqs_fused_t` (param-major (3K−1, N)) and `rqs_fused_e`
@@ -31,6 +35,8 @@ is `rqs_fused_t` over the flattened views of those tensors.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -39,14 +45,18 @@ from . import rqs as _oracle
 __all__ = [
     "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_forward",
     "rqs_fused_inverse", "tile_transform", "tile_bwd_analytic",
-    "tile_bwd_analytic_inverse", "KERNEL_K", "FWD_LAUNCHES", "BWD_LAUNCHES",
-    "BWD_INV_LAUNCHES",
+    "tile_bwd_analytic_inverse", "bwd_plan", "BwdPlan", "KERNEL_K",
+    "FWD_LAUNCHES", "BWD_LAUNCHES", "BWD_INV_LAUNCHES",
 ]
 
 # K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
 KERNEL_K = (8, 10)
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 BACKENDS = ("auto", "plain", "cuda")
+# K2/K3: the CTA's threads, one an element (kThreads in csrc/rqs.cu), and
+# the dynamic shared memory a block may opt into
+BWD_ROWS = 256
+KERNEL_MAX_SMEM = 227 * 1024
 
 # Kernel launches since import (or since a caller reset them to 0).
 FWD_LAUNCHES = 0
@@ -367,11 +377,42 @@ def _launch_fwd(x, raw, B, K, inverse):
     return y, ld
 
 
+class BwdPlan(NamedTuple):
+    """How K2/K3 run: ``staged`` through a shared-memory tile of ``rows``
+    elements whose rows are ``stride`` words apart (``bytes`` of dynamic
+    shared memory), or direct (``stride`` and ``bytes`` 0)."""
+    staged: bool
+    rows: int
+    stride: int
+    bytes: int
+
+
+def bwd_plan(stride_elem: int, gcols: int, K: int, word: int) -> BwdPlan:
+    """K2/K3's plan for raw's stride between elements and graw's gcols ≥
+    3K−1 columns of ``word`` bytes. Param-major raw (stride_elem 1) is
+    coalesced as it is and runs direct; elem-major raw is staged, at every
+    size (on the H100 the tile was faster than the direct read from one
+    CTA up), with an odd row stride ≥ gcols, so a warp's rows fall in
+    distinct banks. Raises ValueError where the tile would need more than
+    ``KERNEL_MAX_SMEM``."""
+    if stride_elem == 1:
+        return BwdPlan(False, BWD_ROWS, 0, 0)
+    stride = max(gcols, 3 * K - 1) | 1
+    need = BWD_ROWS * stride * word
+    if need > KERNEL_MAX_SMEM:
+        raise ValueError(
+            f"the RQS backward's staged tile needs {need} bytes of shared "
+            f"memory for {gcols} columns of {word}-byte words, over the "
+            f"{KERNEL_MAX_SMEM} a block may use; at most "
+            f"{(KERNEL_MAX_SMEM // (BWD_ROWS * word) - 1) | 1} columns")
+    return BwdPlan(True, BWD_ROWS, stride, need)
+
+
 def _launch_bwd(x, raw, gy, gld, B, K, inverse):
-    """K2 (forward direction) or K3 (inverse direction). graw takes raw's
-    layout (strides and pad columns; `empty_like` keeps the strides of a
-    dense tensor) and the kernel writes every column of it, the pad with
-    exact zeros."""
+    """K2 (forward direction) or K3 (inverse direction), as `bwd_plan`
+    says. graw takes raw's layout (strides and pad columns; `empty_like`
+    keeps the strides of a dense tensor) and the kernel writes every column
+    of it, the pad with exact zeros."""
     global BWD_LAUNCHES, BWD_INV_LAUNCHES
     from ._build import library
 
@@ -380,13 +421,15 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
     gx, graw = torch.empty_like(x), torch.empty_like(raw)
     if x.numel() == 0:
         return gx, graw
+    plan = bwd_plan(raw.stride(0), graw.shape[1], K, x.element_size())
     name = "rqs_bwd_invdir" if inverse else "rqs_bwd_fwddir"
     with torch.cuda.device(x.device):
         err = getattr(library(), f"{name}_{sfx}")(
             x.data_ptr(), raw.data_ptr(), gy.data_ptr(), gld.data_ptr(),
             gx.data_ptr(), graw.data_ptr(), x.numel(), raw.stride(0),
-            raw.stride(1), graw.stride(0), graw.stride(1), graw.shape[1], K,
-            B, torch.cuda.current_stream().cuda_stream)
+            raw.stride(1), graw.stride(0), graw.stride(1), graw.shape[1],
+            int(plan.staged), plan.rows, plan.stride, K, B,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     if inverse:
         BWD_INV_LAUNCHES += 1

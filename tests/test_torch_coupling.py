@@ -550,3 +550,65 @@ def test_chip_smoke_rejects_bad_phases(text):
         cs.parse_phases(text)
     with pytest.raises(SystemExit):
         cs.selected_phases(["--phases", text])
+
+
+def _phase12_demo():
+    """Phase 12's demo stack on the CPU: `realnvp(2, (16, 16), nlayers=3,
+    fused=True)` of seed 30 with noise 0.1 on every parameter."""
+    flow = nft.realnvp(torch.Generator().manual_seed(30), 2, (16, 16),
+                       nlayers=3, fused=True, device="cpu")
+    noise = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for p in flow.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=noise))
+    fb = flow.bijector.bijectors[0]
+    return fb, cc._sels(fb.idx_even, fb.idx_odd, 2)
+
+
+def test_chip_smoke_draws_phase12_rows_off_the_kinks(monkeypatch):
+    """`_off_kinks` draws again exactly the rows `_kink_rows` flags, until
+    none is flagged (a wide KINK flags many)."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "KINK", 1e-4)
+    fb, sels = _phase12_demo()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((512, 2), generator=gen)
+    near = cs._kink_rows(cc, x, fb.groups, sels)
+    assert 0 < int(near.sum()) < 512
+    got, draws = cs._off_kinks(cc, x.clone(), fb.groups, sels, gen)
+    assert draws >= int(near.sum())
+    assert torch.equal(got[~near], x[~near])
+    assert not torch.equal(got[near], x[near])
+    assert not cs._kink_rows(cc, got, fb.groups, sels).any()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k5_gx_rows_outside_phase12_tolerance_sit_at_kinks(inverse):
+    """The plain K5 in float32 against itself in float64, at phase 12's
+    gx tolerance (rtol 2e-3, atol 1e-4/N) on 65,536 rows: every row
+    outside it (this draw has one in each direction) has a pre-activation
+    at the leaky ReLU's kink, and on rows drawn off the kinks none is
+    outside."""
+    cs = _chip_smoke()
+    fb, sels = _phase12_demo()
+    g64 = {grp: {net: [(W.double(), b.double())
+                       for W, b in fb.groups[grp][net]] for net in ("s", "t")}
+           for grp in ("even", "odd")}
+    n = 65536
+    gen = torch.Generator().manual_seed(105)
+    x = torch.randn((n, 2), generator=gen)
+    gy = torch.randn((n, 2), generator=gen) / n
+    gld = torch.randn((n,), generator=gen) / n
+
+    def outside(x):
+        with torch.no_grad():
+            g32 = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels, inverse)[0]
+            g64_ = cc.tile_flow_bwd(x.double(), g64, gy.double(),
+                                    gld.double(), sels, inverse)[0]
+        return ((g32.double() - g64_).abs()
+                > 1e-4 / n + 2e-3 * g64_.abs()).any(1)
+
+    bad = outside(x)
+    near = cs._kink_rows(cc, x, fb.groups, sels)
+    assert bad.any() and not (bad & ~near).any()
+    assert not outside(cs._off_kinks(cc, x, fb.groups, sels, gen)[0]).any()

@@ -271,3 +271,146 @@ def test_ctypes_argtypes_match_the_c_entries():
     assert "--fmad=false" in _build.SOURCE_FLAGS["rqs.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# K2/K3's launch plan (`bwd_plan`) and what `_launch_bwd` hands the C entry
+
+WORD = {"f32": 4, "f64": 8}
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_bwd_plan_stages_elem_major_raw(dt, K, pad):
+    """Elem-major raw (the conditioner's (N, 3K−1) view, or padded to
+    3K+2 columns) goes through the staged tile: 256 rows a CTA, an odd
+    shared row stride at least graw's columns (no bank conflicts), and the
+    bytes a block may use."""
+    gcols = 3 * K - 1 + pad
+    plan = rqs_cuda.bwd_plan(gcols, gcols, K, WORD[dt])
+    assert plan.staged and plan.rows == rqs_cuda.BWD_ROWS == 256
+    assert plan.stride % 2 == 1 and gcols <= plan.stride <= gcols + 1
+    assert plan.bytes == plan.rows * plan.stride * WORD[dt]
+    assert plan.bytes <= rqs_cuda.KERNEL_MAX_SMEM == 227 * 1024
+
+
+@pytest.mark.parametrize("dt,widest", [("f32", 227), ("f64", 113)])
+def test_bwd_plan_refuses_rows_past_the_shared_memory_cap(dt, widest):
+    """The widest graw row that fits 227 KB is planned; one column more
+    raises a ValueError that names the cap, before any launch."""
+    plan = rqs_cuda.bwd_plan(widest, widest, 10, WORD[dt])
+    assert plan.staged and plan.bytes <= rqs_cuda.KERNEL_MAX_SMEM
+    with pytest.raises(ValueError, match=f"at most {widest} columns"):
+        rqs_cuda.bwd_plan(widest + 1, widest + 1, 10, WORD[dt])
+
+
+@pytest.mark.parametrize("K", [8, 10])
+def test_bwd_plan_reads_param_major_raw_directly(K):
+    """Param-major raw (stride 1 between elements) is coalesced as it is:
+    the direct read, no shared memory, at either word size."""
+    for word in (4, 8):
+        assert rqs_cuda.bwd_plan(1, 3 * K - 1, K, word) == \
+            rqs_cuda.BwdPlan(False, 256, 0, 0)
+
+
+def test_bwd_rows_match_the_kernel():
+    """The plan's rows are the kernels' CTA (kThreads in csrc/rqs.cu)."""
+    src = Path(_build.CSRC, "rqs.cu").read_text()
+    threads = re.search(r"constexpr int kThreads = (\d+);", src).group(1)
+    assert int(threads) == rqs_cuda.BWD_ROWS
+
+
+def _fake_bwd_entries(monkeypatch):
+    """The C entries replaced by one that records its arguments; the
+    device and stream calls made harmless for CPU tensors."""
+    import contextlib
+    import types
+
+    calls = []
+
+    def entry(name):
+        def fn(*args):
+            calls.append((name,) + args)
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(**{
+        f"{k}_{s}": entry(f"{k}_{s}") for k in ("rqs_bwd_fwddir",
+                                                "rqs_bwd_invdir")
+        for s in ("f32", "f64")}))
+    # the device checks want CUDA tensors (test_backend_errors covers them)
+    monkeypatch.setattr(rqs_cuda, "_kernel_args",
+                        lambda x, raw, K: rqs_cuda._DTYPE_SUFFIX[x.dtype])
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
+    monkeypatch.setattr(rqs_cuda, "BWD_INV_LAUNCHES", 0)
+    return calls
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("layout,staged,stride", [
+    ("dense", True, 29), ("conditioner", True, 29), ("padded", True, 33),
+    ("param-major", False, 0)])
+def test_launch_bwd_hands_the_entry_its_plan(layout, staged, stride, inverse,
+                                             monkeypatch):
+    """For each layout of raw, the entry gets raw's and graw's strides,
+    graw's columns and the plan: staged with the odd stride for elem-major
+    raw (dense, the conditioner's (batch, n_t·(3K−1)) output viewed per
+    element, padded to 3K+2), direct for param-major."""
+    calls = _fake_bwd_entries(monkeypatch)
+    K, n, P = 10, 96, 29
+    x = torch.zeros(n, dtype=torch.float32)
+    raw = {"dense": lambda: torch.zeros(n, P),
+           "conditioner": lambda: torch.zeros(n // 32, 32 * P).view(n, P),
+           "padded": lambda: torch.zeros(n, P + 3),
+           "param-major": lambda: torch.zeros(P, n).T}[layout]()
+    gx, graw = rqs_cuda._launch_bwd(x, raw, x, x, B, K, inverse)
+    assert graw.stride() == raw.stride() and graw.shape == raw.shape
+    (name, xp, rp, gyp, gldp, gxp, grp, n_, se, sp, gse, gsp, gcols, st,
+     rows, s, k, b, stream), = calls
+    assert name == ("rqs_bwd_invdir_f32" if inverse else "rqs_bwd_fwddir_f32")
+    assert (xp, rp, gxp, grp) == (x.data_ptr(), raw.data_ptr(),
+                                  gx.data_ptr(), graw.data_ptr())
+    assert (n_, se, sp, gse, gsp, gcols) == (n, *raw.stride(),
+                                            *graw.stride(), raw.shape[1])
+    assert (st, rows, s, k, b, stream) == (int(staged), 256, stride, K, B, 0)
+    assert (rqs_cuda.BWD_INV_LAUNCHES if inverse
+            else rqs_cuda.BWD_LAUNCHES) == 1
+
+
+def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
+    """A padded raw too wide for the staged tile raises before the entry
+    is called, and counts no launch."""
+    calls = _fake_bwd_entries(monkeypatch)
+    x = torch.zeros(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        rqs_cuda._launch_bwd(x, torch.zeros(8, 200, dtype=torch.float64),
+                             x, x, B, 10, False)
+    assert calls == [] and rqs_cuda.BWD_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_114rqs_bwd_fwddirIfLi10ELb1EEEvNS_7BwdArgsIT_EE",
+     "rqs_bwd_fwddir<f32, K=10, staged>"),
+    ("_ZN12_GLOBAL__N_114rqs_bwd_invdirIdLi8ELb0EEEvNS_7BwdArgsIT_EE",
+     "rqs_bwd_invdir<f64, K=8, direct>"),
+    ("_ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb1EEEvPKT_S3_PS1_S4_llld",
+     "rqs_fwd<f32, K=10, inv>"),
+])
+def test_chip_smoke_names_rqs_kernels_in_the_ptxas_report(mangled, name):
+    """chip_smoke.py's register report reads K2/K3's bool as STAGED and
+    K1's as INVERSE, with registers and spill bytes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           f"'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, 4 "
+           f"bytes spill loads\nptxas info    : Used 80 registers, used 1 "
+           f"barriers\n")
+    assert cs.ptxas_report(log) == [(name, 80, 8, 4)]
