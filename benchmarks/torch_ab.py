@@ -14,10 +14,16 @@ own ``build/``), on fixed seeds:
   and every weight gradient, kept for a bitwise comparison across runs;
 * device times (``chip_smoke.device_ms``: CUDA-graph replay between CUDA
   events) of K4 and K5 in float32 at demo N 16, reference N 256 and demo
-  N 262,144;
-* K6 through ``train_realnvp_fused``: the demo (1,000 steps, batch 16) and
-  the reference default (50 steps, batch 256), device time a step by CUDA
-  events around each launch (``chip_smoke._timed_train``), and steps/s;
+  N 262,144, and of K4 at the demo's last N on this checkout's K4 lane
+  tile and one past it (``--k4-n``, from this checkout's
+  ``coupling_cuda``: the same N for both trees);
+* K6 (``train_cuda.adam_train_realnvp_fused``, launches of 512 steps): the
+  demo (1,000 steps, batch 16) and the reference default (50 steps, batch
+  256) from their seed-0 flows, float32 and float64: the losses and every
+  final weight, kept for the bitwise comparison;
+* K6 through ``train_realnvp_fused``: the same two runs in float32, device
+  time a step by CUDA events around each launch
+  (``chip_smoke._timed_train``), and steps/s;
 * K1, K2 and K3 through autograd of ``rqs_cuda.rqs_fused`` (elem-major raw
   as the conditioner's (batch, n_t·(3K−1)) output viewed per element),
   ``rqs_fused_e`` (raw padded to 3K+2 columns) and ``rqs_fused_t``
@@ -81,11 +87,31 @@ def _outputs(cs, cc) -> dict:
     return out
 
 
-def _times(cs, cc) -> dict:
+def _k6_outputs(cs) -> dict:
+    """K6's losses and final weights on the demo's and the reference
+    default's runs, float32 and float64, on the CPU."""
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for model, batch, steps in (("demo", cs.RNVP_BATCH, cs.RNVP_STEPS),
+                                    ("ref", cs.RNVP_REF_BATCH,
+                                     cs.TRAIN_REF_STEPS)):
+            gen = torch.Generator(device="cuda").manual_seed(batch)
+            _, args = cs._train_args(cs.CPL_CFG[model], dtype, batch, steps,
+                                     0, gen, perturb=False)
+            res = tc.adam_train_realnvp_fused(*args, backend="cuda")
+            tag = f"K6 {str(dtype)[6:]} {model} batch {batch}"
+            for i, t in enumerate(cs._train_outputs(res)):
+                out[f"{tag} {'losses' if i == 0 else f'leaf {i}'}"] = t.cpu()
+    return out
+
+
+def _times(cs, cc, k4_n) -> dict:
     import normalizingflows_torch as nft
 
     ms = {}
-    for model, n in cs.CPL_TIMED:
+    for model, n in cs.CPL_TIMED + tuple(("demo", n) for n in k4_n):
         cfg = cs.CPL_CFG[model]
         fb = cs._perturbed(cs._rnvp(cfg, 30, True)).bijector.bijectors[0]
         d, depth = cfg["q0"], len(cfg["hdims"]) + 1
@@ -97,8 +123,10 @@ def _times(cs, cc) -> dict:
         leaves = [t.detach() for t in cc._leaves(fb.groups)]
         ms[f"K4 {model} N={n}"] = cs.device_ms(
             lambda: cc._launch_fwd(x, leaves, sels, depth, False))
-        ms[f"K5 {model} N={n}"] = cs.device_ms(
-            lambda: cc._launch_bwd(x, leaves, gy, gld, sels, depth, False))
+        if n not in k4_n:
+            ms[f"K5 {model} N={n}"] = cs.device_ms(
+                lambda: cc._launch_bwd(x, leaves, gy, gld, sels, depth,
+                                       False))
     target = nft.Banana(2, 1.0, 100.0)
     gen = torch.Generator(device="cuda").manual_seed(80)
     for model, batch, steps in (("demo", cs.RNVP_BATCH, cs.RNVP_STEPS),
@@ -182,18 +210,30 @@ def _rqs_times(cs, rq) -> dict:
     return ms
 
 
-def worker(root: Path, out: Path) -> None:
+def worker(root: Path, out: Path, k4_n) -> None:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from normalizingflows_torch.experimental import coupling_cuda as cc
+    from normalizingflows_torch.experimental import train_cuda as tc
     from normalizingflows_torch.ops import rqs_cuda as rq
 
-    for mod in (cc, rq):
+    for mod in (cs, cc, tc, rq):
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"imported {mod.__file__}, not {root}'s "
                                f"package")
-    torch.save({"outputs": {**_outputs(cs, cc), **_rqs_outputs(cs, rq)},
-                "ms": {**_times(cs, cc), **_rqs_times(cs, rq)}}, out)
+    torch.save({"outputs": {**_outputs(cs, cc), **_k6_outputs(cs),
+                            **_rqs_outputs(cs, rq)},
+                "ms": {**_times(cs, cc, k4_n), **_rqs_times(cs, rq)}}, out)
+
+
+def _k4_switch_n() -> tuple:
+    """The demo's last N on this checkout's K4 lane tile in float32, and
+    one past it."""
+    sys.path.insert(0, str(HERE))
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    n = cc.bwd_rows(4, 16) * cc.FWD_LANE_MAX_TILES
+    return n, n + 1
 
 
 def main() -> int:
@@ -202,12 +242,15 @@ def main() -> int:
     parser.add_argument("--out", help="also write the JSON here")
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--result", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--k4-n", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.worker:
-        worker(args.worker.resolve(), args.result)
+        worker(args.worker.resolve(), args.result,
+               tuple(int(n) for n in args.k4_n.split(",")))
         return 0
+    k4_n = ",".join(str(n) for n in _k4_switch_n())
     parent = args.parent.resolve()
     scratch = HERE / "build" / "torch_ab"
     scratch.mkdir(parents=True, exist_ok=True)
@@ -217,7 +260,8 @@ def main() -> int:
     for i, (label, root) in enumerate(order):
         result = scratch / f"run{i}.pt"
         subprocess.run([sys.executable, __file__, "--worker", str(root),
-                        "--result", str(result)], check=True, cwd=root)
+                        "--result", str(result), "--k4-n", k4_n],
+                       check=True, cwd=root)
         runs.append((label, torch.load(result)))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -234,7 +278,8 @@ def main() -> int:
     bits = {}
     for prefix in ("K1 float32", "K1 float64", "K2 float32", "K2 float64",
                    "K3 float32", "K3 float64", "K4 float32", "K4 float64",
-                   "K5 float32 demo", "K5 float32", "K5 float64"):
+                   "K5 float32 demo", "K5 float32", "K5 float64",
+                   "K6 float32", "K6 float64"):
         bits[prefix] = {"parent_vs_change": same(p0, c1, prefix),
                         "change_twice": same(c1, c2, prefix)}
     result = {"card": smi, "device": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ phase 12 on):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of csrc/*.cu, one process per source, its seconds and
    ptxas's registers and spill bytes of every kernel instantiation (K1–K6:
-   K2/K3 staged and direct, K5 and K6 in float32/float64 × H 16/32, K5 in
-   both directions); a float32 K2, K3, K5 or K6 that spills fails;
+   K2/K3 staged and direct, K4 on its lane and row tiles, K4, K5 and K6 in
+   float32/float64 × H 16/32, K4 and K5 in both directions); a float32 K2,
+   K3, K4, K5 or K6 that spills fails;
 3. kernels against their plain torch versions on the card: K1 forward and
    inverse, K2's and K3's gx/graw, at N = 64 (demo), 256 (MLE demo), 257
    (one live thread in the last CTA), 1000 (ragged) and 131072 (wide), K 8
@@ -50,16 +51,20 @@ Then RealNVP (the fused coupling-stack kernels K4 `coupling_fwd` and K5
 `coupling_bwd`, and the unfused module path beside them):
 
 12. K4 and K5 against their plain versions (`tile_flow`, `tile_flow_bwd`)
-    on the card: the demo model (d=2, [16,16]x3) at N 16, 300 and 262,144
-    (K5's lane tile, then its row tile), the reference default
-    ([32,32]x10) at N 256, d=5 with [8,8]x2 at N 300;
-    float32 and float64, forward and inverse; y, ld, gx and every weight
-    gradient, on rows drawn off the leaky ReLU's kink (no pre-activation
-    within 1e-6 of 0, where gx has two one-sided values); K4 and K5 twice
-    with identical bits. Device times at N 16,
-    256 and 262,144 of K4, K5 (both passes), the plain versions and the
-    unfused `CouplingPairStack` forward and forward+backward on the same
-    weights;
+    on the card: the demo model (d=2, [16,16]x3) at N 16, 300 (a ragged
+    last lane tile) and 262,144 (K4's and K5's lane tiles, then their row
+    tiles), at the last N of K4's lane tile (64 tiles of R rows: 4,096 in
+    float32, 2,048 in float64) and one past it (the row tile, its last
+    tile one row), the reference default ([32,32]x10) at N 256, d=5 with
+    [8,8]x2 at N 300; float32 and float64, forward and inverse; y, ld, gx
+    and every weight gradient, on rows drawn off the leaky ReLU's kink (no
+    pre-activation within 1e-6 of 0, where gx has two one-sided values);
+    K4 and K5 twice with identical bits, and K4 on its lane tile and its
+    row tile (whatever the batch picks) with identical bits. Device times
+    at N 16, 256, 262,144 and the two N around K4's switch of K4, K5 (both
+    passes), the plain versions and the unfused `CouplingPairStack` forward
+    and forward+backward on the same weights; K4 on each tile at N 1,024 to
+    65,536 (where the switch belongs);
 13. one `elbo_from_samples` value-and-grad on the demo through
     `realnvp(fused=True)` on the card, the same flow with backend "plain",
     and the unfused `realnvp` of the same seed (same weights);
@@ -153,6 +158,8 @@ SAMPLE_BATCH, SAMPLE_REPS = 262144, 10
 CPL_SHAPES = (("demo", 16), ("demo", 300), ("demo", 262144), ("ref", 256),
               ("odd", 300))
 CPL_TIMED = (("demo", 16), ("ref", 256), ("demo", 262144))
+# K4 timed on each tile at these N (demo and reference default, float32)
+FWD_SWEEP = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 # phase 12 draws a row of x again where a leaky-ReLU pre-activation of the
 # stack lies within KINK of 0 (`_kink_rows`)
 KINK = 1e-6
@@ -362,7 +369,7 @@ def phase_device() -> str:
 # then its bool (Lb0/Lb1: INVERSE, or STAGED for K2/K3) and int (Li16: H,
 # or K for RQS) template arguments in order
 _KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
-                          r"coupling_bwd|coupling_fwd|"
+                          r"coupling_bwd|coupling_fwd_lanes|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
                           r"rqs_bwd_invdir)I([fd])((?:L[bi]\d+E)*)")
 
@@ -408,14 +415,15 @@ def phase_build():
     for kernel, regs, stores, loads in sorted(set(report)):
         print(f"    {kernel}: {regs} registers, {stores} bytes spill stores, "
               f"{loads} bytes spill loads", flush=True)
-    for k in ("coupling_bwd<", "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
+    for k in ("coupling_fwd<", "coupling_fwd_lanes<", "coupling_bwd<",
+              "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
         if build.log and not any(r[0].startswith(k) for r in report):
             raise AssertionError(f"no {k[:-1]} in ptxas's report")
     spilled = [k for k, _, stores, _ in report if stores and "f32" in k
-               and k.startswith(("coupling_bwd", "realnvp_train<",
-                                 "rqs_bwd_"))]
+               and k.startswith(("coupling_fwd", "coupling_bwd",
+                                 "realnvp_train<", "rqs_bwd_"))]
     if spilled:
-        raise AssertionError(f"float32 K2/K3/K5/K6 spill registers: "
+        raise AssertionError(f"float32 K2/K3/K4/K5/K6 spill registers: "
                              f"{spilled}")
     _build.library()
 
@@ -446,6 +454,19 @@ def direct_read(rqs_cuda):
         yield
     finally:
         rqs_cuda.bwd_plan = plan
+
+
+@contextlib.contextmanager
+def fwd_tile(cc, lanes: bool):
+    """K4 forced onto its lane tile (``lanes``) or its row tile whatever
+    the batch, through `fwd_plan`'s switch (the C entry's ``lanes``), to
+    hold the two tiles against each other."""
+    switch = cc.FWD_LANE_MAX_TILES
+    cc.FWD_LANE_MAX_TILES = 1 << 62 if lanes else -1
+    try:
+        yield
+    finally:
+        cc.FWD_LANE_MAX_TILES = switch
 
 
 def phase_kernels(gen):
@@ -1046,18 +1067,27 @@ def _off_kinks(cc, x, groups, sels, gen):
     return x, draws
 
 
+def fwd_switch(cc, dtype, cfg=RNVP_DEMO) -> int:
+    """The last N on K4's lane tile for ``cfg``'s stack in ``dtype``."""
+    word = torch.finfo(dtype).bits // 8
+    return cc.bwd_rows(word, max(cfg["hdims"])) * cc.FWD_LANE_MAX_TILES
+
+
 def phase_coupling_kernels(gen):
-    """K4 and K5 against their plain versions on the card; device times."""
+    """K4 and K5 against their plain versions on the card; K4's two tiles
+    against each other; device times."""
     from normalizingflows_torch.experimental import coupling_cuda as cc
 
     results = {k: {"err": 0.0, "ms_by_n": {}, "plain_ms_by_n": {},
                    "bound_ms_by_n": {}, "unfused_ms_by_n": {}}
                for k in CPL_KERNELS}
-    n_cmp = redrawn = 0
+    n_cmp = n_tiles = redrawn = 0
     flows = {}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
-        for model, n in CPL_SHAPES:
+        switch = fwd_switch(cc, dtype)
+        for model, n in CPL_SHAPES + (("demo", switch),
+                                      ("demo", switch + 1)):
             cfg = CPL_CFG[model]
             if (model, dtype) not in flows:
                 flow = _perturbed(_rnvp(cfg, 30, True, dtype))
@@ -1080,6 +1110,15 @@ def phase_coupling_kernels(gen):
                 again = _cpl_run(cc, x, fb, gy, gld, inverse)
                 for i, (a, b) in enumerate(zip(got, again)):
                     _same(f"K4/K5 {dr} {tag} output {i}, two runs", a, b)
+                for lanes in (True, False):
+                    with fwd_tile(cc, lanes):
+                        y_t, ld_t = cc._launch_fwd(
+                            x, cc._leaves(fb.groups), sels,
+                            len(cfg["hdims"]) + 1, inverse)
+                    tile = "lane" if lanes else "row"
+                    _same(f"K4 {dr} {tag} y, {tile} tile", y_t, got[0])
+                    _same(f"K4 {dr} {tag} ld, {tile} tile", ld_t, got[1])
+                    n_tiles += 2
                 y_p, ld_p = cc.tile_flow(x, fb.groups, sels, inverse)
                 gx_p, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels,
                                               inverse)
@@ -1106,10 +1145,12 @@ def phase_coupling_kernels(gen):
     say(12, f"{n_cmp} K4/K5-vs-plain comparisons within tolerance (float32 "
             f"and float64, forward and inverse, y, ld, gx and every weight "
             f"gradient); K4 (y, ld) and K5 (gx, every weight gradient) gave "
-            f"identical bits on two runs each; {redrawn} rows drawn again "
-            f"off the leaky ReLU's kink")
+            f"identical bits on two runs each; K4's lane and row tiles gave "
+            f"the bits of the tile the batch picks ({n_tiles} outputs); "
+            f"{redrawn} rows drawn again off the leaky ReLU's kink")
 
-    for model, n in CPL_TIMED:
+    switch = fwd_switch(cc, torch.float32)
+    for model, n in CPL_TIMED + (("demo", switch), ("demo", switch + 1)):
         cfg = CPL_CFG[model]
         fb = flows[(model, torch.float32)]
         d, depth = cfg["q0"], len(cfg["hdims"]) + 1
@@ -1155,6 +1196,28 @@ def phase_coupling_kernels(gen):
                     f"{plain_ms:.5f} ms, unfused {what} {unfused_ms:.5f} ms, "
                     f"bound {bms:.5f} ms ({by}) (device time a call: median "
                     f"of 7 CUDA-graph replays of 20 calls, CUDA events)")
+    # K4 on each tile, whatever the batch: where the switch belongs
+    sweep = results["coupling_fwd"]["tile_ms_by_n"] = {}
+    for model in ("demo", "ref"):
+        cfg = CPL_CFG[model]
+        fb = flows[(model, torch.float32)]
+        d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+        leaves = cc._leaves(fb.groups)
+        for n in FWD_SWEEP:
+            x = torch.randn((n, d), generator=gen, device=DEVICE)
+            ms = {}
+            for lanes in (True, False):
+                with fwd_tile(cc, lanes):
+                    ms["lane" if lanes else "row"] = device_ms(
+                        lambda: cc._launch_fwd(x, leaves, sels, depth, False))
+            picked = "lane" if cc.fwd_plan(leaves[0].shape[0], depth,
+                                           max(cfg["hdims"]), 4,
+                                           n).lanes else "row"
+            sweep[f"{model} N={n}"] = {**ms, "picked": picked}
+            say(12, f"coupling_fwd {model} N={n} f32: lane tile "
+                    f"{ms['lane']:.5f} ms, row tile {ms['row']:.5f} ms "
+                    f"(the batch picks the {picked} tile)")
     for k in CPL_KERNELS:
         r = results[k]
         main = str(RNVP_BATCH)
@@ -1722,7 +1785,7 @@ def main(argv=None) -> int:
         for k in KERNELS] + [
         entry(k, "coupling.cu", cpl[k],
               ("unfused_ms", "ms_by_n", "plain_ms_by_n", "bound_ms_by_n",
-               "unfused_ms_by_n"))
+               "unfused_ms_by_n", "tile_ms_by_n"))
         for k in CPL_KERNELS] + [
         entry("realnvp_train", "train.cu", train,
               ("ms_per_launch", "steps_per_s", "graph_step_ms",

@@ -2,10 +2,11 @@
 //
 // What each entry replaces (normalizingflows/jl_tpu/experimental/
 // coupling_pallas.py):
-//   K4  coupling_fwd<T, INVERSE>   `_fwd_kernel` (`_tile_flow`), launched by
-//                                  `_call_fwd`: the whole stack of affine
-//                                  couplings, forward or inverse, with the
-//                                  running log-det, in one launch.
+//   K4  coupling_fwd_lanes         `_fwd_kernel` (`_tile_flow`), launched by
+//       or coupling_fwd            `_call_fwd`: the whole stack of affine
+//       <T, INVERSE, H>            couplings, forward or inverse, with the
+//                                  running log-det, in one launch (the lane
+//                                  or the row tile, below).
 //   K5  coupling_bwd<T, INVERSE>   `_bwd_kernel`, launched by `_call_bwd`:
 //       or coupling_bwd_rows       the hand-written backward (the lane or
 //       + coupling_bwd_reduce<T>   the row tile, below). It recomputes
@@ -40,14 +41,33 @@
 // register arrays are never indexed at run time: a coupling's n_A and n_B
 // (the MLP's input and output) to 4 (so d ≤ 8), hidden widths to H = 16
 // or 32 (a template parameter, the smaller that fits), 2 to 4 Dense layers.
-// The weights of ONE coupling (its s and t MLPs for one block) are staged
-// in shared memory at a time, zero-padded to those bounds, with
-// __syncthreads() between couplings: the reference default in float64
-// would need 369 KB to keep every block's weights resident, over the
-// 227 KB a block may use. Padded weights are zeros, so padded units stay 0.
+// The weights of a coupling (its s and t MLPs for one block) are staged in
+// shared memory, zero-padded to those bounds. Padded weights are zeros, so
+// padded units stay 0. K5 stages one coupling at a time between two
+// barriers: the reference default in float64 would need 369 KB to keep
+// every block's weights resident, over the 227 KB a block may use. K4
+// copies by cp.async (4- or 8-byte copies, the padding zero-filled by the
+// copy; `stage_async`): a stack that fits in kFwdResidentBytes (the demo's
+// 6 couplings: 20–22 KB in float32) is staged whole once, with no barrier
+// after; a larger one in two slots, coupling c + 1 copied into one while
+// coupling c computes from the other, one barrier a coupling and no wait
+// on device memory between couplings (`stage_next`).
 //
-// K4: one thread per batch row, its d values and its layer activations in
-// registers; every thread reads the weights as 16-byte broadcasts.
+// K4 has two tiles, picked from the batch alone (coupling_cuda.py's
+// fwd_plan, passed to the C entry as `lanes`). Up to kFwdLaneMaxTiles = 64
+// lane tiles of R rows (where the two tiles' times cross for the demo and
+// the reference default on the card, chip_smoke.py phase 12), the lane
+// tile: K5's, below, with K5's rows a tile, running `tile_vjp`'s forward
+// steps (`lane_parts`, `lane_apply`): a row's chain is one column's IB
+// multiply-adds a layer where one thread a row walked IB×OB, and the
+// reference default's 256 rows spread over 32 CTAs of 8 rows where one row
+// a thread gave 2 CTAs. Past that, the row tile: one
+// thread per batch row, its d values and its layer activations in
+// registers, every thread reading the weights as 16-byte broadcasts. With
+// the stack resident, as many CTAs as fit on the SMs at once walk the row
+// tiles c, c + G, ..., so that each stages the stack once. Both tiles sum
+// every product in `dense`'s order and contract a*b+c the same way, so
+// they give the same bits.
 //
 // K5 has two tiles and picks one by the batch. Small batches (at most
 // kLaneMaxTiles = 128 lane tiles, about one wave on the 132 SMs) take the
@@ -95,36 +115,86 @@
 
 namespace {
 
-// K4: the whole stack on one row per thread.
+// K4's row tile at large batches: kFwdRows rows a tile, one a thread, its
+// d values and its layer activations in registers, the weights read as
+// 16-byte broadcasts. CTA c walks row tiles c, c + G, ... (`stage_next`).
+// Asking for 4 CTAs an SM at H=16 leaves ptxas 128 registers, 2 at H=32
+// 255: without a minimum it kept the float32 kernels to 80 and 128 and
+// spilled.
 template <typename T, bool INVERSE, int H>
-__global__ void __launch_bounds__(kFwdRows)
+__global__ void __launch_bounds__(kFwdRows, H == 16 ? 4 : 2)
 coupling_fwd(const T* __restrict__ x, T* __restrict__ y, T* __restrict__ ld,
              int64_t n, const __grid_constant__ Stack st) {
-  T* w = reinterpret_cast<T*>(coupling_smem);
-  const int64_t row = (int64_t)blockIdx.x * kFwdRows + threadIdx.x;
-  const bool active = row < n;
-  const int d = st.d;
-  T xr[kMaxD];
-#pragma unroll
-  for (int j = 0; j < kMaxD; ++j)
-    xr[j] = (active && j < d) ? x[row * d + j] : T(0);
-  T l = T(0);
-  const int n_c = 2 * st.n_blocks;
+  T* buf = reinterpret_cast<T*>(coupling_smem);
+  const int d = st.d, n_c = 2 * st.n_blocks;
+  const int64_t tiles = (n + kFwdRows - 1) / kFwdRows;
+  stage_first<T, INVERSE, H, 0>(st, buf);
+  int cur = 0;
 #pragma unroll 1
-  for (int c = 0; c < n_c; ++c) {
-    int g, blk;
-    coupling_at<INVERSE>(st, c, g, blk);
-    stage<T, H>(st, g, blk, w);
-    T xa[kHalf], xb[kHalf], s[kHalf], t[kHalf];
-    coupling_parts<T, H>(st, g, w, xr, xa, xb, s, t, nullptr, 0);
-    const T sum = apply_coupling<T, INVERSE>(st, g, xa, s, t, xr);
-    l = INVERSE ? l - sum : l + sum;
-  }
-  if (active) {
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row = tile * kFwdRows + threadIdx.x;
+    const bool active = row < n, more = tile + gridDim.x < tiles;
+    T xr[kMaxD];
 #pragma unroll
     for (int j = 0; j < kMaxD; ++j)
-      if (j < d) y[row * d + j] = xr[j];
-    ld[row] = l;
+      xr[j] = (active && j < d) ? x[row * d + j] : T(0);
+    T l = T(0);
+#pragma unroll 1
+    for (int c = 0; c < n_c; ++c) {
+      const T* w = stage_next<T, INVERSE, H, 0>(st, c, more, buf, cur);
+      int g, blk;
+      coupling_at<INVERSE>(st, c, g, blk);
+      T xa[kHalf], xb[kHalf], s[kHalf], t[kHalf];
+      coupling_parts<T, H>(st, g, w, xr, xa, xb, s, t, nullptr, 0);
+      const T sum = apply_coupling<T, INVERSE>(st, g, xa, s, t, xr);
+      l = INVERSE ? l - sum : l + sum;
+      stage_done(st, cur);
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kMaxD; ++j)
+        if (j < d) y[row * d + j] = xr[j];
+      ld[row] = l;
+    }
+  }
+}
+
+// K4's lane tile at small batches: st.rows rows a tile on st.rows·H
+// threads, one row on H lanes (thread t: row t / H, lane u = t % H), the
+// forward steps of `tile_vjp` (`lane_parts` without a cache, `lane_apply`).
+template <typename T, bool INVERSE, int H>
+__global__ void __launch_bounds__(bwd_rows<T, H>() * H, 1)
+coupling_fwd_lanes(const T* __restrict__ x, T* __restrict__ y,
+                   T* __restrict__ ld, int64_t n,
+                   const __grid_constant__ Stack st) {
+  T* buf = reinterpret_cast<T*>(coupling_smem);
+  const int d = st.d, n_c = 2 * st.n_blocks;
+  const int rows = st.rows, row = threadIdx.x / H, u = threadIdx.x % H;
+  const int64_t tiles = (n + rows - 1) / rows;
+  stage_first<T, INVERSE, H, 1>(st, buf);
+  int cur = 0;
+#pragma unroll 1
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t r = tile * rows + row;
+    const bool active = r < n, more = tile + gridDim.x < tiles;
+    // rows past the end get x = 0 and write nothing
+    T xv = (active && u < d) ? x[r * d + u] : T(0);
+    T l = T(0);
+#pragma unroll 1
+    for (int c = 0; c < n_c; ++c) {
+      const T* w = stage_next<T, INVERSE, H, 1>(st, c, more, buf, cur);
+      int g, blk;
+      coupling_at<INVERSE>(st, c, g, blk);
+      T xa, s, t;
+      lane_parts<T, H>(st, w, xv, entry(st.idx_a[g], u),
+                       entry(st.idx_b[g], u), false, nullptr, row, u, xa, s,
+                       t);
+      lane_apply<T, INVERSE, H>(xa, s, t, st.width[g][st.depth],
+                                slot(st.idx_a[g], u), xv, l);
+      stage_done(st, cur);
+    }
+    if (active && u < d) y[r * d + u] = xv;
+    if (active && u == 0) ld[r] = l;
   }
 }
 
@@ -213,33 +283,61 @@ coupling_bwd_reduce(const T* __restrict__ scratch, int n_ctas,
   static_cast<T*>(gt.ptr[i])[p - gt.off[i]] = acc;
 }
 
+// K4 on the lane tile (lanes) or the row tile; the caller picks the tile
+// (coupling_cuda.py's fwd_plan: the lane tile while n is at most
+// kFwdLaneMaxTiles lane tiles). A CTA's tile rows are K5's (k5_lane_rows)
+// or kFwdRows. The grid is a CTA a tile; with the stack resident, at most
+// as many CTAs as fit on the SMs at once, each staging the stack once for
+// all its tiles. With two slots a CTA a tile: CTAs that walk several tiles
+// copy in step with each other and ran slower than the hardware's own
+// scheduling of one tile a CTA.
 template <typename T, int H>
-int launch_fwd_h(const T* x, T* y, T* ld, int64_t n, const Stack& st,
+int launch_fwd_h(const T* x, T* y, T* ld, int64_t n, Stack& st, int lanes,
                  int inverse, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * 2 * (size_t)st.wnet;
-  const auto kern = inverse ? &coupling_fwd<T, true, H>
-                            : &coupling_fwd<T, false, H>;
-  const int err = allow_smem((const void*)kern, smem);
+  st.rows = lanes ? k5_lane_rows<T, H>(n) : kFwdRows;
+  const size_t smem = sizeof(T) * (size_t)fwd_words<T, H>(st, lanes);
+  const auto kern =
+      lanes ? (inverse ? &coupling_fwd_lanes<T, true, H>
+                       : &coupling_fwd_lanes<T, false, H>)
+            : (inverse ? &coupling_fwd<T, true, H> : &coupling_fwd<T, false, H>);
+  int err = allow_smem((const void*)kern, smem);
   if (err) return err;
-  const unsigned grid = (unsigned)((n + kFwdRows - 1) / kFwdRows);
-  kern<<<grid, kFwdRows, smem, stream>>>(x, y, ld, n, st);
+  const int threads = lanes ? st.rows * H : kFwdRows;
+  const int64_t tiles = (n + st.rows - 1) / st.rows;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  if (err) return err;
+  int64_t grid = tiles;
+  if (st.resident && tiles > sms) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, threads, smem);
+    if (err) return err;
+    const int64_t fit = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+    grid = tiles < fit ? tiles : fit;
+  }
+  kern<<<(unsigned)grid, threads, smem, stream>>>(x, y, ld, n, st);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_fwd(const void* x, void* y, void* ld, int64_t n, int d,
                int n_blocks, int depth, const int* widths, const int* idx,
-               const void* const* weights, int inverse, void* stream) {
+               const void* const* weights, int lanes, int inverse,
+               void* stream) {
   Stack st;
   int H = 0;
   const int err = make_stack(st, H, d, n_blocks, depth, widths, idx, weights);
   if (err) return err;
+  if (lanes != 0 && lanes != 1) return kInvalid;
   if (n <= 0) return 0;
   const auto xp = static_cast<const T*>(x);
   const auto yp = static_cast<T*>(y), lp = static_cast<T*>(ld);
   const auto cs = static_cast<cudaStream_t>(stream);
-  return H == 16 ? launch_fwd_h<T, 16>(xp, yp, lp, n, st, inverse, cs)
-                 : launch_fwd_h<T, 32>(xp, yp, lp, n, st, inverse, cs);
+  return H == 16
+             ? launch_fwd_h<T, 16>(xp, yp, lp, n, st, lanes, inverse, cs)
+             : launch_fwd_h<T, 32>(xp, yp, lp, n, st, lanes, inverse, cs);
 }
 
 // K5's first pass: the lane tile while the batch is at most kLaneMaxTiles
@@ -326,18 +424,18 @@ extern "C" {
 
 int coupling_fwd_f32(const void* x, void* y, void* ld, long long n, int d,
                      int n_blocks, int depth, const int* widths,
-                     const int* idx, const void* const* weights, int inverse,
-                     void* stream) {
+                     const int* idx, const void* const* weights, int lanes,
+                     int inverse, void* stream) {
   return launch_fwd<float>(x, y, ld, n, d, n_blocks, depth, widths, idx,
-                           weights, inverse, stream);
+                           weights, lanes, inverse, stream);
 }
 
 int coupling_fwd_f64(const void* x, void* y, void* ld, long long n, int d,
                      int n_blocks, int depth, const int* widths,
-                     const int* idx, const void* const* weights, int inverse,
-                     void* stream) {
+                     const int* idx, const void* const* weights, int lanes,
+                     int inverse, void* stream) {
   return launch_fwd<double>(x, y, ld, n, d, n_blocks, depth, widths, idx,
-                            weights, inverse, stream);
+                            weights, lanes, inverse, stream);
 }
 
 int coupling_bwd_f32(const void* x, const void* gy, const void* gld,

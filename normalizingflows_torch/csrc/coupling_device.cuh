@@ -1,13 +1,15 @@
 // Device code of the fused RealNVP coupling-stack kernels, shared by K4/K5
 // (csrc/coupling.cu) and K6 (csrc/train.cu): the stack's description
-// (`Stack`), staging one coupling's weights in shared memory, and two
-// mappings of a batch row onto threads. One row a thread: K4 and K5's row
-// tile at large batches (`dense`, `mlp_row`, `coupling_parts`,
-// `apply_coupling`, `layer_bwd`, `mlp_bwd`, `row_tile_vjp`). One row on H
-// lanes of a warp, one hidden unit a lane: K6 and K5's lane tile at small
-// batches (`lane_dense`, `lane_mlp`, `lane_layer_bwd`, `lane_mlp_bwd`,
-// `tile_vjp`). Last, the host helpers that fill a `Stack` and size the two
-// tiles' shared memory. The designs are described
+// (`Stack`), staging weights in shared memory (K5/K6 a coupling at a time
+// with loads and stores between two barriers, K4 by cp.async: the whole
+// stack where it fits, else the next coupling into a second slot while
+// this one computes), and two mappings of a batch row onto threads. One row a thread: K4 and K5's row tile at large
+// batches (`dense`, `mlp_row`, `coupling_parts`, `apply_coupling`,
+// `layer_bwd`, `mlp_bwd`, `row_tile_vjp`). One row on H lanes of a warp,
+// one hidden unit a lane: K4 and K5's lane tile at small batches, and K6
+// (`lane_dense`, `lane_mlp`, `lane_parts`, `lane_apply`, `lane_layer_bwd`,
+// `lane_mlp_bwd`, `tile_vjp`). Last, the host helpers that fill a `Stack`
+// and size the tiles' shared memory. The designs are described
 // at the top of csrc/coupling.cu. Everything is in an anonymous namespace:
 // each source that includes this file gets its own copy.
 
@@ -23,7 +25,14 @@ namespace {
 constexpr int kMaxD = 8;   // flow dimension
 constexpr int kHalf = 4;   // bound of a coupling's n_A and n_B
 constexpr int kMaxL = 4;   // Dense layers a conditioner, at least 2
+// K4: its row tile holds kFwdRows rows, one a thread; below
+// kFwdLaneMaxTiles + 1 lane tiles of R rows it takes the lane tile, with
+// K5's rows (`k5_lane_rows`). A stack whose couplings' padded weights fit
+// in kFwdResidentBytes is staged whole (coupling_cuda.py's FWD_ROWS,
+// FWD_LANE_MAX_TILES and FWD_RESIDENT_BYTES).
 constexpr int kFwdRows = 128;
+constexpr int kFwdLaneMaxTiles = 64;
+constexpr int kFwdResidentBytes = 48 * 1024;
 // Rows R a K5/K6 lane tile holds at most, R·H threads (coupling_cuda.py's
 // BWD_ROWS): 1,024 threads in float32; half that in float64, whose values
 // take two registers each.
@@ -81,6 +90,7 @@ struct Stack {
   // K5/K6: rows of the lane tile, and the tile's shared-memory layout in
   // words of T
   int rows, sm_saved, sm_acts, sm_acts_net, sm_g;
+  int resident;  // K4: every coupling staged at once
 };
 
 struct GradTable {
@@ -215,6 +225,73 @@ __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
     }
   }
   __syncthreads();
+}
+
+// One word of shared memory from device memory by cp.async (4 or 8 bytes,
+// through L1), or zero-filled (src-size 0: nothing is read) where !valid.
+template <typename T>
+__device__ __forceinline__ void cp_word(T* dst, const T* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every cp.async group this thread committed has landed
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// K4: one layer's padded W (ib rows of OS words, in × o of them stored)
+// then b (o of OS − PAD words) into w by cp.async, the padding zero-filled.
+// Thread t copies words t, t + T, ... walking the padded (row, column) by
+// running counters; OS is a constant, so the divisions are cheap.
+template <typename T, int OS, int PAD>
+__device__ __forceinline__ void stage_layer(T* w, const T* W, const T* b,
+                                            int ib, int in, int o) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int size = ib * OS + OS - PAD;
+  const int dk = nt / OS, dj = nt - dk * OS;
+  int k = tid / OS, j = tid - k * OS;
+  for (int e = tid; e < size; e += nt) {
+    const bool valid = j < o && (k < in || k == ib);
+    cp_word(w + e, valid ? (k < ib ? W + k * o + j : b + j) : W, valid);
+    j += dj;
+    k += dk;
+    if (j >= OS) j -= OS, ++k;
+  }
+}
+
+// K4: block blk's s and t weights of group g into w by cp.async, without
+// waiting, W's rows ob + PAD words apart (PAD 0: the row tile's 16-byte
+// row loads; 1: the lane tile).
+template <typename T, int H, int PAD>
+__device__ __forceinline__ void stage_async(const Stack& st, int g, int blk,
+                                            T* w) {
+  const int depth = st.depth;
+  int off = 0;
+  // unrolled, so that the stack's parameter loads of every layer overlap
+#pragma unroll
+  for (int net = 0; net < 2; ++net) {
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) {
+      if (l >= depth) continue;
+      const int ib = l == 0 ? kHalf : H;
+      const int in = st.width[g][l], o = st.width[g][l + 1];
+      const T* W = static_cast<const T*>(st.W[g][net][l]) +
+                   (int64_t)blk * in * o;
+      const T* b = static_cast<const T*>(st.b[g][net][l]) + (int64_t)blk * o;
+      if (l == depth - 1) {
+        stage_layer<T, kHalf + PAD, PAD>(w + off, W, b, ib, in, o);
+        off += ib * (kHalf + PAD) + kHalf;
+      } else {
+        stage_layer<T, H + PAD, PAD>(w + off, W, b, ib, in, o);
+        off += ib * (H + PAD) + H;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -372,6 +449,52 @@ __device__ __forceinline__ void coupling_at(const Stack& st, int c, int& g,
                                             int& blk) {
   blk = INVERSE ? st.n_blocks - 1 - c / 2 : c / 2;
   g = INVERSE ? 1 - (c & 1) : (c & 1);
+}
+
+// K4's staging, in both tiles. Resident (st.resident): every coupling
+// into its own slot before the walk, and nothing after. Otherwise two
+// slots: the walk's first coupling before it, then during coupling c the
+// next one (c + 1, or after a tile's last the CTA's next tile's first,
+// `more`) into the other slot by cp.async, waited for after coupling c at
+// the CTA's one barrier a coupling, which also frees the slot just read.
+// stage_first: what the walk starts from, landed and visible on return.
+template <typename T, bool INVERSE, int H, int PAD>
+__device__ __forceinline__ void stage_first(const Stack& st, T* buf) {
+  const int words = 2 * st.wnet;
+#pragma unroll 1
+  for (int c = 0; c < (st.resident ? 2 * st.n_blocks : 1); ++c) {
+    int g, blk;
+    coupling_at<INVERSE>(st, c, g, blk);
+    stage_async<T, H, PAD>(st, g, blk, buf + c * words);
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+}
+
+// stage_next: coupling c's weights; with two slots (cur the one holding
+// c) the next coupling's copies started into the other.
+template <typename T, bool INVERSE, int H, int PAD>
+__device__ __forceinline__ const T* stage_next(const Stack& st, int c,
+                                               bool more, T* buf, int cur) {
+  const int n_c = 2 * st.n_blocks, words = 2 * st.wnet;
+  if (st.resident) return buf + c * words;
+  if (c + 1 < n_c || more) {
+    int g, blk;
+    coupling_at<INVERSE>(st, c + 1 < n_c ? c + 1 : 0, g, blk);
+    stage_async<T, H, PAD>(st, g, blk, buf + (cur ^ 1) * words);
+  }
+  cp_commit();
+  return buf + cur * words;
+}
+
+// after coupling c: its successor's copies landed and visible, this
+// coupling's slot free (two slots only)
+__device__ __forceinline__ void stage_done(const Stack& st, int& cur) {
+  if (st.resident) return;
+  cp_wait_all();
+  __syncthreads();
+  cur ^= 1;
 }
 
 // `_mlp_bwd` of layer l (padded IB → OB) over the CTA's rows: the row's
@@ -619,6 +742,46 @@ __device__ __forceinline__ T lane_mlp(const Stack& st, int net, const T* w,
   return h;
 }
 
+// x_A, s and t of a coupling on one row whose lane u holds xin = x_u
+// (u < d), ia and ib its entry(idx_a, u) and entry(idx_b, u): lane k <
+// kHalf gets x_A[k], s_k and t_k; x_B reaches every lane by shuffles and
+// goes through both nets (`lane_mlp`; with keep, each net's
+// post-activations are kept in cache).
+template <typename T, int H>
+__device__ __forceinline__ void lane_parts(const Stack& st, const T* w,
+                                           T xin, int ia, int ib, bool keep,
+                                           T* cache, int row, int u, T& xa,
+                                           T& s, T& t) {
+  xa = lane_or_0<H>(xin, ia);
+  const T xb = lane_or_0<H>(xin, ib);
+#pragma unroll 1
+  for (int net = 0; net < 2; ++net) {
+    const T o = lane_mlp<T, H>(st, net, w + net * st.wnet, xb,
+                               keep ? cache + net * st.sm_acts_net : nullptr,
+                               row, u);
+    if (net == 0) s = o;
+    else t = o;
+  }
+}
+
+// A coupling's output from its parts (n_A = na, pa = slot(idx_a, u)):
+// y_A[k] on lane k goes to lane idx_a[k]'s xv, and l (on every lane) takes
+// Σ s over k < n_A in order.
+template <typename T, bool INVERSE, int H>
+__device__ __forceinline__ void lane_apply(T xa, T s, T t, int na, int pa,
+                                           T& xv, T& l) {
+  const T ya = INVERSE ? (xa - t) * ex(-s) : xa * ex(s) + t;
+  T sum = lane<H>(s, 0);
+#pragma unroll
+  for (int k = 1; k < kHalf; ++k) {
+    const T sk = lane<H>(s, k);
+    if (k < na) sum = sum + sk;
+  }
+  const T y = lane_or_0<H>(ya, pa);
+  if (pa >= 0) xv = y;
+  l = INVERSE ? l - sum : l + sum;
+}
+
 // `_mlp_bwd` of layer l (padded IB → OB) over the tile's rows: lane u's
 // cotangent gc goes through the activation slope (from the cached
 // post-activation: leaky-relu 1 where h ≥ 0, else 0.01; tanh' = 1 − h²),
@@ -730,33 +893,13 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     } else if (u < d) {
       xin = sv[u];
     }
-    // lane k < kHalf: x_A[k]; every lane: x_B from lanes 0..kHalf−1
     const int ia = entry(st.idx_a[g], u), ib = entry(st.idx_b[g], u);
-    const T xa = lane_or_0<H>(xin, ia);
-    const T xb = lane_or_0<H>(xin, ib);
-    T s = T(0), t = T(0);
-#pragma unroll 1
-    for (int net = 0; net < 2; ++net) {
-      const T o = lane_mlp<T, H>(
-          st, net, w + net * st.wnet, xb,
-          rev ? cache + net * st.sm_acts_net : nullptr, row, u);
-      if (net == 0) s = o;
-      else t = o;
-    }
+    T xa, s = T(0), t = T(0);
+    lane_parts<T, H>(st, w, xin, ia, ib, rev, cache, row, u, xa, s, t);
     const int na = st.width[g][st.depth];
     const int pa = slot(st.idx_a[g], u);
     if (!rev) {
-      // y_A[k] on lane k, to lane idx_a[k]; Σ s over k < n_A in order
-      const T ya = INVERSE ? (xa - t) * ex(-s) : xa * ex(s) + t;
-      T sum = lane<H>(s, 0);
-#pragma unroll
-      for (int k = 1; k < kHalf; ++k) {
-        const T sk = lane<H>(s, k);
-        if (k < na) sum = sum + sk;
-      }
-      const T y = lane_or_0<H>(ya, pa);
-      if (pa >= 0) xv = y;
-      l = INVERSE ? l - sum : l + sum;
+      lane_apply<T, INVERSE, H>(xa, s, t, na, pa, xv, l);
       continue;
     }
     // `_coupling_bwd` on lane k < kHalf: gld reaches every coupling's s
@@ -869,6 +1012,17 @@ int allow_smem(const void* kernel, size_t bytes) {
   if (bytes > (size_t)optin) return kInvalid;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// K4's shared memory, set in st: every coupling's padded weights (both
+// nets) where they fit in kFwdResidentBytes, else two couplings', W's rows
+// one word apart more in the lane tile's; returns its size in words of T.
+template <typename T, int H>
+int fwd_words(Stack& st, int lanes) {
+  st.wnet = net_words(H, st.depth, lanes ? 1 : 0);
+  const int64_t stack = (int64_t)2 * st.n_blocks * 2 * st.wnet;
+  st.resident = stack * (int64_t)sizeof(T) <= kFwdResidentBytes;
+  return st.resident ? (int)stack : 2 * 2 * st.wnet;
 }
 
 // The row tile's shared-memory layout, set in st; returns its size in

@@ -7,7 +7,9 @@ intermediate in device memory:
 
 * K4 ``coupling_fwd`` (``csrc/coupling.cu``): the stack forward or inverse
   with the running log-det, the port of the Pallas `_fwd_kernel`
-  (`_tile_flow`, launched by `_call_fwd`).
+  (`_tile_flow`, launched by `_call_fwd`). `fwd_plan` picks its tile from
+  the batch: one row on H lanes while the batch is at most
+  FWD_LANE_MAX_TILES lane tiles, else one row a thread.
 * K5 ``coupling_bwd`` with its ``coupling_bwd_reduce`` pass: the
   hand-written backward, the port of `_bwd_kernel` (`_call_bwd`). It
   recomputes the forward, sweeps the couplings back (`_coupling_bwd`,
@@ -35,7 +37,10 @@ shared memory, so the blocks a stack may have are capped by
 at the row tile (past 128 lane tiles) 171, 199 and 14; more at smaller
 batches, whose tile is smaller. A forward that autograd will differentiate
 is refused past that cap too, so the failure comes before the forward
-runs, not in the backward.
+runs, not in the backward. K4 holds every coupling's padded weights where
+they fit in FWD_RESIDENT_BYTES, else two couplings': at most 80,128 bytes
+(float64, [32,32,32] conditioners, the lane tile), at any number of
+blocks.
 ``COUPLING_FWD_LAUNCHES`` counts K4 launches, ``COUPLING_BWD_LAUNCHES`` K5
 calls (two kernels each).
 
@@ -49,13 +54,14 @@ tables of device pointers in that pytree's leaf order.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 __all__ = [
-    "coupling_stack_fused", "tile_flow", "tile_flow_bwd",
-    "COUPLING_FWD_LAUNCHES", "COUPLING_BWD_LAUNCHES", "KERNEL_MAX_D",
+    "coupling_stack_fused", "tile_flow", "tile_flow_bwd", "fwd_plan",
+    "FwdPlan", "COUPLING_FWD_LAUNCHES", "COUPLING_BWD_LAUNCHES", "KERNEL_MAX_D",
     "KERNEL_MAX_WIDTH", "KERNEL_MAX_DEPTH", "KERNEL_MAX_SMEM",
 ]
 
@@ -67,6 +73,13 @@ KERNEL_MAX_D, KERNEL_MAX_WIDTH, KERNEL_MAX_DEPTH = 8, 32, 4
 # lane tiles K5 runs its row tile of ROW_TILE_ROWS rows, one a thread
 BWD_ROWS = {(4, 16): 64, (4, 32): 32, (8, 16): 32, (8, 32): 16}
 LANE_MAX_TILES, ROW_TILE_ROWS = 128, 64
+# K4 (kFwdRows, kFwdLaneMaxTiles, kFwdResidentBytes): its row tile holds
+# FWD_ROWS rows, one a thread; while the batch is at most
+# FWD_LANE_MAX_TILES lane tiles of R rows it takes the lane tile, with
+# K5's rows (`k5_lane_rows`); a stack whose padded weights fit in
+# FWD_RESIDENT_BYTES is staged whole, a larger one a coupling at a time
+FWD_ROWS, FWD_LANE_MAX_TILES = 128, 64
+FWD_RESIDENT_BYTES = 48 * 1024
 KERNEL_MAX_SMEM = 227 * 1024  # dynamic shared memory a block may opt into
 BWD_MAX_CTAS = 1024    # K5 CTAs at most: the partial slices to sum
 BACKENDS = ("auto", "plain", "cuda")
@@ -375,6 +388,38 @@ def _bwd_tile(d, n_blocks, depth, hidden, word, n, train=False):
     return ROW_TILE_ROWS, _row_smem_bytes(d, n_blocks, depth, hidden, word)
 
 
+class FwdPlan(NamedTuple):
+    """How K4 runs: on the lane tile (``lanes``) or the row tile, ``rows``
+    rows a CTA, with every coupling's weights staged at once
+    (``resident``) or two couplings' at a time, in ``bytes`` of dynamic
+    shared memory."""
+    lanes: bool
+    rows: int
+    resident: bool
+    bytes: int
+
+
+def fwd_plan(n_blocks: int, depth: int, hidden: int, word: int,
+             n: int) -> FwdPlan:
+    """K4's plan for n rows of ``word``-byte words, ``n_blocks`` blocks of
+    two couplings and a widest hidden layer of ``hidden`` (`launch_fwd_h`):
+    the lane tile with K5's rows while n is at most FWD_LANE_MAX_TILES lane
+    tiles of R rows, else the row tile. A coupling's padded weights (both
+    nets, W's rows one word apart more in the lane tile's; `fwd_words`) are
+    held for every coupling where the stack fits in FWD_RESIDENT_BYTES,
+    else for two."""
+    n = max(n, 1)
+    lanes = -(-n // bwd_rows(word, hidden)) <= FWD_LANE_MAX_TILES
+    half, H, pad = KERNEL_MAX_D // 2, _hidden_bound(hidden), int(lanes)
+    net = (half * (H + pad) + H + (depth - 2) * (H * (H + pad) + H)
+           + H * (half + pad) + half)
+    rows = k5_lane_rows(word, hidden, n) if lanes else FWD_ROWS
+    stack = word * 2 * n_blocks * 2 * net
+    resident = stack <= FWD_RESIDENT_BYTES
+    return FwdPlan(lanes, rows, resident,
+                   stack if resident else word * 2 * 2 * net)
+
+
 def _hidden_of(widths, depth: int) -> int:
     """The widest hidden layer of the C interface's widths array."""
     return max(widths[g * (depth + 1) + l] for g in (0, 1)
@@ -382,10 +427,11 @@ def _hidden_of(widths, depth: int) -> int:
 
 
 def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
-    """Check what the kernels take (shapes first, then dtype and device);
-    ``backward`` also checks the shared memory of K5's tile for x's rows,
-    or with ``train_batch`` that of K6's tile for that batch. Returns
-    (suffix, widths, idx) with the int arrays of the C interface."""
+    """Check what the kernels take (shapes first, then dtype and device):
+    the shared memory of K4's tile for x's rows (without ``train_batch``);
+    with ``backward`` also that of K5's tile for x's rows, or with
+    ``train_batch`` that of K6's tile for that batch. Returns (suffix,
+    widths, idx) with the int arrays of the C interface."""
     n, d = x.shape
     groups = _unflatten(leaves, depth)
     widths = []
@@ -403,6 +449,14 @@ def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
             f"outside the coupling kernels' instantiated bounds (2 <= d <= "
             f"{KERNEL_MAX_D}, widths <= {KERNEL_MAX_WIDTH}, 2 <= depth <= "
             f"{KERNEL_MAX_DEPTH}): d={d}, widths={widths}, depth={depth}")
+    if train_batch is None and x.dtype in _DTYPE_SUFFIX:
+        need = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
+                        x.element_size(), n).bytes
+        if need > KERNEL_MAX_SMEM:
+            raise ValueError(
+                f"the forward's two staged couplings need {need} bytes of "
+                f"shared memory at depth {depth} in {x.dtype}, over the "
+                f"{KERNEL_MAX_SMEM} a block may use")
     if backward and x.dtype in _DTYPE_SUFFIX:
         word, n_blocks = x.element_size(), leaves[0].shape[0]
         rows, need = _bwd_tile(
@@ -446,8 +500,9 @@ def _raise_on(err: int, name: str):
 
 
 def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
-    """K4 on x (n, d) contiguous. ``backward``: K5 will follow, so its
-    bounds are checked before K4 runs."""
+    """K4 on x (n, d) contiguous, on the tile `fwd_plan` picks.
+    ``backward``: K5 will follow, so its bounds are checked before K4
+    runs."""
     global COUPLING_FWD_LAUNCHES
     from ..ops._build import library
 
@@ -456,11 +511,14 @@ def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
     y, ld = torch.empty_like(x), x.new_empty(n)
     if n == 0:
         return y, ld
+    plan = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
+                    x.element_size(), n)
     with torch.cuda.device(x.device):
         err = getattr(library(), f"coupling_fwd_{sfx}")(
             x.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d,
             leaves[0].shape[0], depth, widths, idx, _pointers(leaves),
-            int(inverse), torch.cuda.current_stream().cuda_stream)
+            int(plan.lanes), int(inverse),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_fwd")
     COUPLING_FWD_LAUNCHES += 1
     return y, ld

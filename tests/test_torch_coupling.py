@@ -517,8 +517,88 @@ def test_rows_match_the_device_header():
     for (_, H), rows in declared.items():
         assert rows * H <= 1024 and rows * H % 32 == 0
     for name, value in (("kLaneMaxTiles", cc.LANE_MAX_TILES),
-                        ("kRowTileRows", cc.ROW_TILE_ROWS)):
+                        ("kRowTileRows", cc.ROW_TILE_ROWS),
+                        ("kFwdRows", cc.FWD_ROWS),
+                        ("kFwdLaneMaxTiles", cc.FWD_LANE_MAX_TILES)):
         assert f"constexpr int {name} = {value};" in text
+    assert ("constexpr int kFwdResidentBytes = 48 * 1024;" in text
+            and cc.FWD_RESIDENT_BYTES == 48 * 1024)
+    assert cc.FWD_ROWS % 32 == 0
+
+
+# (word, blocks, hidden, n rows, lane tile?, tile rows, resident?, bytes)
+# of K4 at depth 3. A coupling is two nets. The lane tile's net (W's rows
+# one word apart more) is kHalf·(H+1) + H + H·(H+1) + H + H·(kHalf+1) +
+# kHalf words: 84 + 288 + 84 = 456 at H=16, 164 + 1088 + 164 = 1416 at
+# H=32; the row tile's kHalf·H + H + H·H + H + H·kHalf + kHalf: 80 + 272 +
+# 68 = 420 and 160 + 1056 + 132 = 1348. Every coupling (2·blocks of them)
+# is held where they fit in 48 KB, else two. The lane tile runs while n is
+# at most 64 tiles of R rows (R 64 / 32 / 32 / 16 for f32 H16 / f32 H32 /
+# f64 H16 / f64 H32), with K5's rows: n/128, at least 8 warps (256/H
+# rows), at most R.
+@pytest.mark.parametrize("word,blocks,hidden,n,lanes,rows,resident,nbytes", [
+    # the demo (3 blocks, H=16) at N 16: one tile of 16 rows, the 6
+    # couplings resident (21,888 bytes)
+    (F32, 3, 16, 16, True, 16, True, 4 * 6 * 2 * 456),
+    (F32, 3, 16, 300, True, 16, True, 4 * 6 * 2 * 456),
+    # its switch: 4,096 rows are 64 tiles of 64 (run as 128 tiles of 32),
+    # one more row the row tile
+    (F32, 3, 16, 4096, True, 32, True, 4 * 6 * 2 * 456),
+    (F32, 3, 16, 4097, False, 128, True, 4 * 6 * 2 * 420),
+    (F32, 3, 16, 262144, False, 128, True, 4 * 6 * 2 * 420),
+    # the reference default (10 blocks, H=32) at N 256: 32 tiles of 8
+    # rows; its 20 couplings (226,560 bytes) take two slots
+    (F32, 10, 32, 256, True, 8, False, 4 * 2 * 2 * 1416),
+    (F32, 10, 32, 2048, True, 16, False, 4 * 2 * 2 * 1416),
+    (F32, 10, 32, 2049, False, 128, False, 4 * 2 * 2 * 1348),
+    # float64: the demo's 43,776 bytes still fit
+    (F64, 3, 16, 16, True, 16, True, 8 * 6 * 2 * 456),
+    (F64, 3, 16, 2048, True, 16, True, 8 * 6 * 2 * 456),
+    (F64, 3, 16, 2049, False, 128, True, 8 * 6 * 2 * 420),
+    # 4 blocks at H=16 (8 couplings, 58,368 bytes) do not
+    (F64, 4, 16, 16, True, 16, False, 8 * 2 * 2 * 456),
+    (F64, 10, 32, 256, True, 8, False, 8 * 2 * 2 * 1416),
+    (F64, 10, 32, 1024, True, 8, False, 8 * 2 * 2 * 1416),
+    (F64, 10, 32, 1025, False, 128, False, 8 * 2 * 2 * 1348),
+])
+def test_forward_tile_and_shared_memory_match_hand_counts(
+        word, blocks, hidden, n, lanes, rows, resident, nbytes):
+    assert cc.fwd_plan(blocks, 3, hidden, word, n) == (lanes, rows,
+                                                       resident, nbytes)
+
+
+def test_forward_shared_memory_check(monkeypatch):
+    """Every stack within the kernels' bounds passes K4's shared-memory
+    check at any batch and any number of blocks, as before it had one: the
+    largest need (float64, H=32, 4 layers, the lane tile, two couplings)
+    is 4·2,504 words, 80,128 bytes. Under a smaller cap the check raises
+    before any launch."""
+    need = []
+    for word in (F32, F64):
+        for hidden in (8, 16, 32):
+            for depth in (2, 3, 4):
+                for blocks in (1, 2, 3, 10, 400):
+                    for n in (1, 16, 300, 2048, 2049, 8193, 10**6):
+                        need.append(cc.fwd_plan(blocks, depth, hidden, word,
+                                                n).bytes)
+    assert max(need) == 80128 <= cc.KERNEL_MAX_SMEM
+    for d in (2, 5, 8):
+        for dtype in (torch.float32, torch.float64):
+            flow = nft.realnvp(torch.Generator().manual_seed(0), d, (32, 32),
+                               nlayers=2, dtype=dtype, fused=True,
+                               device="cpu")
+            fb = flow.bijector.bijectors[0]
+            sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+            leaves = cc._leaves(fb.groups)
+            for n in (16, 4096, 4097):
+                x = torch.zeros((n, d), dtype=dtype)
+                with pytest.raises(ValueError, match="CUDA device"):
+                    cc._kernel_args(x, leaves, sels, 3)
+    monkeypatch.setattr(cc, "KERNEL_MAX_SMEM", 8 * 4 * 1416 - 1)
+    with pytest.raises(ValueError, match="two staged couplings need 45312 "
+                                         "bytes"):
+        cc._kernel_args(torch.zeros((16, 8), dtype=torch.float64), leaves,
+                        sels, 3)
 
 
 def _chip_smoke():
