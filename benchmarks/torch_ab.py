@@ -28,7 +28,7 @@ own ``build/``), on fixed seeds:
   as the conditioner's (batch, n_t·(3K−1)) output viewed per element),
   ``rqs_fused_e`` (raw padded to 3K+2 columns) and ``rqs_fused_t``
   (param-major raw): y, ld, gx and graw at float32 and float64, K 8 and
-  10, N 64, 257, 1,000 and 131,072, both directions, kept as SHA-256
+  10, N 64, 256, 257, 1,000 and 131,072, both directions, kept as SHA-256
   digests of their bytes (the tensors would fill gigabytes);
 * device times of K1 (both directions), K2 and K3 (``rqs_cuda._launch_fwd``
   / ``_launch_bwd``) in float32 at K=10, N 64, 256 and 131,072 (the last
@@ -53,7 +53,8 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = (("demo", 16), ("demo", 300), ("ref", 256), ("odd", 300))
-RQS_N, RQS_TIMED, WIDE_N = (64, 257, 1000, 131072), (64, 256, 131072), 131072
+RQS_N, RQS_TIMED = (64, 256, 257, 1000, 131072), (64, 256, 131072)
+WIDE_N = 131072
 
 
 def _outputs(cs, cc) -> dict:

@@ -14,20 +14,23 @@ phase 12 on):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of csrc/*.cu, one process per source, its seconds and
    ptxas's registers and spill bytes of every kernel instantiation (K1–K6:
-   K2/K3 staged and direct, K4 on its lane and row tiles, K4, K5 and K6 in
-   float32/float64 × H 16/32, K4 and K5 in both directions); a float32 K2,
-   K3, K4, K5 or K6 that spills fails;
+   K1 in both directions, staged and direct, K2/K3 staged and direct, K4
+   on its lane and row tiles, K4, K5 and K6 in float32/float64 × H 16/32,
+   K4 and K5 in both directions); a float32 K1–K6 that spills fails; a
+   static count of the SASS instructions of K1's float32 K=10 forward
+   staged instantiation (cuobjdump -sass) and the time that count would
+   take to issue for each of N = 131072 elements on all the SMs'
+   schedulers at the SM's top clock (a static estimate, not a floor);
 3. kernels against their plain torch versions on the card: K1 forward and
    inverse, K2's and K3's gx/graw, at N = 64 (demo), 256 (MLE demo), 257
    (one live thread in the last CTA), 1000 (ragged) and 131072 (wide), K 8
-   and 10, float32 and float64, raw read elem-major and param-major; K2/K3
-   on elem-major raw through the staged tile and the direct read, with
-   identical bits; raw padded to P = 3K−1+3 through K1/K2/K3 (pad gradient
-   exactly 0, the rest equal to the unpadded call); the Pallas rows view
-   (R=8, N/R=16384) through K1, equal to the flat param-major call; median
-   device times of kernel (K2/K3 also the direct read) and plain version
-   at N = 64, 256 and 131072 beside the bound and its share, warm, and at
-   131072 with a cold L2;
+   and 10, float32 and float64, raw read elem-major and param-major; every kernel on elem-major raw
+   through its staged path and the direct read, with identical bits; raw
+   padded to P = 3K−1+3 through K1/K2/K3 (pad gradient exactly 0, the rest
+   equal to the unpadded call); the Pallas rows view (R=8, N/R=16384)
+   through K1, equal to the flat param-major call; median device times of
+   kernel, its direct read and plain version at N = 64, 256 and 131072
+   beside the bound and its share, warm, and at 131072 with a cold L2;
 4. one `elbo_from_samples` value-and-grad on the demo model with
    backend="cuda" and backend="plain" from identical parameters and draws;
 5. the ELBO path: `train_flow` on the demo slice (nsf on Banana(2, 1, 100),
@@ -366,18 +369,24 @@ def phase_device() -> str:
 
 
 # a kernel's mangled name in ptxas's report: its name, its type (f or d),
-# then its bool (Lb0/Lb1: INVERSE, or STAGED for K2/K3) and int (Li16: H,
-# or K for RQS) template arguments in order
+# then its bool (Lb0/Lb1) and int (Li16: H, or K for RQS) template
+# arguments in order; the bools are INVERSE, then STAGED for K1, and
+# STAGED for K2/K3
 _KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
                           r"coupling_bwd|coupling_fwd_lanes|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
                           r"rqs_bwd_invdir)I([fd])((?:L[bi]\d+E)*)")
+_BOOLS = {"rqs_fwd": (("fwd", "inv"), ("direct", "staged")),
+          "rqs_bwd_fwddir": (("direct", "staged"),),
+          "rqs_bwd_invdir": (("direct", "staged"),)}
+# K1's float32 K=10 forward staged instantiation, whose SASS phase 2 counts
+K1_SASS = "rqs_fwdIfLi10ELb0ELb1E"
 
 
 def ptxas_report(log: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) of every
     entry function in nvcc's -Xptxas -v log, the kernel spelled as
-    name<type, K=.., fwd/inv, H=..>."""
+    name<type, K=.., fwd/inv, direct/staged, H=..>."""
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -386,11 +395,9 @@ def ptxas_report(log: str) -> list:
             if m:
                 kind, t, rest = m.groups()
                 args = ["f32" if t == "f" else "f64"]
-                # the bool is INVERSE, but STAGED for K2/K3
-                flags = (("direct", "staged") if kind.startswith("rqs_bwd")
-                         else ("fwd", "inv"))
+                bools = iter(_BOOLS.get(kind, (("fwd", "inv"),)))
                 for flag, value in re.findall(r"L([bi])(\d+)E", rest):
-                    args.append(flags[value == "1"] if flag == "b" else
+                    args.append(next(bools)[value == "1"] if flag == "b" else
                                 f"{'K' if kind.startswith('rqs') else 'H'}"
                                 f"={value}")
                 name = f"{kind}<{', '.join(args)}>"
@@ -406,7 +413,65 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+def sass_counts(sass: str, kernel: str):
+    """(all, main) SASS instructions, NOPs left out, of the first function
+    in ``cuobjdump -sass`` output whose mangled name contains ``kernel``:
+    main runs from the function's start to its last EXIT, so the slow-path
+    subroutines of division, exp and log after it are left out. A static
+    count: each instruction once, whether it runs once, several times (a
+    copy loop) or not at all (a branch not taken). None where there is no
+    such function."""
+    ops, current = [], None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if ops:
+                break
+            current = m.group(1)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and current and kernel in current:
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            if not op.startswith("NOP"):
+                ops.append(op)
+    if not ops:
+        return None
+    exits = [i for i, op in enumerate(ops) if op.startswith("EXIT")]
+    return len(ops), (exits[-1] + 1 if exits else len(ops))
+
+
+def static_issue_estimate(path: Path):
+    """K1's float32 K=10 forward staged instantiation: its main-line SASS
+    count (`sass_counts`) and the time that many warp instructions for
+    each of N = 131072 elements would take to issue, one an issue slot,
+    over the SMs × 4 schedulers at the SM's top clock (nvidia-smi
+    clocks.max.sm). A static estimate, not a floor: the count is not what
+    an element executes. None where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = sass_counts(sass, K1_SASS)
+    if counts is None:
+        raise AssertionError(f"no {K1_SASS} in cuobjdump's SASS")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 131072
+    ms = 1e3 * counts[1] * (n / 32) / (sms * 4 * mhz * 1e6)
+    return {"static_instructions": counts[1], "instructions_all": counts[0],
+            "n": n, "sms": sms, "sm_mhz": mhz, "ms": ms}
+
+
 def phase_build():
+    """The build, ptxas's report and K1's static issue estimate (both
+    returned)."""
     from normalizingflows_torch.ops import _build
 
     build = _build.build()
@@ -416,16 +481,26 @@ def phase_build():
         print(f"    {kernel}: {regs} registers, {stores} bytes spill stores, "
               f"{loads} bytes spill loads", flush=True)
     for k in ("coupling_fwd<", "coupling_fwd_lanes<", "coupling_bwd<",
-              "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
+              "rqs_fwd<", "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
         if build.log and not any(r[0].startswith(k) for r in report):
             raise AssertionError(f"no {k[:-1]} in ptxas's report")
     spilled = [k for k, _, stores, _ in report if stores and "f32" in k
                and k.startswith(("coupling_fwd", "coupling_bwd",
-                                 "realnvp_train<", "rqs_bwd_"))]
+                                 "realnvp_train<", "rqs_"))]
     if spilled:
-        raise AssertionError(f"float32 K2/K3/K4/K5/K6 spill registers: "
-                             f"{spilled}")
+        raise AssertionError(f"float32 K1–K6 spill registers: {spilled}")
     _build.library()
+    est = static_issue_estimate(build.path)
+    if est is None:
+        say(2, "K1 static issue estimate: not measured (no cuobjdump)")
+    else:
+        say(2, f"K1 static issue estimate: rqs_fwd<f32, K=10, fwd, staged> "
+               f"{est['static_instructions']} SASS instructions in its main "
+               f"line, each counted once ({est['instructions_all']} in the "
+               f"function); once an element at N={est['n']}, "
+               f"{est['sms']} SMs x 4 schedulers at {est['sm_mhz']:.0f} "
+               f"MHz: {est['ms']:.5f} ms")
+    return report, est
 
 
 def _same(name, got, want):
@@ -445,15 +520,17 @@ def _grads(fused, x, raw, gy, gld):
 
 @contextlib.contextmanager
 def direct_read(rqs_cuda):
-    """K2/K3 on elem-major raw forced off the staged tile onto the direct
-    read (each thread its own row in device memory), param-major's path."""
-    plan = rqs_cuda.bwd_plan
+    """K1, K2 and K3 on elem-major raw forced off their staged tiles onto
+    the direct read (each thread its own row in device memory),
+    param-major's path."""
+    fwd, bwd = rqs_cuda.fwd_plan, rqs_cuda.bwd_plan
+    rqs_cuda.fwd_plan = lambda *a: rqs_cuda.FwdPlan(False, 0, 0)
     rqs_cuda.bwd_plan = lambda *a: rqs_cuda.BwdPlan(False, rqs_cuda.BWD_ROWS,
                                                     0, 0)
     try:
         yield
     finally:
-        rqs_cuda.bwd_plan = plan
+        rqs_cuda.fwd_plan, rqs_cuda.bwd_plan = fwd, bwd
 
 
 @contextlib.contextmanager
@@ -518,6 +595,11 @@ def phase_kernels(gen):
                     if main:
                         results["rqs_fwd"]["err"] = max(
                             results["rqs_fwd"]["err"], e)
+                    with direct_read(rqs_cuda):
+                        y_d, ld_d = rqs_cuda._launch_fwd(xf, rawf, B, K,
+                                                         inverse)
+                    _same(f"K1 {d} {tag} direct y", y_d, y.reshape(-1))
+                    _same(f"K1 {d} {tag} direct ld", ld_d, ld.reshape(-1))
 
                     kname, kkey, tile = bwd_tile[inverse]
                     gx, graw = _grads(lambda a, r: rqs_cuda.rqs_fused(
@@ -572,7 +654,7 @@ def phase_kernels(gen):
                             torch.isfinite(graw_e[:, P:]).all()):
                         raise AssertionError(f"{kname} {tag}: pad columns "
                                              "of graw are not exact zeros")
-                    checks += 14
+                    checks += 16
             # the Pallas rows view (`_call_fwd_rows`): x (R, N/R), raw
             # (3K−1, R, N/R); K1 over its flattened and its permuted view
             R, L = 8, 131072 // 8
@@ -593,7 +675,7 @@ def phase_kernels(gen):
     torch.cuda.synchronize()
     say(3, f"{sum(e == 0.0 for e in errs)} of {len(errs)} kernel-vs-plain "
            f"comparisons exact (max abs err 0), all within tolerance; "
-           f"{checks} layout checks identical: K2/K3 staged and direct, "
+           f"{checks} layout checks identical: K1–K3 staged and direct, "
            f"param-major read, padded elem-major (pad gradient exactly 0), "
            f"rows view")
 
@@ -632,17 +714,17 @@ def phase_kernels(gen):
             line = (f"{name} N={n} f32 K=10: kernel {ms:.5f} ms, plain "
                     f"{plain_ms:.5f} ms, bound {bms:.5f} ms ({by}), "
                     f"{100 * bms / ms:.1f} % of it")
-            r = results[kernel] if name in results else {}
+            r = (results[kernel] if name in results
+                 else results[kernel].setdefault("inverse", {}))
             r.setdefault("ms_by_n", {})[n] = ms
             r.setdefault("plain_ms_by_n", {})[n] = plain_ms
             r.setdefault("bound_ms_by_n", {})[n] = bms
             r.setdefault("bound_share_by_n", {})[n] = bms / ms
-            if kernel != "rqs_fwd":
-                # the kernel ran the staged tile; the direct read beside it
-                with direct_read(rqs_cuda):
-                    direct = device_ms(launch)
-                r.setdefault("direct_ms_by_n", {})[n] = direct
-                line += f"; direct read {direct:.5f} ms"
+            # the kernel ran its staged path; the direct read beside it
+            with direct_read(rqs_cuda):
+                direct = device_ms(launch)
+            r.setdefault("direct_ms_by_n", {})[n] = direct
+            line += f"; direct read {direct:.5f} ms"
             if n == 131072:
                 cold = device_ms(lambda: (flush.zero_(), launch())) - flush_ms
                 r.update(cold_ms=cold, cold_bound_share=bms / cold)
@@ -1700,7 +1782,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     if 2 in phases:
-        phase_build()
+        report, estimate = phase_build()
     if 3 in phases:
         kernels = phase_kernels(gen)
     if 4 in phases:
@@ -1764,6 +1846,13 @@ def main(argv=None) -> int:
            "coupling_bwd": "realnvp_demo",
            "realnvp_train": "realnvp_train_demo"}
 
+    # K1's registers, from ptxas's report, and its static issue estimate
+    # (phase 2)
+    kernels["rqs_fwd"].update(
+        registers={k: regs for k, regs, _, _ in sorted(set(report))
+                   if k.startswith("rqs_fwd<")},
+        static_issue_estimate=estimate)
+
     def entry(k, source, r, extra):
         return {"name": k, "route": "cuda",
                 "source": f"normalizingflows_torch/csrc/{source}",
@@ -1781,7 +1870,8 @@ def main(argv=None) -> int:
         entry(k, "rqs.cu", kernels[k],
               ("ms_by_n", "plain_ms_by_n", "bound_ms_by_n",
                "bound_share_by_n", "cold_ms", "cold_bound_share",
-               "direct_ms_by_n"))
+               "direct_ms_by_n", "inverse", "registers",
+               "static_issue_estimate"))
         for k in KERNELS] + [
         entry(k, "coupling.cu", cpl[k],
               ("unfused_ms", "ms_by_n", "plain_ms_by_n", "bound_ms_by_n",

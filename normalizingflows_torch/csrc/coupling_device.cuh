@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 // dynamic shared memory of K4, K5 and K6, viewed as T words by each kernel
 extern __shared__ __align__(16) unsigned char coupling_smem[];
 
@@ -225,23 +227,6 @@ __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
     }
   }
   __syncthreads();
-}
-
-// One word of shared memory from device memory by cp.async (4 or 8 bytes,
-// through L1), or zero-filled (src-size 0: nothing is read) where !valid.
-template <typename T>
-__device__ __forceinline__ void cp_word(T* dst, const T* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// every cp.async group this thread committed has landed
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // K4: one layer's padded W (ib rows of OS words, in × o of them stored)

@@ -30,24 +30,44 @@
 // (no a*b+c contraction) the kernel rounds as that transcription does, and
 // never with --use_fast_math (approximate exp/log/division move log-dets).
 //
-// What bounds it on this card: memory. K1 reads 3K words per element (x and
-// the 3K−1 raw parameters) and writes 2 (y, ld); K2 and K3 read 3K+2 (x,
-// raw, gy, gld) and write 3K (gx, graw). Several hundred operations per
-// element (IEEE divisions, exp and log without contraction) against
-// ~130–250 bytes sits near the H100's balance point, so after the bytes
-// the instruction issue rate is the next limit.
+// What bounds it on this card: memory, then instruction issue. K1 reads
+// 3K words per element (x and the 3K−1 raw parameters) and writes 2 (y,
+// ld); K2 and K3 read 3K+2 (x, raw, gy, gld) and write 3K (gx, graw). The
+// IEEE divisions, exp, log1p and log without contraction take several
+// instructions each; chip_smoke.py phase 2 counts K1's SASS statically
+// (cuobjdump) and the time that count would take to issue (PERF.md §6).
 //
-// Design: one thread per element, 1-D grid of 256-thread blocks. K is a
-// template parameter (8 and 10, the values the repo's configs use) and
-// every loop over K is unrolled, so the K-length tables live in registers:
-// indexing a local array by the runtime bin index would spill it to local
-// memory, hence the compare-and-select. raw is read through (stride_elem,
-// stride_param), so the conditioner's native elem-major (N, 3K−1) view, a
-// padded (N, P > 3K−1) layout and the param-major (3K−1, N) layout go
-// through one kernel and no transpose is materialised. K2/K3 write gx and
-// graw through graw's own (stride_elem, stride_param) into an (N, P ≥ 3K−1)
-// buffer, the P − (3K−1) pad columns set to exact zeros; each thread owns
-// its element's row, so no atomics.
+// Design: one thread per element. K is a template parameter (8 and 10,
+// the values the repo's configs use) and every loop over K is unrolled, so
+// the K-length tables live in registers: indexing a local array by the
+// runtime bin index would spill it to local memory, hence the
+// compare-and-select. raw is read through (stride_elem, stride_param), so
+// the conditioner's native elem-major (N, 3K−1) view, a padded
+// (N, P > 3K−1) layout and the param-major (3K−1, N) layout go through one
+// kernel and no transpose is materialised. K2/K3 write gx and graw through
+// graw's own (stride_elem, stride_param) into an (N, P ≥ 3K−1) buffer, the
+// P − (3K−1) pad columns set to exact zeros; each thread owns its
+// element's row, so no atomics.
+//
+// K1's staged tile (STAGED, every elem-major raw): in the elem-major
+// layout neighbouring threads' rows are 3K−1 words apart, so a thread that
+// reads its own row touches a different 32-byte sector at every load. Each
+// CTA of kThreads instead copies its tile of kThreads rows × 3K−1 columns
+// into shared memory by cp.async, neighbouring threads on neighbouring
+// 16-byte chunks where the tile is dense and aligned (the conditioner's
+// (N, 3K−1) output: one contiguous run) and on neighbouring words
+// otherwise (padded raw, any stride); nothing in flight holds a register,
+// and x is read while the copy is in flight. After cp.async.wait_group 0
+// and a barrier each thread computes from its row there and writes y and
+// ld directly (coalesced); a thread past n reaches the barrier and stores
+// nothing. Shared row stride S = 3K−1 (odd: thread t's word j sits in bank
+// (t·S + j) mod 32). One tile a CTA, as K2/K3: a ring of two stages in a
+// grid of resident CTAs, each walking several tiles with the next one's
+// copy in flight, was slower warm than this tile on the H100 (PERF.md §6),
+// since at N = 131,072 the grid is little more than one wave.
+// Param-major raw is coalesced as it is and keeps the direct read
+// (STAGED=false). The arithmetic is that of fwd_elem on both paths, so the
+// bits are the same; the registers each is planned for are FwdMinBlocks'.
 //
 // K2/K3's staged tile (STAGED, every elem-major raw): in the elem-major
 // layout neighbouring threads' rows are 3K−1 words apart, so a thread that
@@ -74,13 +94,15 @@
 // spline's slope nears the 1e-3 floor ∂Y/∂ξ is tiny and the factor large,
 // in the Pallas tile as here.
 //
-// Left for a later PR: K1 still reads elem-major raw one row a thread
-// (about half its byte bound); the staged tile would serve it too. K2/K3's
-// copy-in, math and copy-out run in turn within a CTA, overlapped only
-// across the CTAs an SM holds.
+// Left for a later PR: K1–K3 compute all K−1 softplus derivatives and read
+// two (d_k, d_k1); K1 at the demo's N = 64 is one thread's dependent
+// chain; K2/K3's copy-in, math and copy-out run in turn within a CTA,
+// overlapped only across the CTAs an SM holds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -198,21 +220,19 @@ __device__ __forceinline__ void load_bin(const T* __restrict__ raw,
   }
 }
 
-// K1: forward (INVERSE=false) or inverse (INVERSE=true) spline, per element.
+// K1's element: the forward (INVERSE=false) or inverse (INVERSE=true) spline
+// of xv by raw row r, read through (se, sp); the value into yv, the
+// log-derivative into lv.
 template <typename T, int K, bool INVERSE>
-__global__ void __launch_bounds__(kThreads)
-rqs_fwd(const T* __restrict__ x, const T* __restrict__ raw,
-        T* __restrict__ y, T* __restrict__ ld, int64_t n, int64_t se,
-        int64_t sp, double B) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const T xv = x[i];
+__device__ __forceinline__ void fwd_elem(const T* raw, int64_t se, int64_t sp,
+                                         int64_t r, T xv, double B, T& yv,
+                                         T& lv) {
   const T Bc = T(B);
   const bool inside = (xv >= -Bc) && (xv <= Bc);
   const T v = minv(maxv(xv, -Bc), Bc);
 
   Bin<T, K> bn;
-  load_bin<T, K, INVERSE>(raw, se, sp, i, B, v, bn);
+  load_bin<T, K, INVERSE>(raw, se, sp, r, B, v, bn);
 
   const T tiny = T(1e-6 * 2.0 * B);
   const T w = maxv(bn.x_k1 - bn.x_k, tiny);
@@ -244,8 +264,8 @@ rqs_fwd(const T* __restrict__ x, const T* __restrict__ raw,
     out = bn.x_k + xi * w;
     l = -l;
   }
-  y[i] = inside ? out : xv;
-  ld[i] = inside ? l : T(0);
+  yv = inside ? out : xv;
+  lv = inside ? l : T(0);
 }
 
 // softmax/cumsum reverse of one knot grid (`table_to_raw` in the Pallas
@@ -512,7 +532,7 @@ __device__ __forceinline__ void copy_dense(const T* src, T* dst, int count) {
     dst[e] = src[e];
 }
 
-// K2/K3's staged tile, viewed as T words of row stride BwdArgs::stride
+// The staged tiles (K1's, K2/K3's), viewed as T words
 extern __shared__ __align__(16) unsigned char rqs_smem[];
 
 template <typename T>
@@ -591,30 +611,94 @@ rqs_bwd_invdir(const BwdArgs<T> a) {
   bwd_tile<T, K, true, STAGED>(a);
 }
 
-inline unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+template <typename T>
+struct FwdArgs {
+  const T* x;
+  const T* raw;
+  T* y;
+  T* ld;
+  int64_t n, se, sp;
+  double B;
+  int stride;  // the staged tile's shared row stride S: odd, ≥ 3K−1
+  bool vec;    // raw's tile dense (sp = 1, se = S = 3K−1), 16-byte aligned
+};
+
+// K1's staged tile (the CTA's kThreads rows × 3K−1 columns of raw) into
+// `tile` by cp.async, committed as one group and not waited for. Where the
+// tile is dense and aligned it is one contiguous run, copied as 16-byte
+// chunks (the last words of a ragged tile one by one); otherwise word by
+// word over the tile's linear index, as copy_tile walks it. Neighbouring
+// threads take neighbouring chunks or words, so the loads coalesce, and
+// nothing in flight holds a register.
+template <typename T, int P>
+__device__ __forceinline__ void stage_fwd_tile(const FwdArgs<T>& a,
+                                               T* tile) {
+  const int64_t i0 = (int64_t)blockIdx.x * kThreads;
+  const int nr = (int)minv<int64_t>(kThreads, a.n - i0);
+  const T* src = a.raw + i0 * a.se;
+  if (a.vec) {
+    constexpr int kWords = 16 / sizeof(T);
+    const int count = nr * P, nv = count / kWords;
+    for (int c = threadIdx.x; c < nv; c += kThreads)
+      cp_chunk(tile + c * kWords, src + c * kWords);
+    for (int e = nv * kWords + threadIdx.x; e < count; e += kThreads)
+      cp_word(tile + e, src + e);
+  } else {
+    int r = threadIdx.x / P, c = threadIdx.x % P;
+    constexpr int dr = kThreads / P, dc = kThreads % P;
+    while (r < nr) {
+      cp_word(tile + r * a.stride + c, src + r * a.se + c * a.sp);
+      r += dr;
+      c += dc;
+      if (c >= P) {
+        c -= P;
+        ++r;
+      }
+    }
+  }
+  cp_commit();
 }
 
+// The CTAs of 256 threads an SM that ptxas plans K1's registers for: f32 3
+// (at most 80 registers a thread; the staged K=10 takes 71, more than the
+// 64 of 4), f64 1 (planned for 2, at most 128, the staged K=10 spilled).
 template <typename T>
-int launch_fwd(const void* x, const void* raw, void* y, void* ld, int64_t n,
-               int64_t se, int64_t sp, int K, double B, int inverse,
-               void* stream) {
-  if (n <= 0) return 0;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto xp = static_cast<const T*>(x);
-  const auto rp = static_cast<const T*>(raw);
-  const auto yp = static_cast<T*>(y);
-  const auto lp = static_cast<T*>(ld);
-  const unsigned g = blocks_for(n);
-#define RQS_FWD(KK, INV) \
-  rqs_fwd<T, KK, INV><<<g, kThreads, 0, st>>>(xp, rp, yp, lp, n, se, sp, B)
-  if (K == 8 && !inverse) RQS_FWD(8, false);
-  else if (K == 8 && inverse) RQS_FWD(8, true);
-  else if (K == 10 && !inverse) RQS_FWD(10, false);
-  else if (K == 10 && inverse) RQS_FWD(10, true);
-  else return (int)cudaErrorInvalidValue;
-#undef RQS_FWD
-  return (int)cudaGetLastError();
+struct FwdMinBlocks {
+  static constexpr int value = sizeof(T) == 4 ? 3 : 1;
+};
+
+// K1: forward (INVERSE=false) or inverse spline, one CTA of kThreads a
+// tile. STAGED (elem-major raw): the tile's raw is copied into shared
+// memory by cp.async while x is read, then each thread computes from its
+// row there; a thread past n reaches the barrier and stores nothing.
+// Otherwise (param-major raw, coalesced as it is) each thread reads its
+// row directly. y and ld are written directly (coalesced).
+template <typename T, int K, bool INVERSE, bool STAGED>
+__global__ void __launch_bounds__(kThreads, FwdMinBlocks<T>::value)
+rqs_fwd(const FwdArgs<T> a) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < a.n;
+  T yv, lv;
+  if constexpr (STAGED) {
+    T* tile = reinterpret_cast<T*>(rqs_smem);
+    stage_fwd_tile<T, 3 * K - 1>(a, tile);
+    const T xv = live ? a.x[i] : T(0);  // in flight during the copy
+    cp_wait_all();
+    __syncthreads();  // every thread's words of the tile
+    if (!live) return;
+    fwd_elem<T, K, INVERSE>(tile, a.stride, 1, threadIdx.x, xv, a.B, yv, lv);
+  } else {
+    if (!live) return;
+    fwd_elem<T, K, INVERSE>(a.raw, a.se, a.sp, i, a.x[i], a.B, yv, lv);
+  }
+  a.y[i] = yv;
+  a.ld[i] = lv;
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+inline unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
 // Raise a kernel's dynamic shared-memory cap to `bytes` past the default
@@ -631,6 +715,47 @@ int allow_smem(const void* kernel, size_t bytes) {
 }
 
 template <typename T, int K, bool INVERSE, bool STAGED>
+int launch_fwd_tile(const FwdArgs<T>& a, cudaStream_t st) {
+  const auto kernel = &rqs_fwd<T, K, INVERSE, STAGED>;
+  const size_t smem = STAGED ? (size_t)kThreads * a.stride * sizeof(T) : 0;
+  const int err = allow_smem((const void*)kernel, smem);
+  if (err) return err;
+  kernel<<<blocks_for(a.n), kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* raw, void* y, void* ld, int64_t n,
+               int64_t se, int64_t sp, int staged, int stride, int K,
+               double B, int inverse, void* stream) {
+  if (staged && (stride < 3 * K - 1 || stride % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  FwdArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.raw = static_cast<const T*>(raw);
+  a.y = static_cast<T*>(y);
+  a.ld = static_cast<T*>(ld);
+  a.n = n;
+  a.se = se;
+  a.sp = sp;
+  a.B = B;
+  a.stride = stride;
+  a.vec = staged && sp == 1 && se == 3 * K - 1 && stride == se &&
+          aligned16(raw);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define RQS_FWD(KK, INV)                                          \
+  return staged ? launch_fwd_tile<T, KK, INV, true>(a, st)        \
+                : launch_fwd_tile<T, KK, INV, false>(a, st)
+  if (K == 8 && !inverse) RQS_FWD(8, false);
+  if (K == 8) RQS_FWD(8, true);
+  if (K == 10 && !inverse) RQS_FWD(10, false);
+  if (K == 10) RQS_FWD(10, true);
+#undef RQS_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int K, bool INVERSE, bool STAGED>
 int launch_bwd_tile(const BwdArgs<T>& a, cudaStream_t st) {
   void (*kernel)(BwdArgs<T>) = INVERSE ? &rqs_bwd_invdir<T, K, STAGED>
                                        : &rqs_bwd_fwddir<T, K, STAGED>;
@@ -640,8 +765,6 @@ int launch_bwd_tile(const BwdArgs<T>& a, cudaStream_t st) {
   kernel<<<blocks_for(a.n), kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
-
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename T, bool INVERSE>
 int launch_bwd(const void* x, const void* raw, const void* gy,
@@ -688,27 +811,30 @@ int launch_bwd(const void* x, const void* raw, const void* gy,
 // pointers of contiguous x/y/ld/gy/gld/gx; raw element (i, p) is
 // raw[i*stride_elem + p*stride_param], and graw element (i, p) for p <
 // graw_cols is graw[i*graw_stride_elem + p*graw_stride_param] (columns
-// 3K−1 and up are written as zeros). K2/K3 take the wrapper's plan
-// (ops/rqs_cuda.py `bwd_plan`): staged (1) or direct (0), tile_rows (the
-// CTA's threads, 256) and the staged tile's shared row stride (odd, ≥
-// graw_cols); a plan the kernels do not take is an error. The launch goes
-// to the calling thread's current device, which the wrapper sets to the
+// 3K−1 and up are written as zeros). Each kernel takes the wrapper's plan
+// (ops/rqs_cuda.py `fwd_plan`, `bwd_plan`): staged (1) or direct (0) and
+// the staged tile's shared row stride (odd, ≥ 3K−1 for K1, ≥ graw_cols
+// for K2/K3); K2/K3 also tile_rows, the CTA's threads (256). A plan the
+// kernels do not take is an error before any launch. The launch goes to
+// the calling thread's current device, which the wrapper sets to the
 // tensors' device. Each entry returns the launch's cudaGetLastError() (0
 // on success).
 extern "C" {
 
 int rqs_fwd_f32(const void* x, const void* raw, void* y, void* ld,
                 long long n, long long stride_elem, long long stride_param,
-                int K, double B, int inverse, void* stream) {
-  return launch_fwd<float>(x, raw, y, ld, n, stride_elem, stride_param, K, B,
-                           inverse, stream);
+                int staged, int smem_stride, int K, double B, int inverse,
+                void* stream) {
+  return launch_fwd<float>(x, raw, y, ld, n, stride_elem, stride_param,
+                           staged, smem_stride, K, B, inverse, stream);
 }
 
 int rqs_fwd_f64(const void* x, const void* raw, void* y, void* ld,
                 long long n, long long stride_elem, long long stride_param,
-                int K, double B, int inverse, void* stream) {
-  return launch_fwd<double>(x, raw, y, ld, n, stride_elem, stride_param, K,
-                            B, inverse, stream);
+                int staged, int smem_stride, int K, double B, int inverse,
+                void* stream) {
+  return launch_fwd<double>(x, raw, y, ld, n, stride_elem, stride_param,
+                            staged, smem_stride, K, B, inverse, stream);
 }
 
 int rqs_bwd_fwddir_f32(const void* x, const void* raw, const void* gy,

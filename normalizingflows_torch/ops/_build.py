@@ -43,7 +43,8 @@ _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 # entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu,
 # csrc/coupling.cu and csrc/train.cu); int and double arrays and pointer
 # tables go in as ctypes arrays
-_FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _F64, _I32, _P]
+_FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _F64, _I32,
+             _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
              _I32, _I32, _I32, _I32, _F64, _P]
 _CPL_FWD_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _I32,

@@ -21,9 +21,11 @@ failure, a launch error, or a K or dtype the kernels do not take raises.
 ``FWD_LAUNCHES``, ``BWD_LAUNCHES`` and ``BWD_INV_LAUNCHES`` count K1, K2 and
 K3 launches.
 
-K2/K3 stage an elem-major raw tile and its graw tile through shared memory,
-so that their device-memory loads and stores coalesce; `bwd_plan` decides
-the path and the tile's shared row stride, which the C entry takes.
+Every kernel stages elem-major raw through shared memory, one tile a CTA,
+so that its device-memory loads coalesce: K1 copies its tile in by
+``cp.async``; K2/K3 also copy their graw tile out of it. Param-major raw is
+read directly. `fwd_plan` and `bwd_plan` decide the path and the tile's
+shared row stride, which the C entries take.
 
 The JAX module's layout entries all reach the same three kernels through
 raw's strides, with no transpose and no copy of raw: `rqs_fused` (raw
@@ -45,7 +47,8 @@ from . import rqs as _oracle
 __all__ = [
     "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_forward",
     "rqs_fused_inverse", "tile_transform", "tile_bwd_analytic",
-    "tile_bwd_analytic_inverse", "bwd_plan", "BwdPlan", "KERNEL_K",
+    "tile_bwd_analytic_inverse", "fwd_plan", "FwdPlan", "bwd_plan",
+    "BwdPlan", "KERNEL_K",
     "FWD_LAUNCHES", "BWD_LAUNCHES", "BWD_INV_LAUNCHES",
 ]
 
@@ -53,8 +56,9 @@ __all__ = [
 KERNEL_K = (8, 10)
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 BACKENDS = ("auto", "plain", "cuda")
-# K2/K3: the CTA's threads, one an element (kThreads in csrc/rqs.cu), and
-# the dynamic shared memory a block may opt into
+# K1, K2 and K3: the CTA's threads and a staged tile's rows, one thread an
+# element (kThreads in csrc/rqs.cu), and the dynamic shared memory a block
+# may opt into
 BWD_ROWS = 256
 KERNEL_MAX_SMEM = 227 * 1024
 
@@ -356,8 +360,38 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+class FwdPlan(NamedTuple):
+    """How K1 runs: ``staged`` through a shared-memory tile of
+    ``BWD_ROWS`` elements whose rows are ``stride`` words apart (``bytes``
+    of dynamic shared memory), or direct (``stride`` and ``bytes`` 0)."""
+    staged: bool
+    stride: int
+    bytes: int
+
+
+def fwd_plan(stride_elem: int, K: int, word: int) -> FwdPlan:
+    """K1's plan for raw's stride between elements, K and ``word``-byte
+    words. Param-major raw (stride_elem 1) is coalesced as it is and runs
+    direct; every elem-major raw (the conditioner's dense (N, 3K−1) view,
+    padded, any row stride) is staged: its 3K−1 columns copied into a tile
+    whose shared row stride is odd and ≥ 3K−1, so a warp's rows fall in
+    distinct banks. Raises ValueError where the tile would need more than
+    ``KERNEL_MAX_SMEM``."""
+    if stride_elem == 1:
+        return FwdPlan(False, 0, 0)
+    stride = (3 * K - 1) | 1
+    need = BWD_ROWS * stride * word
+    if need > KERNEL_MAX_SMEM:
+        raise ValueError(
+            f"K1's staged tile needs {need} bytes of shared memory for "
+            f"{BWD_ROWS} rows of {stride} {word}-byte words, over the "
+            f"{KERNEL_MAX_SMEM} a block may use")
+    return FwdPlan(True, stride, need)
+
+
 def _launch_fwd(x, raw, B, K, inverse):
-    """K1 on x (N,) and raw (N, P ≥ 3K−1) read through its strides."""
+    """K1 on x (N,) and raw (N, P ≥ 3K−1) read through its strides, as
+    `fwd_plan` says."""
     global FWD_LAUNCHES
     from ._build import library
 
@@ -365,12 +399,14 @@ def _launch_fwd(x, raw, B, K, inverse):
     y, ld = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return y, ld
+    plan = fwd_plan(raw.stride(0), K, x.element_size())
     # the C entry launches on the current device: make it x's for the call
     # and restore the caller's after
     with torch.cuda.device(x.device):
         err = getattr(library(), f"rqs_fwd_{sfx}")(
             x.data_ptr(), raw.data_ptr(), y.data_ptr(), ld.data_ptr(),
-            x.numel(), raw.stride(0), raw.stride(1), K, B, int(inverse),
+            x.numel(), raw.stride(0), raw.stride(1), int(plan.staged),
+            plan.stride, K, B, int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "rqs_fwd")
     FWD_LAUNCHES += 1

@@ -15,6 +15,7 @@ Tolerances:
 * plain paths within the port that take the same operations: exact.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -266,6 +267,13 @@ def test_ctypes_argtypes_match_the_c_entries():
     assert set(sigs) == set(_build.ENTRIES)
     for name, params in sigs.items():
         assert len(params.split(",")) == len(_build.ENTRIES[name]), name
+    # K1 takes its plan, staged and the shared row stride, between raw's
+    # strides and K
+    P_, I64, I32, F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_double)
+    for sfx in ("f32", "f64"):
+        assert _build.ENTRIES[f"rqs_fwd_{sfx}"] == [
+            P_, P_, P_, P_, I64, I64, I64, I32, I32, I32, F64, I32, P_]
     for name in ("rqs.cu", "coupling.cu"):
         assert Path(_build.CSRC, name) in _build._sources()
     assert "--fmad=false" in _build.SOURCE_FLAGS["rqs.cu"]
@@ -320,7 +328,67 @@ def test_bwd_rows_match_the_kernel():
     assert int(threads) == rqs_cuda.BWD_ROWS
 
 
-def _fake_bwd_entries(monkeypatch):
+# K1's launch plan (`fwd_plan`) and what `_launch_fwd` hands the C entry
+
+@pytest.mark.parametrize("pad", [0, 3])
+@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_fwd_plan_stages_elem_major_raw(dt, K, pad):
+    """Elem-major raw (the conditioner's (N, 3K−1) view, or padded to 3K+2
+    columns) goes through the staged tile: an odd shared row stride of
+    3K−1 (29 at K=10, 23 at K=8: no bank conflicts), one tile of BWD_ROWS
+    rows, within the bytes a block may use."""
+    plan = rqs_cuda.fwd_plan(3 * K - 1 + pad, K, WORD[dt])
+    assert plan.staged
+    assert plan.stride % 2 == 1 and plan.stride == 3 * K - 1
+    assert plan.bytes == rqs_cuda.BWD_ROWS * plan.stride * WORD[dt]
+    assert plan.bytes <= rqs_cuda.KERNEL_MAX_SMEM
+
+
+@pytest.mark.parametrize("stride_elem", [2, 64, 1000])
+def test_fwd_plan_stages_any_row_stride(stride_elem):
+    """A row stride other than 3K−1 or its padding (a strided view) is
+    staged too: the tile copies raw's 3K−1 columns whatever its stride."""
+    plan = rqs_cuda.fwd_plan(stride_elem, 10, 4)
+    assert plan == rqs_cuda.FwdPlan(True, 29, 256 * 29 * 4)
+
+
+@pytest.mark.parametrize("K", [8, 10])
+def test_fwd_plan_reads_param_major_raw_directly(K):
+    """Param-major raw (stride 1 between elements) is coalesced as it is:
+    the direct read, no shared memory, at either word size."""
+    for word in (4, 8):
+        assert rqs_cuda.fwd_plan(1, K, word) == rqs_cuda.FwdPlan(False, 0, 0)
+
+
+@pytest.mark.parametrize("dt,widest", [("f32", 76), ("f64", 38)])
+def test_fwd_plan_refuses_a_row_past_the_shared_memory_cap(dt, widest):
+    """The widest row whose 256-row tile fits 227 KB (K=76: 227 words in
+    f32; K=38: 113 in f64) is planned; the next K raises a ValueError that
+    names the cap, before any launch."""
+    plan = rqs_cuda.fwd_plan(3 * widest - 1, widest, WORD[dt])
+    assert plan.staged and plan.bytes <= rqs_cuda.KERNEL_MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        rqs_cuda.fwd_plan(3 * widest + 2, widest + 1, WORD[dt])
+
+
+def test_fwd_plan_is_one_the_kernel_takes():
+    """K1's tile is one CTA of kThreads rows, as K2/K3's (BWD_ROWS), and
+    the C launch refuses a staged stride that is even or short of 3K−1,
+    as `fwd_plan` never gives."""
+    src = Path(_build.CSRC, "rqs.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);",
+                            src).group(1))
+    assert rqs_cuda.BWD_ROWS == threads
+    assert ("if (staged && (stride < 3 * K - 1 || stride % 2 == 0))"
+            in src)
+    for K in (8, 10):
+        for word in (4, 8):
+            s = rqs_cuda.fwd_plan(3 * K - 1, K, word).stride
+            assert s % 2 == 1 and s >= 3 * K - 1
+
+
+def _fake_entries(monkeypatch):
     """The C entries replaced by one that records its arguments; the
     device and stream calls made harmless for CPU tensors."""
     import contextlib
@@ -335,7 +403,7 @@ def _fake_bwd_entries(monkeypatch):
         return fn
 
     monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(**{
-        f"{k}_{s}": entry(f"{k}_{s}") for k in ("rqs_bwd_fwddir",
+        f"{k}_{s}": entry(f"{k}_{s}") for k in ("rqs_fwd", "rqs_bwd_fwddir",
                                                 "rqs_bwd_invdir")
         for s in ("f32", "f64")}))
     # the device checks want CUDA tensors (test_backend_errors covers them)
@@ -345,9 +413,54 @@ def _fake_bwd_entries(monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(rqs_cuda, "FWD_LAUNCHES", 0)
     monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
     monkeypatch.setattr(rqs_cuda, "BWD_INV_LAUNCHES", 0)
     return calls
+
+
+def _raw_layout(layout, n, P):
+    return {"dense": lambda: torch.zeros(n, P),
+            "conditioner": lambda: torch.zeros(n // 32, 32 * P).view(n, P),
+            "padded": lambda: torch.zeros(n, P + 3),
+            "param-major": lambda: torch.zeros(P, n).T}[layout]()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("layout,staged", [
+    ("dense", True), ("conditioner", True), ("padded", True),
+    ("param-major", False)])
+def test_launch_fwd_hands_the_entry_its_plan(layout, staged, inverse,
+                                             monkeypatch):
+    """For each layout of raw, K1's entry gets raw's strides and the plan:
+    the staged tile (shared row stride 29) for elem-major raw (dense, the
+    conditioner's (batch, n_t·(3K−1)) output viewed per element, padded to
+    3K+2), the direct read for param-major; one launch counted."""
+    calls = _fake_entries(monkeypatch)
+    K, n, P = 10, 96, 29
+    x = torch.zeros(n, dtype=torch.float32)
+    raw = _raw_layout(layout, n, P)
+    y, ld = rqs_cuda._launch_fwd(x, raw, B, K, inverse)
+    (name, xp, rp, yp, ldp, n_, se, sp, st, s, k, b, inv, stream), = calls
+    assert name == "rqs_fwd_f32"
+    assert (xp, rp, yp, ldp) == (x.data_ptr(), raw.data_ptr(), y.data_ptr(),
+                                 ld.data_ptr())
+    assert (n_, se, sp) == (n, *raw.stride())
+    assert (st, s) == ((1, 29) if staged else (0, 0))
+    assert (k, b, inv, stream) == (K, B, int(inverse), 0)
+    assert rqs_cuda.FWD_LAUNCHES == 1
+
+
+def test_launch_fwd_refuses_a_bad_plan_before_launching(monkeypatch):
+    """A staged tile too large for a block's shared memory raises before
+    the entry is called, and counts no launch."""
+    calls = _fake_entries(monkeypatch)
+    monkeypatch.setattr(rqs_cuda, "BWD_ROWS", 4096)
+    x = torch.zeros(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        rqs_cuda._launch_fwd(x, torch.zeros(8, 29, dtype=torch.float64), B,
+                             10, False)
+    assert calls == [] and rqs_cuda.FWD_LAUNCHES == 0
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -360,7 +473,7 @@ def test_launch_bwd_hands_the_entry_its_plan(layout, staged, stride, inverse,
     graw's columns and the plan: staged with the odd stride for elem-major
     raw (dense, the conditioner's (batch, n_t·(3K−1)) output viewed per
     element, padded to 3K+2), direct for param-major."""
-    calls = _fake_bwd_entries(monkeypatch)
+    calls = _fake_entries(monkeypatch)
     K, n, P = 10, 96, 29
     x = torch.zeros(n, dtype=torch.float32)
     raw = {"dense": lambda: torch.zeros(n, P),
@@ -384,7 +497,7 @@ def test_launch_bwd_hands_the_entry_its_plan(layout, staged, stride, inverse,
 def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
     """A padded raw too wide for the staged tile raises before the entry
     is called, and counts no launch."""
-    calls = _fake_bwd_entries(monkeypatch)
+    calls = _fake_entries(monkeypatch)
     x = torch.zeros(8, dtype=torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
         rqs_cuda._launch_bwd(x, torch.zeros(8, 200, dtype=torch.float64),
@@ -399,18 +512,61 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
      "rqs_bwd_invdir<f64, K=8, direct>"),
     ("_ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb1EEEvPKT_S3_PS1_S4_llld",
      "rqs_fwd<f32, K=10, inv>"),
+    ("_ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb0ELb1EEEvNS_7FwdArgsIT_EE",
+     "rqs_fwd<f32, K=10, fwd, staged>"),
+    ("_ZN12_GLOBAL__N_17rqs_fwdIdLi8ELb1ELb0EEEvNS_7FwdArgsIT_EE",
+     "rqs_fwd<f64, K=8, inv, direct>"),
 ])
 def test_chip_smoke_names_rqs_kernels_in_the_ptxas_report(mangled, name):
     """chip_smoke.py's register report reads K2/K3's bool as STAGED and
-    K1's as INVERSE, with registers and spill bytes."""
+    K1's as INVERSE, then STAGED, with registers and spill bytes."""
+    cs = _chip_smoke()
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           f"'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, 4 "
+           f"bytes spill loads\nptxas info    : Used 80 registers, used 1 "
+           f"barriers\n")
+    assert cs.ptxas_report(log) == [(name, 80, 8, 4)]
+
+
+def _chip_smoke():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
-           f"'sm_90a'\n    0 bytes stack frame, 8 bytes spill stores, 4 "
-           f"bytes spill loads\nptxas info    : Used 80 registers, used 1 "
-           f"barriers\n")
-    assert cs.ptxas_report(log) == [(name, 80, 8, 4)]
+    return cs
+
+
+def test_chip_smoke_counts_k1_sass_statically():
+    """K1's static issue estimate counts the SASS instructions of its
+    float32 K=10 forward staged function as cuobjdump -sass prints them,
+    each once: from the function's start to its last EXIT, predicated ones
+    too, NOPs and encodings not; the slow-path subroutines after the last
+    EXIT apart, and no instruction of another function."""
+    cs = _chip_smoke()
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi8ELb0ELb1EEEvNS_7FwdArgsIT_EE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x0 */
+        /*0010*/                   EXIT ;                          /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb0ELb1EEEvNS_7FwdArgsIT_EE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x0 */
+                                                                   /* 0x0 */
+        /*0010*/                   S2R R0, SR_TID.X ;              /* 0x0 */
+        /*0020*/                   LDGSTS.E [R9], desc[UR10][R6.64] ;
+        /*0030*/               @P1 BRA 0x20 ;                      /* 0x0 */
+        /*0040*/                   NOP ;                           /* 0x0 */
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;   /* 0x0 */
+        /*0060*/              @!P0 EXIT ;                          /* 0x0 */
+        /*0070*/                   FADD R2, R2, R0 ;               /* 0x0 */
+        /*0080*/                   CALL.REL.NOINC 0xc0 ;           /* 0x0 */
+        /*0090*/                   EXIT ;                          /* 0x0 */
+        /*00a0*/                   MUFU.RCP R3, R2 ;               /* 0x0 */
+        /*00b0*/                   @P2 BRA 0xa0 ;                  /* 0x0 */
+        /*00c0*/                   RET.REL.NODEC R4 0x0 ;          /* 0x0 */
+        /*00d0*/                   BRA 0xd0;                       /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb1ELb1EEEvNS_7FwdArgsIT_EE
+        /*0000*/                   EXIT ;                          /* 0x0 */
+"""
+    assert cs.sass_counts(sass, cs.K1_SASS) == (13, 9)
+    assert cs.sass_counts(sass, "no_such_kernel") is None
