@@ -9,7 +9,11 @@ from ``normalizingflows_torch/csrc`` and drives the port's paths through
 them: reverse-KL ELBO training of the
 neural spline flow (K1 forward, K2), its density path, maximum-likelihood
 training through `log_prob` (K1 inverse, K3), and RealNVP (K4, K5, from
-phase 12 on):
+phase 12 on). The trainers run their step from a CUDA graph on the card
+by default; phases 5, 6, 10, 11, 14, 16 and 17 pass ``graph=False`` and
+drive the eager loop, phases 22-25 the graph. Launch counts come from
+`normalizingflows_torch/ops/launches.py`, which counts a trainer's graph
+at each replay:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of csrc/*.cu, one process per source, its seconds and
@@ -102,6 +106,36 @@ of the fused stack a launch):
 21. the yardstick: one eager K4/K5 train step of the demo (base draws,
     forward, ELBO, backward, Adam(capturable=True)) captured in a CUDA
     graph and replayed 1,000 times: steps/s and device time a step.
+
+Then the trainers' default on the card, the step captured once in a CUDA
+graph and replayed (`train.py`), each cell graphed and then eagerly in the
+same call (steps/s after the first chunk and overall, peak memory, launch
+counts by replay, one capture):
+
+22. `train_flow`: the NSF demo (phase 5's recipe, 300 steps) and wide
+    (phase 6's shape, 40 steps in chunks of 20), K1 and K2 20 a step;
+    graphed against eager on the same presampled draws (50 steps in
+    chunks of 20, 20 and 10, both Adam(capturable=True)): per-step losses
+    and final parameters within GRAPH_TOL, and whether the bits agree;
+    the caller's generator draws anew at every replay (10 steps, 10
+    distinct draws); a launch refused inside the capture raises, naming
+    graph=False;
+23. `train_flow_mle`: phase 10's recipe (300 steps; the held-out
+    log-likelihood must rise) and phase 11's (40 steps), K1 and K3 20 a
+    step; graphed against eager on the same batches;
+24. `train_flow` on the fused RealNVP: the demo (1,000 steps) and the
+    reference default (batch 256, 50 steps), one K4 and one K5 a step;
+    graphed against eager on the same draws (100 steps); the draws differ
+    between replays; steps/s beside phases 21 and 20;
+25. `train_flow_annealed`: the NSF demo, β = 1/4, 2/4, 3/4 for 100 steps
+    each and β = 1 for 200, one capture for all segments, the β column
+    and K1/K2 20 a step; then graphed against eager on the same draws
+    (20 steps a segment, β filled in place);
+26. the graphed steps of the NSF demo and wide, the MLE demo and wide and
+    the fused RealNVP demo and reference default under torch.profiler,
+    over a chunk of replays: kernels a step, device busy time a step, the
+    idle share, device time by category (last: a profiler run slows
+    the host after it).
 
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
@@ -217,7 +251,17 @@ ROUND_TRIP_TOL = (1e-3, 1e-2)
 # |Δ|/(|loss| + 1) 5e-5).
 TRAIN_TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-8, 1e-12)}
 FIRST_LOSS_REL, TRAJECTORY_REL = 1e-6, 5e-5
-ALL_PHASES = tuple(range(1, 22))
+# phases 22-25: the trainers' CUDA graph. Graphed and eager runs on the same
+# inputs, both with Adam(capturable=True), must agree per step and in the
+# final parameters within GRAPH_TOL (the same kernels in the same order
+# should give identical bits, which is printed); SAME_STEPS of them in
+# chunks of SAME_CHECK (20, 20, 10: a short last chunk); DRAW_STEPS steps
+# whose base draws must all differ; annealing: ANNEAL_BETAS segments of
+# ANNEAL_ITERS steps, the last twice as long
+GRAPH_TOL = (1e-5, 1e-6)
+SAME_STEPS, SAME_CHECK, DRAW_STEPS = 50, 20, 10
+ANNEAL_BETAS, ANNEAL_ITERS = 4, 100
+ALL_PHASES = tuple(range(1, 27))
 
 
 def parse_phases(text: str) -> tuple:
@@ -313,35 +357,26 @@ def bound_ms(kernel: str, n: int, K: int, word_bytes: int):
                                        else "operations")
 
 
-def launch_counts(rqs_cuda) -> dict:
-    return {"rqs_fwd": rqs_cuda.FWD_LAUNCHES,
-            "rqs_bwd_fwddir": rqs_cuda.BWD_LAUNCHES,
-            "rqs_bwd_invdir": rqs_cuda.BWD_INV_LAUNCHES}
+def rqs_counts() -> tuple:
+    """(K1, K2, K3) launches since the last reset."""
+    return tuple(all_counts()[k] for k in KERNELS)
 
 
 def all_counts() -> dict:
-    """Every kernel's launch count: the RQS, the coupling and the training
-    ones."""
-    from normalizingflows_torch.experimental import coupling_cuda as cc
-    from normalizingflows_torch.experimental import train_cuda as tc
-    from normalizingflows_torch.ops import rqs_cuda
+    """Every kernel's launch count (`ops/launches.py`): the RQS, the
+    coupling and the training ones. A graph made by `train_flow` or
+    `train_flow_mle` counts its kernels at each replay; one captured here
+    by `torch.cuda.graph` counts them at its capture."""
+    from normalizingflows_torch.ops import launches
 
-    return {**launch_counts(rqs_cuda),
-            "coupling_fwd": cc.COUPLING_FWD_LAUNCHES,
-            "coupling_bwd": cc.COUPLING_BWD_LAUNCHES,
-            "realnvp_train": tc.TRAIN_LAUNCHES}
+    return launches.counts()
 
 
 def reset_counts():
-    """Every kernel's launch count to 0."""
-    from normalizingflows_torch.experimental import coupling_cuda as cc
-    from normalizingflows_torch.experimental import train_cuda as tc
-    from normalizingflows_torch.ops import rqs_cuda
+    """Every kernel's launch count, and the graphs captured, to 0."""
+    from normalizingflows_torch.ops import launches
 
-    rqs_cuda.FWD_LAUNCHES = rqs_cuda.BWD_LAUNCHES = 0
-    rqs_cuda.BWD_INV_LAUNCHES = 0
-    cc.COUPLING_FWD_LAUNCHES = cc.COUPLING_BWD_LAUNCHES = 0
-    tc.TRAIN_LAUNCHES = 0
+    launches.reset()
 
 
 def expect_counts(label: str, **want):
@@ -758,8 +793,6 @@ def _both_backends(phase, flow_c, objective, want):
     """One value-and-grad of ``objective(flow)`` on the "cuda" flow and on
     its copy with backend "plain": same value and gradients within
     STEP_TOL, and the launch counts (K1, K2, K3) ``want`` and none."""
-    from normalizingflows_torch.ops import rqs_cuda
-
     flow_p = copy.deepcopy(flow_c)
     flow_p.bijector.bijectors[0].backend = "plain"
     out = {}
@@ -768,7 +801,7 @@ def _both_backends(phase, flow_c, objective, want):
         loss = -objective(flow)
         loss.backward()
         torch.cuda.synchronize()
-        launched = tuple(launch_counts(rqs_cuda).values())
+        launched = rqs_counts()
         expected = want if label == "cuda" else (0, 0, 0)
         if launched != expected:
             raise AssertionError(f"{label} backend launched (K1, K2, K3) "
@@ -804,9 +837,8 @@ def phase_same_step(gen):
 
 
 def phase_main_path(gen, name):
-    """train_flow on the demo slice: the port's main path."""
+    """train_flow on the demo slice, eagerly (graph=False)."""
     import normalizingflows_torch as nft
-    from normalizingflows_torch.ops import rqs_cuda
 
     flow = _demo_flow()
     target = nft.Banana(2, 1.0, 100.0)
@@ -821,7 +853,7 @@ def phase_main_path(gen, name):
     res = nft.train_flow(
         gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
         max_iters=DEMO_STEPS, check_every=100, callback=callback,
-        optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR))
+        optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR), graph=False)
     t1 = time.perf_counter()
     launches = all_counts()
 
@@ -852,11 +884,11 @@ def phase_main_path(gen, name):
 
 def phase_wide(gen, name):
     import normalizingflows_torch as nft
-    from normalizingflows_torch.ops import rqs_cuda
 
     flow = nft.nsf(torch.Generator().manual_seed(3), **WIDE)
     target = nft.Banana(64, 1.0, 100.0)
-    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR))
+    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR),
+              graph=False)
     warm = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob,
                           WIDE_BATCH, max_iters=2, **kw)
     torch.cuda.synchronize()
@@ -872,8 +904,7 @@ def phase_wide(gen, name):
     losses = res.stats["loss"]
     if not torch.isfinite(torch.from_numpy(losses)).all():
         raise AssertionError("wide training gave non-finite losses")
-    if tuple(launch_counts(rqs_cuda).values()) != (
-            20 * WIDE_STEPS, 20 * WIDE_STEPS, 0):
+    if rqs_counts() != (20 * WIDE_STEPS, 20 * WIDE_STEPS, 0):
         raise AssertionError("wide training did not launch K1 and K2 20x "
                              "each per step and K3 never")
     say(6, f"wide f32 d=64 [128,128]x10 K=10 batch {WIDE_BATCH}: "
@@ -926,9 +957,9 @@ def _mle_data(gen, dim):
 
 
 def phase_mle(gen, name):
-    """train_flow_mle on the MLE demo: the density path."""
+    """train_flow_mle on the MLE demo: the density path, eagerly
+    (graph=False)."""
     import normalizingflows_torch as nft
-    from normalizingflows_torch.ops import rqs_cuda
 
     target, train, held = _mle_data(gen, 2)
     flow = _demo_flow()
@@ -947,7 +978,7 @@ def phase_mle(gen, name):
     res = nft.train_flow_mle(
         flow, loader, max_iters=MLE_STEPS, check_every=100,
         callback=callback,
-        optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR))
+        optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR), graph=False)
     t1 = time.perf_counter()
     launches = all_counts()
     with torch.no_grad():
@@ -985,12 +1016,12 @@ def phase_mle(gen, name):
 
 def phase_mle_wide(gen, name):
     import normalizingflows_torch as nft
-    from normalizingflows_torch.ops import rqs_cuda
 
     _, train, _ = _mle_data(gen, 64)
     flow = nft.nsf(torch.Generator().manual_seed(7), **WIDE)
     loader = nft.utils.data.make_loader(train, MLE_WIDE_BATCH, seed=0)
-    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR))
+    kw = dict(optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR),
+              graph=False)
     warm = nft.train_flow_mle(flow, loader, max_iters=2, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1002,7 +1033,7 @@ def phase_mle_wide(gen, name):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = tuple(launch_counts(rqs_cuda).values())
+    launches = rqs_counts()
     losses = res.stats["loss"]
     if not torch.isfinite(torch.from_numpy(losses)).all():
         raise AssertionError("MLE wide training gave non-finite losses")
@@ -1366,11 +1397,10 @@ def phase_rnvp_same_step(gen):
             f"pass launched K4 once and K5 once, the others no kernel")
 
 
-def _train_rate(flow, gen, target, batch, steps, lr, check_every):
-    """train_flow with elbo_batch: (result, seconds, steps/s after the
-    first chunk)."""
-    import normalizingflows_torch as nft
-
+def _stamped(train):
+    """``train(callback)`` with a callback that stamps each chunk's end:
+    (result, seconds, steps/s over the chunks after the first, or overall
+    where there is one chunk)."""
     stamps = []
 
     def callback(it, stat, f):
@@ -1378,14 +1408,23 @@ def _train_rate(flow, gen, target, batch, steps, lr, check_every):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = nft.train_flow(gen, nft.elbo_batch, flow, target.log_prob, batch,
-                         max_iters=steps, check_every=check_every,
-                         callback=callback,
-                         optimizer=lambda p: torch.optim.Adam(p, lr=lr))
+    res = train(callback)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     steady = ((stamps[-1][0] - stamps[0][0]) / (stamps[-1][1] - stamps[0][1])
-              if len(stamps) > 1 else steps / dt)
+              if len(stamps) > 1 else len(res.stats["loss"]) / dt)
+    return res, dt, steady
+
+
+def _train_rate(flow, gen, target, batch, steps, lr, check_every):
+    """train_flow with elbo_batch, eagerly (graph=False): (result, seconds,
+    steps/s after the first chunk)."""
+    import normalizingflows_torch as nft
+
+    res, dt, steady = _stamped(lambda callback: nft.train_flow(
+        gen, nft.elbo_batch, flow, target.log_prob, batch, max_iters=steps,
+        check_every=check_every, callback=callback,
+        optimizer=lambda p: torch.optim.Adam(p, lr=lr), graph=False))
     losses = res.stats["loss"]
     if len(losses) != steps or not torch.isfinite(
             torch.from_numpy(losses)).all():
@@ -1760,6 +1799,437 @@ def phase_graph_step(name):
     return {"graph_step_ms": step_ms, "graph_steps_per_s": GRAPH_STEPS / dt}
 
 
+# ---------------------------------------------------------------------------
+# The trainers' default on the card: the step replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graph_and_eager(phase, label, make, train, steps, per_step, name):
+    """One cell graphed, then eagerly: ``make()`` builds its flow (one seed
+    both times), ``train(flow, graph, callback)`` trains it ``steps`` steps.
+    Each run's launch counts must be ``per_step`` (kernel -> launches a
+    step) times ``steps``, the graphed run's by replay, with one capture;
+    its losses finite. Returns both runs' flow, result, steps/s overall
+    and after the first chunk, peak memory and counts."""
+    from normalizingflows_torch.ops import launches
+
+    out = {}
+    for graph in (True, False):
+        flow = make()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        res, dt, steady = _stamped(lambda cb: train(flow, graph, cb))
+        peak = torch.cuda.max_memory_allocated()
+        path = "graph" if graph else "eager"
+        counts = expect_counts(f"phase {phase}, {label}, {path}",
+                               **{k: n * steps for k, n in per_step.items()})
+        captures = launches.captures()
+        if captures != int(graph):
+            raise AssertionError(f"phase {phase}, {label}, {path}: "
+                                 f"{captures} captures, expected "
+                                 f"{int(graph)}")
+        losses = res.stats["loss"]
+        if len(losses) != steps or not torch.isfinite(
+                torch.from_numpy(losses)).all():
+            raise AssertionError(f"phase {phase}, {label}, {path}: "
+                                 "non-finite losses")
+        out[path] = dict(flow=flow, res=res, steps_per_s=steps / dt,
+                         steady=steady, peak_mib=peak / 2**20,
+                         held_mib=held / 2**20, counts=counts)
+    g, e = out["graph"], out["eager"]
+    say(phase, f"{label}, {steps} steps: graph {g['steady']:.1f} steps/s "
+               f"after the first chunk ({g['steps_per_s']:.1f} overall, "
+               f"one capture), eager {e['steady']:.1f} "
+               f"({e['steps_per_s']:.1f} overall); peak memory graph "
+               f"{g['peak_mib']:.1f} MiB, eager {e['peak_mib']:.1f} MiB "
+               f"({g['held_mib']:.1f} / {e['held_mib']:.1f} held before); "
+               f"launches a step {per_step} on both paths, by replay on the "
+               f"graph's; loss {g['res'].stats['loss'][0]:.3f} -> "
+               f"{g['res'].stats['loss'][-1]:.3f} graphed, on {name}")
+    return out
+
+
+def _same_inputs(phase, label, make, train, steps):
+    """``train(flow, graph)`` graphed and eagerly on flows from ``make()``
+    (one seed), on the same inputs, both with Adam(capturable=True):
+    per-step losses and final parameters within GRAPH_TOL. Returns whether
+    every bit agrees."""
+    runs = {}
+    for graph in (True, False):
+        flow = make()
+        res = train(flow, graph)
+        runs[graph] = (res.stats["loss"],
+                       [p.detach().clone() for p in flow.parameters()])
+    (lg, pg), (le, pe) = runs[True], runs[False]
+    if len(lg) != steps:
+        raise AssertionError(f"phase {phase}, {label}: {len(lg)} steps")
+    e = compare(f"{label}: graphed vs eager losses", torch.from_numpy(lg),
+                torch.from_numpy(le), GRAPH_TOL)
+    ep = max(compare(f"{label}: graphed vs eager parameters", a, b,
+                     GRAPH_TOL, quiet=True) for a, b in zip(pg, pe))
+    same = bool(torch.equal(torch.from_numpy(lg), torch.from_numpy(le))
+                and all(torch.equal(a, b) for a, b in zip(pg, pe)))
+    say(phase, f"{label}, {steps} steps on the same inputs, both with "
+               f"Adam(capturable=True): graphed against eager, losses max "
+               f"abs err {e:.3e}, final parameters {ep:.3e} (rtol "
+               f"{GRAPH_TOL[0]}, atol {GRAPH_TOL[1]}); identical bits: "
+               f"{same}")
+    return same
+
+
+def _draws_differ(phase, make, batch, lr):
+    """The caller's generator under a graph draws anew at each replay: an
+    objective that keeps each step's first base draw, over DRAW_STEPS
+    steps (WARM_STEPS eager, one capture, the rest replays), must keep
+    DRAW_STEPS distinct draws."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import launches
+    from normalizingflows_torch.train import WARM_STEPS
+
+    flow = make()
+    target = nft.Banana(flow.event_dim, 1.0, 100.0)
+    kept = torch.zeros((DRAW_STEPS, flow.event_dim), device=DEVICE)
+
+    def objective(g, f, logp, n):
+        xs = f.base.sample(g, (n,))
+        kept.copy_(torch.cat([xs[:1], kept[:-1]]))
+        return nft.elbo_from_samples(xs, f, logp)
+
+    reset_counts()
+    nft.train_flow(torch.Generator(device=DEVICE).manual_seed(phase),
+                   objective, flow, target.log_prob, batch,
+                   max_iters=DRAW_STEPS, check_every=DRAW_STEPS,
+                   optimizer=lambda p: torch.optim.Adam(p, lr=lr))
+    distinct = torch.unique(kept, dim=0).shape[0]
+    if launches.captures() != 1 or distinct != DRAW_STEPS:
+        raise AssertionError(f"phase {phase}: {distinct} distinct draws in "
+                             f"{DRAW_STEPS} steps, {launches.captures()} "
+                             "captures: replays reuse a draw")
+    say(phase, f"the caller's generator under the graph: {DRAW_STEPS} steps "
+               f"({WARM_STEPS} eager, {DRAW_STEPS - WARM_STEPS} replays) "
+               f"drew {distinct} distinct base samples")
+
+
+def _capture_failure_raises(phase, gen):
+    """A launch refused inside the capture raises, with a message that
+    names graph=False, and nothing runs in its place: while the stream is
+    capturing, K1 gets an even staged row stride, which its C entry refuses
+    before any CUDA call."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import rqs_cuda
+
+    plan = rqs_cuda.fwd_plan
+
+    def refused(stride_elem, K, word):
+        p = plan(stride_elem, K, word)
+        if p.staged and torch.cuda.is_current_stream_capturing():
+            return p._replace(stride=p.stride + 1)
+        return p
+
+    target = nft.Banana(2, 1.0, 100.0)
+    rqs_cuda.fwd_plan = refused
+    try:
+        nft.train_flow(gen, nft.elbo_batch, _demo_flow(), target.log_prob,
+                       DEMO_BATCH, max_iters=DRAW_STEPS,
+                       check_every=DRAW_STEPS)
+    except RuntimeError as err:
+        message = str(err)
+    else:
+        raise AssertionError("a launch refused inside the capture did not "
+                             "raise")
+    finally:
+        rqs_cuda.fwd_plan = plan
+    if "graph=False" not in message or "rqs_fwd" not in message:
+        raise AssertionError(f"the capture failure said: {message}")
+    say(phase, f"a launch refused inside the capture raised: {message}")
+
+
+def _presampled_train(objective_target, batch, lr, steps):
+    """``train(flow, graph)`` for `_same_inputs`: ELBO steps on
+    presample_base draws from one seed, Adam(capturable=True)."""
+    import normalizingflows_torch as nft
+
+    def train(flow, graph):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(7),
+            nft.elbo_from_samples, flow, objective_target.log_prob,
+            max_iters=steps, check_every=SAME_CHECK,
+            scan_inputs=nft.presample_base(batch),
+            optimizer=lambda p: torch.optim.Adam(p, lr=lr, capturable=True),
+            graph=graph)
+
+    return train
+
+
+def phase_graph_elbo(gen, name):
+    """`train_flow`'s default on the card: the NSF demo's and the wide
+    ELBO step replayed from a CUDA graph, beside the eager loop."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    wide_target = nft.Banana(WIDE["q0"], 1.0, 100.0)
+
+    def want(cfg):
+        return dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"), 2 * cfg["nlayers"])
+
+    def demo(flow, graph, callback):
+        return nft.train_flow(
+            gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
+            max_iters=DEMO_STEPS, check_every=100, callback=callback,
+            optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR), graph=graph)
+
+    def wide(flow, graph, callback):
+        return nft.train_flow(
+            gen, nft.elbo_batch, flow, wide_target.log_prob, WIDE_BATCH,
+            max_iters=2 * WIDE_STEPS, check_every=WIDE_STEPS,
+            callback=callback,
+            optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR), graph=graph)
+
+    out = {"demo": _graph_and_eager(22, "NSF demo", _demo_flow, demo,
+                                    DEMO_STEPS, want(DEMO), name)}
+    losses = out["demo"]["graph"]["res"].stats["loss"]
+    if not losses[-20:].mean() < losses[:20].mean():
+        raise AssertionError("the graphed demo's loss did not fall")
+    out["wide"] = _graph_and_eager(
+        22, "NSF wide", lambda: nft.nsf(torch.Generator().manual_seed(3),
+                                        **WIDE),
+        wide, 2 * WIDE_STEPS, want(WIDE), name)
+    out["identical"] = _same_inputs(
+        22, "NSF demo", _demo_flow,
+        _presampled_train(target, DEMO_BATCH, DEMO_LR, SAME_STEPS),
+        SAME_STEPS)
+    _draws_differ(22, _demo_flow, DEMO_BATCH, DEMO_LR)
+    _capture_failure_raises(22, gen)
+    return out
+
+
+def phase_graph_mle(gen, name):
+    """`train_flow_mle`'s default on the card: phase 10's and 11's recipes
+    replayed from a CUDA graph, beside the eager loop."""
+    import normalizingflows_torch as nft
+
+    target, train, held = _mle_data(gen, 2)
+    _, wide_train, _ = _mle_data(gen, WIDE["q0"])
+    def want(cfg):
+        return dict.fromkeys(("rqs_fwd", "rqs_bwd_invdir"), 2 * cfg["nlayers"])
+
+    def mle(data, batch, steps, check_every):
+        def train(flow, graph, callback=None, capturable=False):
+            return nft.train_flow_mle(
+                flow, nft.utils.data.make_loader(data, batch, seed=0),
+                max_iters=steps, check_every=check_every, callback=callback,
+                optimizer=lambda p: torch.optim.Adam(
+                    p, lr=MLE_LR, capturable=capturable), graph=graph)
+        return train
+
+    with torch.no_grad():
+        before = float(_demo_flow().log_prob(held).mean())
+        ceiling = float(target.log_prob(held).mean())
+    out = {"demo": _graph_and_eager(23, "MLE demo", _demo_flow,
+                                    mle(train, MLE_BATCH, MLE_STEPS, 100),
+                                    MLE_STEPS, want(DEMO), name)}
+    with torch.no_grad():
+        after = float(out["demo"]["graph"]["flow"].log_prob(held).mean())
+    if not after > before:
+        raise AssertionError(f"graphed MLE: held-out log-likelihood did not "
+                             f"rise: {before} -> {after}")
+    say(23, f"graphed MLE demo: held-out mean log-likelihood "
+            f"{before:.4f} -> {after:.4f} (the target's E_p[log p] "
+            f"{ceiling:.4f})")
+    out["wide"] = _graph_and_eager(
+        23, "MLE wide", lambda: nft.nsf(torch.Generator().manual_seed(7),
+                                        **WIDE),
+        mle(wide_train, MLE_WIDE_BATCH, 2 * MLE_WIDE_STEPS, MLE_WIDE_STEPS),
+        2 * MLE_WIDE_STEPS, want(WIDE), name)
+    same = mle(train, MLE_BATCH, SAME_STEPS, SAME_CHECK)
+    out["identical"] = _same_inputs(
+        23, "MLE demo", _demo_flow,
+        lambda flow, graph: same(flow, graph, capturable=True), SAME_STEPS)
+    return out
+
+
+def phase_graph_rnvp(name, k6=None, yardstick=None):
+    """`train_flow`'s default on the fused RealNVP (K4, K5): the demo and
+    the reference default replayed from a CUDA graph, beside the eager
+    loop, phase 21's hand-captured step and phase 20's K6 (``k6``,
+    ``yardstick``: their steps/s, where those phases ran)."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    want = {"coupling_fwd": 1, "coupling_bwd": 1}
+
+    def rnvp(batch, steps, check_every):
+        def train(flow, graph, callback):
+            return nft.train_flow(
+                torch.Generator(device=DEVICE).manual_seed(40),
+                nft.elbo_batch, flow, target.log_prob, batch,
+                max_iters=steps, check_every=check_every, callback=callback,
+                optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_LR),
+                graph=graph)
+        return train
+
+    out = {"demo": _graph_and_eager(
+        24, "fused RealNVP demo", lambda: _rnvp(RNVP_DEMO, 0, True),
+        rnvp(RNVP_BATCH, RNVP_STEPS, 100), RNVP_STEPS, want, name)}
+    losses = out["demo"]["graph"]["res"].stats["loss"]
+    if not losses[-100:].mean() < losses[:100].mean():
+        raise AssertionError("the graphed RealNVP demo's ELBO did not rise")
+    out["ref"] = _graph_and_eager(
+        24, "fused reference default", lambda: _rnvp(RNVP_REF, 50, True),
+        rnvp(RNVP_REF_BATCH, RNVP_REF_STEPS, RNVP_REF_STEPS // 2),
+        RNVP_REF_STEPS, want, name)
+    out["identical"] = _same_inputs(
+        24, "fused RealNVP demo", lambda: _rnvp(RNVP_DEMO, 0, True),
+        _presampled_train(target, RNVP_BATCH, RNVP_LR, 2 * SAME_STEPS),
+        2 * SAME_STEPS)
+    _draws_differ(24, lambda: _rnvp(RNVP_DEMO, 0, True), RNVP_BATCH, RNVP_LR)
+    say(24, f"fused RealNVP demo through train_flow's graph "
+            f"{out['demo']['graph']['steady']:.1f} steps/s, beside phase "
+            f"21's hand-captured step "
+            f"{'not run' if yardstick is None else f'{yardstick:.1f}'} and "
+            f"phase 20's K6 {'not run' if k6 is None else f'{k6:.1f}'}")
+    return out
+
+
+def phase_annealed(gen, name):
+    """`train_flow_annealed` on the card: the NSF demo on Banana(2, 1,
+    100), β = 1/4, 2/4, 3/4 for ANNEAL_ITERS steps each and β = 1 for
+    twice that, from one capture; then the same schedule, shorter,
+    graphed against eager on the same draws (β filled in place)."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import launches
+
+    target = nft.Banana(2, 1.0, 100.0)
+    flow = _demo_flow()
+    kw = dict(n_betas=ANNEAL_BETAS, iters_per_beta=ANNEAL_ITERS,
+              final_iters=2 * ANNEAL_ITERS)
+    total = (ANNEAL_BETAS + 1) * ANNEAL_ITERS
+    reset_counts()
+    res, dt, steady = _stamped(lambda cb: nft.train_flow_annealed(
+        gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
+        optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR),
+        check_every=ANNEAL_ITERS, callback=cb, **kw))
+    per_step = 2 * DEMO["nlayers"]
+    counts = expect_counts("phase 25", rqs_fwd=per_step * total,
+                           rqs_bwd_fwddir=per_step * total)
+    beta, losses = res.stats["beta"], res.stats["loss"]
+    if not (len(beta) == len(losses) == total == res.state.iteration
+            and beta[0] == 1 / ANNEAL_BETAS and beta[-1] == 1.0
+            and beta[ANNEAL_ITERS] == 2 / ANNEAL_BETAS
+            and launches.captures() == 1
+            and torch.isfinite(torch.from_numpy(losses)).all()):
+        raise AssertionError(f"phase 25: {len(beta)} steps of β {beta[0]} .. "
+                             f"{beta[-1]}, {launches.captures()} captures")
+
+    def anneal(flow, graph):
+        return nft.train_flow_annealed(
+            torch.Generator(device=DEVICE).manual_seed(8),
+            lambda xs, f, lp, n: nft.elbo_from_samples(xs, f, lp), flow,
+            target.log_prob, DEMO_BATCH, n_betas=ANNEAL_BETAS,
+            iters_per_beta=SAME_CHECK, final_iters=2 * SAME_CHECK,
+            check_every=SAME_CHECK, scan_inputs=nft.presample_base(
+                DEMO_BATCH),
+            optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR,
+                                                 capturable=True),
+            graph=graph)
+
+    identical = _same_inputs(25, "annealed NSF demo", _demo_flow, anneal,
+                             (ANNEAL_BETAS + 1) * SAME_CHECK)
+    say(25, f"train_flow_annealed, NSF demo: {total} steps over β "
+            f"{beta[0]} .. {beta[-1]} in {dt:.2f} s ({steady:.1f} steps/s "
+            f"after the first chunk), one capture for every segment, "
+            f"launches {counts}; loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+            f"on {name}")
+    return {"counts": counts, "identical": identical, "steady": steady}
+
+
+def phase_graph_profile(gen, name):
+    """The graphed steps under torch.profiler: each cell trains 2 × P
+    steps in chunks of P from a fresh flow and the profiler covers the
+    second chunk, P replays; kernels a step, device busy ms a step (the
+    union of the kernels' intervals), the idle share of the window's wall
+    time and the device time by category (`benchmarks/torch_profile.py`'s
+    breakdown). Last, because a profiler run slows the host's launches
+    after it."""
+    import normalizingflows_torch as nft
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    from torch_profile import _breakdown
+
+    banana = nft.Banana(2, 1.0, 100.0)
+    wide_banana = nft.Banana(WIDE["q0"], 1.0, 100.0)
+    _, mle_rows, _ = _mle_data(gen, 2)
+    _, mle_wide_rows, _ = _mle_data(gen, WIDE["q0"])
+
+    def elbo(make, target, batch, lr):
+        return lambda p, cb: nft.train_flow(
+            gen, nft.elbo_batch, make(), target.log_prob, batch,
+            max_iters=2 * p, check_every=p, callback=cb,
+            optimizer=lambda q: torch.optim.Adam(q, lr=lr))
+
+    def mle(rows, batch, make):
+        return lambda p, cb: nft.train_flow_mle(
+            make(), nft.utils.data.make_loader(rows, batch, seed=0),
+            max_iters=2 * p, check_every=p, callback=cb,
+            optimizer=lambda q: torch.optim.Adam(q, lr=MLE_LR))
+
+    def wide_nsf():
+        return nft.nsf(torch.Generator().manual_seed(3), **WIDE)
+
+    cells = (
+        ("demo", 50, elbo(_demo_flow, banana, DEMO_BATCH, DEMO_LR)),
+        ("wide", 10, elbo(wide_nsf, wide_banana, WIDE_BATCH, WIDE_LR)),
+        ("mle_demo", 50, mle(mle_rows, MLE_BATCH, _demo_flow)),
+        ("mle_wide", 10, mle(mle_wide_rows, MLE_WIDE_BATCH, wide_nsf)),
+        ("rnvp_demo", 100, elbo(lambda: _rnvp(RNVP_DEMO, 0, True), banana,
+                                RNVP_BATCH, RNVP_LR)),
+        ("rnvp_ref", 20, elbo(lambda: _rnvp(RNVP_REF, 50, True), banana,
+                              RNVP_REF_BATCH, RNVP_LR)))
+    out = {}
+    for label, p, train in cells:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        t0 = []
+
+        def callback(it, stat, f):
+            if not t0:  # after the first chunk: warm steps, capture
+                torch.cuda.synchronize()
+                prof.start()
+                t0.append(time.perf_counter())
+
+        train(p, callback)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0[0]
+        prof.stop()
+        out[label] = _breakdown(prof, p, wall)
+        r = out[label]
+        say(26, f"{label}, {p} replays under the profiler: "
+                f"{r['kernels_per_step']:.1f} kernels a step, device busy "
+                f"{r['device_busy_ms_per_step']:.4f} ms of "
+                f"{r['wall_ms_per_step']:.4f} ms a step (idle "
+                f"{100 * r['device_idle_share']:.1f} %), by category "
+                f"{r['ms_per_step_by_category']}, on {name}")
+    return out
+
+
+def graph_cells(phase: int, out: dict) -> dict:
+    """Phase 22-24's cells as numbers: steps/s graphed and eager, after
+    the first chunk and overall, peak MiB, and whether graphed and eager
+    agreed bit for bit on the same inputs."""
+    cells = {}
+    for cell, runs in out.items():
+        if cell == "identical":
+            continue
+        cells[f"{cell}_{phase}"] = {
+            f"{path}_{key}": runs[path][key] for path in ("graph", "eager")
+            for key in ("steady", "steps_per_s", "peak_mib", "held_mib")}
+        cells[f"{cell}_{phase}"]["identical_bits"] = out["identical"]
+    return cells
+
+
 def selected_phases(argv=None) -> set:
     """The phases a command line asks for, with phase 1 and the phases
     whose results a selected one takes: 7 takes 5's flow, 15 takes 14's."""
@@ -1822,6 +2292,35 @@ def main(argv=None) -> int:
         train_launches, train_main = phase_train_main(name, rnvp_summary)
     if 21 in phases:
         graph = phase_graph_step(name)
+    graphed = {}  # phases 22-24's cells
+    if 22 in phases:
+        graphed[22] = phase_graph_elbo(gen, name)
+    if 23 in phases:
+        graphed[23] = phase_graph_mle(gen, name)
+    if 24 in phases:
+        graphed[24] = phase_graph_rnvp(
+            name, k6=train_main["steps_per_s"] if 20 in phases else None,
+            yardstick=graph["graph_steps_per_s"] if 21 in phases else None)
+    if 25 in phases:
+        annealed = phase_annealed(gen, name)
+    if 26 in phases:
+        profiled = phase_graph_profile(gen, name)
+    cells = {}
+    for phase, out in graphed.items():
+        cells.update(graph_cells(phase, out))
+    if 25 in phases:
+        cells["annealed_demo"] = {"graph_steady": annealed["steady"],
+                                  "identical_bits": annealed["identical"]}
+    if 26 in phases:
+        for label, r in profiled.items():
+            cells.setdefault(f"profile_{label}", {}).update(
+                {k: r[k] for k in ("kernels_per_step",
+                                   "device_busy_ms_per_step",
+                                   "wall_ms_per_step", "device_idle_share",
+                                   "ms_per_step_by_category")})
+    if cells:
+        # the graphed cells beside the eager ones, measured in this call
+        print(json.dumps({"graph_cells": cells}), flush=True)
     torch.cuda.synchronize()
     device_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1835,15 +2334,21 @@ def main(argv=None) -> int:
     train.update(train_main, **graph,
                  eager_step_ms=1e3 / rnvp_summary["steady"])
 
-    # each kernel's launches on the path it serves: K2 on the ELBO path,
-    # K1 and K3 on the density path (K1 runs on both), K4 and K5 on the
-    # RealNVP demo's, K6 on the demo's whole-run training
+    # each kernel's launches on the path it serves, the trainers' default
+    # (graphed) runs: K2 on the ELBO path, K1 and K3 on the density path
+    # (K1 runs on both), K4 and K5 on the RealNVP demo's, K6 on the demo's
+    # whole-run training; the eager runs beside them
     paths = {"elbo_demo": elbo_launches, "mle_demo": mle_launches,
              "realnvp_demo": rnvp_launches,
-             "realnvp_train_demo": train_launches}
-    own = {"rqs_fwd": "mle_demo", "rqs_bwd_fwddir": "elbo_demo",
-           "rqs_bwd_invdir": "mle_demo", "coupling_fwd": "realnvp_demo",
-           "coupling_bwd": "realnvp_demo",
+             "realnvp_train_demo": train_launches,
+             "elbo_demo_graph": graphed[22]["demo"]["graph"]["counts"],
+             "mle_demo_graph": graphed[23]["demo"]["graph"]["counts"],
+             "realnvp_demo_graph": graphed[24]["demo"]["graph"]["counts"],
+             "annealed_demo_graph": annealed["counts"]}
+    own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
+           "rqs_bwd_invdir": "mle_demo_graph",
+           "coupling_fwd": "realnvp_demo_graph",
+           "coupling_bwd": "realnvp_demo_graph",
            "realnvp_train": "realnvp_train_demo"}
 
     # K1's registers, from ptxas's report, and its static issue estimate

@@ -8,14 +8,17 @@ rational-quadratic spline, the fused RealNVP coupling stack and its
 whole training run) are CUDA C++ in `csrc/`, built with nvcc at first use.
 
 The port covers reverse-KL ELBO training of the neural spline flow, its
-density path (log_prob with gradients) and maximum-likelihood training, and
-RealNVP, unfused or through the fused coupling-stack kernels, whose whole
-ELBO training run `train_realnvp_fused` takes one kernel launch per chunk
-of steps:
-  train_flow, train_flow_mle, optimize -> .train
+density path (log_prob with gradients) and maximum-likelihood training,
+annealed (tempered-path) training, and RealNVP, unfused or through the
+fused coupling-stack kernels, whose whole ELBO training run
+`train_realnvp_fused` takes one kernel launch per chunk of steps. On the
+card the trainers replay their step from a CUDA graph (``graph=``):
+  train_flow, train_flow_mle, train_flow_annealed,
+  optimize                             -> .train
   elbo, elbo_batch, elbo_from_samples, elbo_stl, elbo_iw,
-  loglikelihood                        -> .objectives
+  loglikelihood, tempered              -> .objectives
   create_flow                          -> .models.flows
+  Shift, Scale                         -> .models.bijector
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
   realnvp, RealNVP_layer, AffineCoupling, CouplingPairStack
                                        -> .models.coupling
@@ -40,6 +43,8 @@ from .models.bijector import (  # noqa: E402
     Chain,
     Identity,
     Inverse,
+    Scale,
+    Shift,
     invert,
 )
 from .models.coupling import (  # noqa: E402
@@ -72,12 +77,14 @@ from .objectives import (  # noqa: E402
     elbo_stl,
     loglikelihood,
     presample_base,
+    tempered,
 )
 from .train import (  # noqa: E402
     TrainResult,
     TrainState,
     optimize,
     train_flow,
+    train_flow_annealed,
     train_flow_mle,
 )
 from .utils import data as _data  # noqa: E402,F401  (nft.utils.data)
@@ -98,7 +105,7 @@ def __getattr__(name: str):
 
 __all__ = [
     # bijectors
-    "Bijector", "Chain", "Identity", "Inverse", "invert",
+    "Bijector", "Chain", "Identity", "Inverse", "invert", "Shift", "Scale",
     # distributions
     "DiagNormal", "Distribution", "StandardNormal",
     "TransformedDistribution",
@@ -111,6 +118,8 @@ __all__ = [
     # objectives
     "elbo", "elbo_batch", "elbo_from_samples", "elbo_iw",
     "elbo_single_sample", "elbo_stl", "loglikelihood", "presample_base",
+    "tempered",
     # training
     "TrainResult", "TrainState", "optimize", "train_flow", "train_flow_mle",
+    "train_flow_annealed",
 ]

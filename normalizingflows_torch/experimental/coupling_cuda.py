@@ -41,8 +41,8 @@ runs, not in the backward. K4 holds every coupling's padded weights where
 they fit in FWD_RESIDENT_BYTES, else two couplings': at most 80,128 bytes
 (float64, [32,32,32] conditioners, the lane tile), at any number of
 blocks.
-``COUPLING_FWD_LAUNCHES`` counts K4 launches, ``COUPLING_BWD_LAUNCHES`` K5
-calls (two kernels each).
+Each K4 launch and each K5 call (two kernels) is counted in
+`ops/launches.py`.
 
 The weights are the JAX ``groups`` pytree: ``groups['even'|'odd']['s'|'t']
 [layer]`` is ``(W (n_blocks, in, out), b (n_blocks, out))``, as dicts and
@@ -59,9 +59,11 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..ops import launches
+
 __all__ = [
     "coupling_stack_fused", "tile_flow", "tile_flow_bwd", "fwd_plan",
-    "FwdPlan", "COUPLING_FWD_LAUNCHES", "COUPLING_BWD_LAUNCHES", "KERNEL_MAX_D",
+    "FwdPlan", "KERNEL_MAX_D",
     "KERNEL_MAX_WIDTH", "KERNEL_MAX_DEPTH", "KERNEL_MAX_SMEM",
 ]
 
@@ -86,10 +88,6 @@ BACKENDS = ("auto", "plain", "cuda")
 _GROUPS = ("even", "odd")
 _NETS = ("s", "t")
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-# Kernel launches since import (or since a caller reset them to 0).
-COUPLING_FWD_LAUNCHES = 0
-COUPLING_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +501,6 @@ def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
     """K4 on x (n, d) contiguous, on the tile `fwd_plan` picks.
     ``backward``: K5 will follow, so its bounds are checked before K4
     runs."""
-    global COUPLING_FWD_LAUNCHES
     from ..ops._build import library
 
     sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward)
@@ -520,13 +517,12 @@ def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
             int(plan.lanes), int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_fwd")
-    COUPLING_FWD_LAUNCHES += 1
+    launches.count("coupling_fwd")
     return y, ld
 
 
 def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
     """K5 (both passes): gx and one gradient per stacked weight."""
-    global COUPLING_BWD_LAUNCHES
     from ..ops._build import library
 
     sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward=True)
@@ -547,7 +543,7 @@ def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
             _pointers(leaves), _pointers(grads), n_ctas, int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_bwd")
-    COUPLING_BWD_LAUNCHES += 1
+    launches.count("coupling_bwd")
     return gx, grads
 
 

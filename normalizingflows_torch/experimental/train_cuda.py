@@ -27,7 +27,7 @@ runs the plain version; ``"cuda"`` raises without CUDA tensors. Nothing
 falls back. K6 runs K5's lane tile, its rows fitted to the batch, plus a
 word a row for the ELBO terms, so it has a cap on blocks like K5's and
 raises before any step runs (`coupling_cuda._kernel_args`).
-``TRAIN_LAUNCHES`` counts K6 launches.
+Each K6 launch is counted in `ops/launches.py`.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.targets import Banana
+from ..ops import launches
 from .coupling_cuda import (
     _depth,
     _kernel_args,
@@ -51,12 +52,9 @@ from .coupling_cuda import (
     tile_flow_bwd,
 )
 
-__all__ = ["adam_train_realnvp_fused", "adam_train_plain", "TRAIN_LAUNCHES"]
+__all__ = ["adam_train_realnvp_fused", "adam_train_plain"]
 
 _LOG_2PI = 1.8378770664093453
-
-# K6 launches since import (or since a caller reset it to 0).
-TRAIN_LAUNCHES = 0
 
 
 class _Run(NamedTuple):
@@ -197,7 +195,6 @@ def adam_train_plain(xs, groups, idx_even, idx_odd, target, base_loc,
 def _launch_chunk(fn, xs, w, m, v, grad, losses, run: _Run, step0: int,
                   steps: int, args) -> None:
     """One K6 launch: steps ``step0 .. step0 + steps − 1`` of the run."""
-    global TRAIN_LAUNCHES
     n_steps, batch, d = xs.shape
     widths, idx, n_blocks, hyper = args
     err = fn(xs[step0].data_ptr(), w.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -206,7 +203,7 @@ def _launch_chunk(fn, xs, w, m, v, grad, losses, run: _Run, step0: int,
              run.depth, widths, idx, hyper,
              torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "realnvp_train")
-    TRAIN_LAUNCHES += 1
+    launches.count("realnvp_train")
 
 
 def _launch(xs, leaves, run: _Run, chunk: int):

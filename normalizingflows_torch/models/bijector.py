@@ -1,4 +1,4 @@
-"""Bijector protocol and combinators.
+"""Bijector protocol, combinators and the elementwise affine maps.
 
 Counterpart of `normalizingflows/jl_tpu/models/bijector.py`. Tensors are
 row-major batches ``(..., dim)``; ``forward_and_log_det`` /
@@ -13,7 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-__all__ = ["Bijector", "Identity", "Inverse", "Chain", "invert"]
+__all__ = ["Bijector", "Identity", "Inverse", "Chain", "invert", "Shift",
+           "Scale"]
 
 
 def _zero_log_det(x: torch.Tensor) -> torch.Tensor:
@@ -88,3 +89,37 @@ class Chain(Bijector):
             y, ld = b.inverse_and_log_det(y)
             log_det = log_det + ld
         return y, log_det
+
+
+class Shift(Bijector):
+    """y = x + b (Bijectors.jl `Shift`; the mean-field flow's location)."""
+
+    def __init__(self, b: torch.Tensor):
+        super().__init__()
+        self.b = nn.Parameter(b)
+
+    def forward_and_log_det(self, x):
+        return x + self.b, _zero_log_det(x)
+
+    def inverse_and_log_det(self, y):
+        return y - self.b, _zero_log_det(y)
+
+
+class Scale(Bijector):
+    """y = a ⊙ x with log|det J| = Σ log|a| (Bijectors.jl `Scale`). No
+    positivity constraint on ``a``: the log-det takes log|a|, so a sign
+    flip stays a valid bijection, as in the reference."""
+
+    def __init__(self, a: torch.Tensor):
+        super().__init__()
+        self.a = nn.Parameter(a)
+
+    def _log_det(self, x):
+        ld = torch.log(torch.abs(self.a)).sum()
+        return ld.expand(x.shape[:-1]).to(x.dtype)
+
+    def forward_and_log_det(self, x):
+        return x * self.a, self._log_det(x)
+
+    def inverse_and_log_det(self, y):
+        return y / self.a, -self._log_det(y)

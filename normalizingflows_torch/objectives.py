@@ -1,10 +1,11 @@
 """Variational objectives: reverse-KL ELBO (plain, batched, STL,
-importance-weighted) and the forward-KL log-likelihood.
+importance-weighted), the forward-KL log-likelihood, and the tempered
+(annealing) lift of an ELBO.
 
 Counterpart of `normalizingflows/jl_tpu/objectives.py` (reference
-`src/objectives/elbo.jl`, `src/objectives/loglikelihood.jl`) without
-`tempered`. Any callable ``vo(input, flow, *args) -> scalar`` can be passed
-to `train_flow`; higher is better and the trainer negates it into a loss.
+`src/objectives/elbo.jl`, `src/objectives/loglikelihood.jl`). Any
+callable ``vo(input, flow, *args) -> scalar`` can be passed to
+`train_flow`; higher is better and the trainer negates it into a loss.
 Where JAX takes a PRNG ``key`` these take a ``torch.Generator`` on the
 flow's device.
 """
@@ -22,6 +23,7 @@ from .models.distributions import TransformedDistribution
 __all__ = [
     "elbo", "elbo_batch", "elbo_from_samples", "elbo_iw",
     "elbo_single_sample", "elbo_stl", "loglikelihood", "presample_base",
+    "tempered",
 ]
 
 LogDensity = Callable[[torch.Tensor], torch.Tensor]
@@ -115,3 +117,22 @@ def presample_base(n_samples: int):
         return flow.base.sample(generator, (chunk, n_samples))
 
     return gen
+
+
+def tempered(objective: Callable[..., torch.Tensor],
+             ref_logp: LogDensity) -> Callable[..., torch.Tensor]:
+    """Lift an ELBO-style objective onto the geometric annealing path:
+    ``vo(inp, flow, logp, n, beta)`` is ``objective(inp, flow, lp, n)``
+    for the tempered density ``lp(x) = (1−β)·log q_ref(x) + β·log p(x)``.
+    At β=0 the target is the reference (typically the flow's base), at
+    β=1 the true target (`train.train_flow_annealed` walks β between
+    them). ``beta`` may be a 0-dim tensor on the flow's device, filled in
+    place between segments, so that one captured step serves them all."""
+
+    def vo(inp, flow, logp, n, beta):
+        def lp(x):
+            return (1.0 - beta) * ref_logp(x) + beta * logp(x)
+
+        return objective(inp, flow, lp, n)
+
+    return vo

@@ -4,7 +4,9 @@ Counterpart of `normalizingflows/jl_tpu/ops/masks.py`. Set naming follows
 Bijectors.jl: A = transformed dims, B = dims fed to the conditioner, C =
 passthrough dims (empty for the standard coupling masks). Index sets are
 fixed at construction; an evenly strided set is taken as a strided slice
-(a view) rather than a gather.
+(a view) rather than a gather. Another set is gathered and scattered
+through an index tensor made once per device, so that a call after the
+first copies nothing from the host (and can be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ class PartitionMask:
         self.idx_a = tuple(int(i) for i in idx_a)  # transformed
         self.idx_b = tuple(int(i) for i in idx_b)  # conditioner input
         self.idx_c = tuple(int(i) for i in idx_c)  # passthrough
+        self._indices: dict = {}  # (index set, device) -> index tensor
 
     @staticmethod
     def make(dim: int, idx_a) -> "PartitionMask":
@@ -74,6 +77,13 @@ class PartitionMask:
     def n_conditioned(self) -> int:
         return len(self.idx_b)
 
+    def _index(self, idx: tuple[int, ...], device) -> torch.Tensor:
+        key = (idx, device)
+        if key not in self._indices:
+            self._indices[key] = torch.tensor(idx, dtype=torch.long,
+                                              device=device)
+        return self._indices[key]
+
     def _take(self, x: torch.Tensor, idx: tuple[int, ...]) -> torch.Tensor:
         if not idx:
             return x[..., :0]
@@ -81,7 +91,7 @@ class PartitionMask:
         if s is not None:
             start, step = s
             return x[..., start::step]
-        return x[..., torch.tensor(idx, device=x.device)]
+        return x[..., self._index(idx, x.device)]
 
     def partition(self, x: torch.Tensor):
         """Split (..., dim) into (x_A, x_B, x_C)."""
@@ -101,6 +111,5 @@ class PartitionMask:
         for idx, part in ((self.idx_a, x_a), (self.idx_b, x_b),
                           (self.idx_c, x_c)):
             if idx:
-                out = out.index_copy(-1, torch.tensor(idx, device=out.device),
-                                     part)
+                out = out.index_copy(-1, self._index(idx, out.device), part)
         return out

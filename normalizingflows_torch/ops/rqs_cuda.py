@@ -18,8 +18,7 @@ transcription of the Pallas tile in the elem-major (N, 3K−1) layout.
 ``backend="auto"`` launches the kernels for CUDA tensors and runs the plain
 versions for CPU tensors; nothing falls back: on a CUDA tensor a build
 failure, a launch error, or a K or dtype the kernels do not take raises.
-``FWD_LAUNCHES``, ``BWD_LAUNCHES`` and ``BWD_INV_LAUNCHES`` count K1, K2 and
-K3 launches.
+Each launch of K1, K2 or K3 is counted in `ops/launches.py`.
 
 Every kernel stages elem-major raw through shared memory, one tile a CTA,
 so that its device-memory loads coalesce: K1 copies its tile in by
@@ -42,6 +41,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import launches
 from . import rqs as _oracle
 
 __all__ = [
@@ -49,7 +49,6 @@ __all__ = [
     "rqs_fused_inverse", "tile_transform", "tile_bwd_analytic",
     "tile_bwd_analytic_inverse", "fwd_plan", "FwdPlan", "bwd_plan",
     "BwdPlan", "KERNEL_K",
-    "FWD_LAUNCHES", "BWD_LAUNCHES", "BWD_INV_LAUNCHES",
 ]
 
 # K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
@@ -61,11 +60,6 @@ BACKENDS = ("auto", "plain", "cuda")
 # may opt into
 BWD_ROWS = 256
 KERNEL_MAX_SMEM = 227 * 1024
-
-# Kernel launches since import (or since a caller reset them to 0).
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-BWD_INV_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +386,6 @@ def fwd_plan(stride_elem: int, K: int, word: int) -> FwdPlan:
 def _launch_fwd(x, raw, B, K, inverse):
     """K1 on x (N,) and raw (N, P ≥ 3K−1) read through its strides, as
     `fwd_plan` says."""
-    global FWD_LAUNCHES
     from ._build import library
 
     sfx = _kernel_args(x, raw, K)
@@ -409,7 +402,7 @@ def _launch_fwd(x, raw, B, K, inverse):
             plan.stride, K, B, int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "rqs_fwd")
-    FWD_LAUNCHES += 1
+    launches.count("rqs_fwd")
     return y, ld
 
 
@@ -449,7 +442,6 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
     says. graw takes raw's layout (strides and pad columns; `empty_like`
     keeps the strides of a dense tensor) and the kernel writes every column
     of it, the pad with exact zeros."""
-    global BWD_LAUNCHES, BWD_INV_LAUNCHES
     from ._build import library
 
     sfx = _kernel_args(x, raw, K)
@@ -467,10 +459,7 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
             int(plan.staged), plan.rows, plan.stride, K, B,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
-    if inverse:
-        BWD_INV_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
+    launches.count(name)
     return gx, graw
 
 

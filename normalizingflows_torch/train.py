@@ -1,4 +1,5 @@
-"""Training API: `train_flow` / `train_flow_mle` / `optimize`.
+"""Training API: `train_flow` / `train_flow_mle` / `train_flow_annealed` /
+`optimize`.
 
 Counterpart of `normalizingflows/jl_tpu/train.py` (reference
 `src/NormalizingFlows.jl:51-86` driving `src/optimize.jl:57-108`). One step
@@ -9,25 +10,40 @@ the bookkeeping the reference does every iteration (stats, callback,
 convergence predicate, progress line), as the JAX package does at its scan
 chunk boundaries.
 
+The JAX package runs a chunk as one jitted `lax.scan`. Here, on the card,
+the step is captured once in a CUDA graph and the chunk replays it
+(``graph=None``: a graph when the flow's parameters are on CUDA, the eager
+loop on the CPU). Eager or graphed, it is one step body: step i of a chunk
+reads its input from a static buffer at a device-side step index, writes
+loss i and gradient norm i, and advances the index.
+
 The flow is trained in place: `TrainResult.flow` is the module passed in.
 `TrainState.opt_state` is the optimizer itself, which holds the moments.
 """
 
 from __future__ import annotations
 
+import functools
 import time
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .models.distributions import TransformedDistribution
+from .ops import launches
 from .utils.pytree import global_norm, trainable_parameters
 
-__all__ = ["train_flow", "train_flow_mle", "optimize", "TrainResult",
-           "TrainState"]
+__all__ = ["train_flow", "train_flow_mle", "train_flow_annealed",
+           "optimize", "TrainResult", "TrainState"]
 
 OptimizerFactory = Callable[[list], torch.optim.Optimizer]
+
+# Eager steps before the capture, on a side stream: they create Adam's
+# state, the cuBLAS handles and the kernel library, which a capture cannot.
+# They are steps of the run.
+WARM_STEPS = 3
 
 
 class TrainState(NamedTuple):
@@ -45,22 +61,184 @@ class TrainResult(NamedTuple):
     state: TrainState
 
 
-def _default_optimizer(params) -> torch.optim.Optimizer:
+def _default_optimizer(params, capturable: bool) -> torch.optim.Optimizer:
     # Reference default: Optimisers.ADAM() == Adam(lr=1e-3)
     # (`src/NormalizingFlows.jl:60`). torch's Adam with betas (0.9, 0.999)
     # and eps 1e-8 is optax.adam's update.
-    return torch.optim.Adam(params, lr=1e-3)
+    return torch.optim.Adam(params, lr=1e-3, capturable=capturable)
 
 
-def _start(flow, optimizer, train_base, resume_state):
-    """(flow, optimizer, first iteration, trainable parameters): a fresh
-    optimizer over the trainable parameters, or the resumed run's."""
+def _make_capturable(opt: torch.optim.Optimizer):
+    """Switch on ``capturable`` (device-side step counts) in every param
+    group, and move step counts an eager run left on the host to their
+    parameters' device."""
+    for group in opt.param_groups:
+        group["capturable"] = True
+    for p, state in opt.state.items():
+        step = state.get("step")
+        if torch.is_tensor(step) and step.device != p.device:
+            state["step"] = step.to(p.device)
+
+
+def _start(flow, optimizer, train_base, resume_state, graph):
+    """(flow, optimizer, first iteration, trainable parameters, graphed): a
+    fresh optimizer over the trainable parameters, or the resumed run's,
+    and whether the steps run from a CUDA graph."""
     if resume_state is not None:
         flow = resume_state.flow
-        return (flow, resume_state.opt_state, resume_state.iteration,
-                trainable_parameters(flow, train_base))
     params = trainable_parameters(flow, train_base)
-    return flow, (optimizer or _default_optimizer)(params), 0, params
+    on_cuda = bool(params) and params[0].is_cuda
+    graphed = on_cuda if graph is None else bool(graph)
+    if resume_state is not None:
+        opt, start_iter = resume_state.opt_state, resume_state.iteration
+    elif optimizer is not None:
+        opt, start_iter = optimizer(params), 0
+    else:
+        opt, start_iter = _default_optimizer(params, graphed), 0
+    if graphed:
+        if "capturable" not in opt.defaults:
+            raise TypeError(
+                f"{type(opt).__name__} has no capturable mode, which a CUDA "
+                "graph of the step needs: use Adam or AdamW, or pass "
+                "graph=False")
+        if not on_cuda:
+            raise ValueError("graph=True needs the flow's parameters on a "
+                             "CUDA device; on the CPU pass graph=False or "
+                             "None")
+        _make_capturable(opt)
+    return flow, opt, start_iter, params, graphed
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The warm steps' stream on ``device``, one for the process: cuBLAS
+    keeps a workspace for each stream it has run on, for the life of the
+    process."""
+    return torch.cuda.Stream(device=device)
+
+
+def _step_body(opt, params, loss_fn):
+    """The train step on input ``inp``: (loss, gradient norm)."""
+
+    def body(inp):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(inp)
+        loss.backward()
+        gnorm = global_norm([p.grad for p in params])
+        opt.step()
+        return loss, gnorm
+
+    return body
+
+
+class _Steps:
+    """The run's steps, chunk by chunk: ``body(input)`` run eagerly, or on
+    the card replayed from a CUDA graph of it.
+
+    A chunk's inputs are a tensor (chunk, ...), copied into a static
+    buffer of ``check_every`` rows (``input_dtype``, if given, is the
+    buffer's dtype); None, when every step gets ``generator``; or, eagerly
+    only, any sequence. Step i reads row i of the buffer at the
+    device-side index, writes losses[i] and gnorms[i], and advances the
+    index. Graphed, the first ``WARM_STEPS`` steps of the run are eager on
+    a side stream, then the step is captured once (capture executes
+    nothing) and every later step is a replay; ``generator`` is registered
+    with the graph, so each replay draws anew."""
+
+    def __init__(self, body, device, check_every, graphed, generator=None,
+                 input_dtype=None):
+        self.body, self.device, self.check_every = body, device, check_every
+        self.graphed, self.generator = graphed, generator
+        self.input_dtype = input_dtype
+        self.index = torch.zeros((), dtype=torch.long, device=device)
+        self.inputs = self.losses = self.gnorms = None
+        self.graph = None
+        self.warm = WARM_STEPS if graphed else 0
+
+    def _fetch(self, chunk, inputs):
+        if inputs is None:
+            return lambda: self.generator
+        if isinstance(inputs, torch.Tensor):
+            if self.inputs is None:
+                self.inputs = torch.empty(
+                    (self.check_every,) + tuple(inputs.shape[1:]),
+                    dtype=self.input_dtype or inputs.dtype,
+                    device=self.device)
+            if (inputs.shape[0] != chunk
+                    or inputs.shape[1:] != self.inputs.shape[1:]):
+                raise ValueError(
+                    f"a chunk of {chunk} steps got inputs shaped "
+                    f"{tuple(inputs.shape)}; the run's first chunk had "
+                    f"(chunk,) + {tuple(self.inputs.shape[1:])}")
+            self.inputs[:chunk].copy_(inputs)
+            return lambda: self.inputs.index_select(
+                0, self.index.view(1)).squeeze(0)
+        if self.graphed:
+            raise TypeError(
+                "under a CUDA graph scan_inputs must return a tensor of the "
+                f"chunk's inputs, got {type(inputs).__name__}; pass "
+                "graph=False")
+        rows = iter(inputs)
+        return lambda: next(rows)
+
+    def _step(self, fetch):
+        loss, gnorm = self.body(fetch())
+        if self.losses is None:
+            self.losses = loss.new_empty(self.check_every)
+            self.gnorms = gnorm.new_empty(self.check_every)
+        at = self.index.view(1)
+        self.losses.index_copy_(0, at, loss.detach().reshape(1))
+        self.gnorms.index_copy_(0, at, gnorm.reshape(1))
+        self.index.add_(1)
+
+    def _capture(self, fetch):
+        graph = launches.CountedGraph(torch.cuda.CUDAGraph())
+        if self.generator is not None:
+            register = getattr(graph.graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    "this torch cannot register a generator with a CUDA "
+                    "graph, so every replay would reuse the capture's draws: "
+                    "pass scan_inputs=presample_base(n) with "
+                    "elbo_from_samples, or graph=False")
+            register(self.generator)
+        try:
+            with graph.capture(torch.cuda.graph(graph.graph)):
+                self._step(fetch)
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"capturing the train step in a CUDA graph failed: {err}; "
+                "pass graph=False to train without a graph") from err
+        self.graph = graph
+
+    def run(self, chunk: int, inputs):
+        """``chunk`` steps on ``inputs``: (losses, gnorms), on the device."""
+        fetch = self._fetch(chunk, inputs)
+        self.index.zero_()
+        if not self.graphed:
+            for _ in range(chunk):
+                self._step(fetch)
+        else:
+            with torch.cuda.device(self.device):
+                self._run_graphed(chunk, fetch)
+        return self.losses[:chunk].clone(), self.gnorms[:chunk].clone()
+
+    def _run_graphed(self, chunk, fetch):
+        eager = min(self.warm, chunk)
+        if eager:
+            side = _side_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), warnings.catch_warnings():
+                # Adam warns once that capturable=True runs uncaptured
+                warnings.filterwarnings("ignore", message=".*capturable")
+                for _ in range(eager):
+                    self._step(fetch)
+            torch.cuda.current_stream().wait_stream(side)
+            self.warm -= eager
+        if chunk > eager and self.graph is None:
+            self._capture(fetch)
+        for _ in range(chunk - eager):
+            self.graph.replay()
 
 
 def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
@@ -112,6 +290,25 @@ def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
     return TrainResult(flow, stats, TrainState(flow, opt, it))
 
 
+def _objective_steps(generator, objective, flow, args, optimizer, train_base,
+                     resume_state, scan_inputs, graph, check_every):
+    """`train_flow`'s set-up: (flow, optimizer, first iteration,
+    run_chunk)."""
+    flow, opt, start_iter, params, graphed = _start(
+        flow, optimizer, train_base, resume_state, graph)
+    steps = _Steps(
+        _step_body(opt, params, lambda inp: -objective(inp, flow, *args)),
+        params[0].device, check_every, graphed,
+        generator=generator if scan_inputs is None else None)
+
+    def run_chunk(chunk):
+        inputs = (None if scan_inputs is None
+                  else scan_inputs(generator, flow, chunk))
+        return steps.run(chunk, inputs)
+
+    return flow, opt, start_iter, run_chunk
+
+
 def train_flow(
     generator: torch.Generator,
     objective: Callable[..., torch.Tensor],
@@ -129,6 +326,7 @@ def train_flow(
     resume_state: TrainState | None = None,
     scan_inputs: Callable[[torch.Generator, TransformedDistribution, int],
                           Any] | None = None,
+    graph: bool | None = None,
 ) -> TrainResult:
     """Train ``flow`` by maximising ``objective(input, flow, *args)``.
 
@@ -136,32 +334,33 @@ def train_flow(
     loss, gradient_norm)``; ``callback(i, stats, flow)`` may return a dict
     merged into the stats and ``hasconverged(i, stats, flow, opt_state)``
     stops the loop. Both run every ``check_every`` steps (chunk boundary).
+    A callback may change parameters in place (``p.copy_(...)``) but must
+    not rebind them (``p.data = ...``): a graph reads them at their
+    addresses.
 
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer`` (default
     Adam(lr=1e-3)). ``train_base=False`` freezes ``flow.base``.
     ``scan_inputs(generator, flow, chunk)`` gives the chunk's per-step
-    inputs (indexable by step); by default every step gets ``generator``.
-    Pass `objectives.presample_base(n)` with the `elbo_from_samples`
-    objective to draw a whole chunk's base samples in one call.
+    inputs: a tensor (chunk, ...), made outside the graph; eagerly, any
+    sequence. By default every step gets ``generator`` and draws inside
+    the step. Pass `objectives.presample_base(n)` with the
+    `elbo_from_samples` objective to draw a whole chunk's base samples in
+    one call.
+
+    ``graph``: None runs the steps from a CUDA graph when the flow's
+    parameters are on CUDA and eagerly on the CPU; True insists on the
+    graph (and raises on the CPU); False runs eagerly. The graph is the
+    counterpart of the JAX package's jitted `lax.scan`: the first
+    `WARM_STEPS` steps run eagerly, the step is captured once, and every
+    later step is a replay. It needs an optimizer with a capturable mode:
+    the default is then Adam(lr=1e-3, capturable=True), and a caller's
+    Adam or AdamW gets ``capturable=True`` switched on in its param groups
+    before the first step; another optimizer raises. A capture that fails
+    raises; nothing falls back to the eager loop.
     """
-    flow, opt, start_iter, params = _start(flow, optimizer, train_base,
-                                           resume_state)
-    if scan_inputs is None:
-        def scan_inputs(g, f, n):
-            return [g] * n
-
-    def run_chunk(chunk):
-        inputs = scan_inputs(generator, flow, chunk)
-        losses, gnorms = [], []
-        for i in range(chunk):
-            opt.zero_grad(set_to_none=True)
-            loss = -objective(inputs[i], flow, *args)
-            loss.backward()
-            gnorms.append(global_norm([p.grad for p in params]))
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses), torch.stack(gnorms)
-
+    flow, opt, start_iter, run_chunk = _objective_steps(
+        generator, objective, flow, args, optimizer, train_base,
+        resume_state, scan_inputs, graph, check_every)
     return _drive_chunks(run_chunk, flow, opt, start_iter, max_iters,
                          check_every, callback, hasconverged, show_progress,
                          "train_flow")
@@ -180,39 +379,104 @@ def train_flow_mle(
     hasconverged: Callable[[int, dict, TransformedDistribution, Any], bool]
     | None = None,
     resume_state: TrainState | None = None,
+    graph: bool | None = None,
 ) -> TrainResult:
     """Forward-KL (maximum-likelihood) training from a data loader.
 
     ``loader`` is any object with ``next_batches(k) -> (k, batch, dim)``
     (`utils.data.make_loader`). Per chunk of ``check_every`` steps the
-    chunk's batches are fetched once and moved to the flow's device and
-    dtype in one copy; each step maximises `objectives.loglikelihood` of
-    its batch, the density path (inverse with log-det). `_drive_chunks`,
-    stats, callback and convergence check are `train_flow`'s.
-    ``train_base=False`` freezes ``flow.base``.
+    chunk's batches are fetched once and copied, in one host→device copy,
+    into a static buffer in the flow's dtype; each step maximises
+    `objectives.loglikelihood` of its batch, the density path (inverse
+    with log-det). `_drive_chunks`, stats, callback, convergence check and
+    ``graph`` are `train_flow`'s. ``train_base=False`` freezes
+    ``flow.base``.
     """
     from .objectives import loglikelihood
 
-    flow, opt, start_iter, params = _start(flow, optimizer, train_base,
-                                           resume_state)
-    like = next(flow.parameters())
+    flow, opt, start_iter, params, graphed = _start(
+        flow, optimizer, train_base, resume_state, graph)
+    steps = _Steps(
+        _step_body(opt, params, lambda batch: -loglikelihood(flow, batch)),
+        params[0].device, check_every, graphed, input_dtype=params[0].dtype)
 
     def run_chunk(chunk):
-        batches = torch.from_numpy(np.asarray(loader.next_batches(chunk))).to(
-            device=like.device, dtype=like.dtype)
-        losses, gnorms = [], []
-        for i in range(chunk):
-            opt.zero_grad(set_to_none=True)
-            loss = -loglikelihood(flow, batches[i])
-            loss.backward()
-            gnorms.append(global_norm([p.grad for p in params]))
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses), torch.stack(gnorms)
+        return steps.run(chunk, torch.from_numpy(
+            np.asarray(loader.next_batches(chunk))))
 
     return _drive_chunks(run_chunk, flow, opt, start_iter, max_iters,
                          check_every, callback, hasconverged, show_progress,
                          "train_flow_mle")
+
+
+def train_flow_annealed(
+    generator: torch.Generator,
+    objective: Callable[..., torch.Tensor],
+    flow: TransformedDistribution,
+    logp: Callable[[torch.Tensor], torch.Tensor],
+    n_samples: int,
+    *,
+    n_betas: int = 10,
+    iters_per_beta: int = 500,
+    final_iters: int | None = None,
+    ref_logp: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    optimizer: OptimizerFactory | None = None,
+    train_base: bool = False,
+    callback: Callable[[int, dict, TransformedDistribution], dict | None]
+    | None = None,
+    hasconverged: Callable[[int, dict, TransformedDistribution, Any], bool]
+    | None = None,
+    show_progress: bool = False,
+    check_every: int = 100,
+    resume_state: TrainState | None = None,
+    scan_inputs: Callable[[torch.Generator, TransformedDistribution, int],
+                          Any] | None = None,
+    graph: bool | None = None,
+) -> TrainResult:
+    """Annealed (tempered-path) reverse-KL training.
+
+    Trains against ``log p_β = (1−β)·log q_ref + β·log p`` for β ramping
+    linearly over ``n_betas`` segments of ``iters_per_beta`` iterations
+    (β = 1/n_betas, ..., 1), the last of which runs ``final_iters``
+    (default ``iters_per_beta``) at β=1. ``q_ref`` defaults to the flow's
+    base, so the β=0 problem is the identity map. ``objective`` is called
+    as ``objective(input, flow, logp_β, n_samples)`` (`objectives.tempered`).
+    The other keywords are `train_flow`'s; each segment is a `train_flow`
+    run resumed from the last. β is one 0-dim tensor on the flow's device,
+    filled in place per segment, so the optimizer and one captured step
+    carry across segments. ``stats["beta"]`` gives each step's β.
+
+    The JAX package's ``unroll=`` has no counterpart: a graph already
+    lays every step's kernels out.
+    """
+    from .objectives import tempered
+
+    if resume_state is not None:
+        flow = resume_state.flow
+    ref = ref_logp if ref_logp is not None else flow.base.log_prob
+    like = next(flow.parameters())
+    beta = torch.zeros((), dtype=like.dtype, device=like.device)
+    flow, opt, it, run_chunk = _objective_steps(
+        generator, tempered(objective, ref), flow, (logp, n_samples, beta),
+        optimizer, train_base, resume_state, scan_inputs, graph, check_every)
+
+    all_stats: list[dict] = []
+    state = None
+    for j in range(1, n_betas + 1):
+        iters = (final_iters if final_iters is not None and j == n_betas
+                 else iters_per_beta)
+        beta.fill_(j / n_betas)
+        res = _drive_chunks(run_chunk, flow, opt, it, iters, check_every,
+                            callback, hasconverged, show_progress,
+                            "train_flow")
+        it, state = res.state.iteration, res.state
+        stats = dict(res.stats)
+        stats["beta"] = np.full((len(stats["loss"]),), j / n_betas)
+        all_stats.append(stats)
+
+    merged = {k: np.concatenate([s[k] for s in all_stats])
+              for k in all_stats[0]}
+    return TrainResult(flow, merged, state)
 
 
 def optimize(
@@ -226,7 +490,8 @@ def optimize(
 ) -> TrainResult:
     """Minimise ``loss(input, params, *args)`` over a module's parameters
     (all of them) — the standalone analogue of `optimize` at
-    `src/optimize.jl:57-108`. Takes the same kwargs as `train_flow`."""
+    `src/optimize.jl:57-108`. Takes the same kwargs as `train_flow`,
+    ``graph`` included."""
     return train_flow(
         generator, lambda g, p, *a: -loss(g, p, *a), params, *args,
         max_iters=max_iters, optimizer=optimizer, train_base=True, **kwargs)

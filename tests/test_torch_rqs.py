@@ -29,6 +29,7 @@ import torch  # noqa: E402
 from normalizingflows.jl_tpu.ops import rqs as jax_oracle  # noqa: E402
 from normalizingflows.jl_tpu.ops import rqs_pallas  # noqa: E402
 from normalizingflows_torch.ops import _build  # noqa: E402
+from normalizingflows_torch.ops import launches  # noqa: E402
 from normalizingflows_torch.ops import rqs as oracle  # noqa: E402
 from normalizingflows_torch.ops import rqs_cuda  # noqa: E402
 
@@ -227,15 +228,12 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         raise AssertionError("the CPU path must not build the kernels")
 
     monkeypatch.setattr(_build, "library", no_build)
-    monkeypatch.setattr(rqs_cuda, "FWD_LAUNCHES", 0)
-    monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
-    monkeypatch.setattr(rqs_cuda, "BWD_INV_LAUNCHES", 0)
+    launches.reset()
     x, raw = _inputs("f32", 10, seed=29)
     for inverse in (False, True):
         _loss_grads(_t(x), _t(raw), lambda x, r: rqs_cuda.rqs_fused(
             x, r, B, inverse=inverse))
-    assert rqs_cuda.FWD_LAUNCHES == 0 and rqs_cuda.BWD_LAUNCHES == 0
-    assert rqs_cuda.BWD_INV_LAUNCHES == 0
+    assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
 
 
 @pytest.mark.parametrize("backend,exc", [("cuda", ValueError),
@@ -413,9 +411,7 @@ def _fake_entries(monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(rqs_cuda, "FWD_LAUNCHES", 0)
-    monkeypatch.setattr(rqs_cuda, "BWD_LAUNCHES", 0)
-    monkeypatch.setattr(rqs_cuda, "BWD_INV_LAUNCHES", 0)
+    launches.reset()
     return calls
 
 
@@ -448,7 +444,8 @@ def test_launch_fwd_hands_the_entry_its_plan(layout, staged, inverse,
     assert (n_, se, sp) == (n, *raw.stride())
     assert (st, s) == ((1, 29) if staged else (0, 0))
     assert (k, b, inv, stream) == (K, B, int(inverse), 0)
-    assert rqs_cuda.FWD_LAUNCHES == 1
+    assert launches.counts() == {**dict.fromkeys(launches.KERNELS, 0),
+                                 "rqs_fwd": 1}
 
 
 def test_launch_fwd_refuses_a_bad_plan_before_launching(monkeypatch):
@@ -460,7 +457,7 @@ def test_launch_fwd_refuses_a_bad_plan_before_launching(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         rqs_cuda._launch_fwd(x, torch.zeros(8, 29, dtype=torch.float64), B,
                              10, False)
-    assert calls == [] and rqs_cuda.FWD_LAUNCHES == 0
+    assert calls == [] and launches.counts()["rqs_fwd"] == 0
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -490,8 +487,9 @@ def test_launch_bwd_hands_the_entry_its_plan(layout, staged, stride, inverse,
     assert (n_, se, sp, gse, gsp, gcols) == (n, *raw.stride(),
                                             *graw.stride(), raw.shape[1])
     assert (st, rows, s, k, b, stream) == (int(staged), 256, stride, K, B, 0)
-    assert (rqs_cuda.BWD_INV_LAUNCHES if inverse
-            else rqs_cuda.BWD_LAUNCHES) == 1
+    kernel = "rqs_bwd_invdir" if inverse else "rqs_bwd_fwddir"
+    assert launches.counts() == {**dict.fromkeys(launches.KERNELS, 0),
+                                 kernel: 1}
 
 
 def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
@@ -502,7 +500,7 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         rqs_cuda._launch_bwd(x, torch.zeros(8, 200, dtype=torch.float64),
                              x, x, B, 10, False)
-    assert calls == [] and rqs_cuda.BWD_LAUNCHES == 0
+    assert calls == [] and launches.counts()["rqs_bwd_fwddir"] == 0
 
 
 @pytest.mark.parametrize("mangled,name", [

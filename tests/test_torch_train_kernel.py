@@ -39,6 +39,7 @@ from normalizingflows.jl_tpu.experimental.train_pallas import (  # noqa: E402
 import normalizingflows_torch as nft  # noqa: E402
 from normalizingflows_torch.experimental import coupling_cuda as cc  # noqa
 from normalizingflows_torch.experimental import train_cuda as tc  # noqa
+from normalizingflows_torch.ops import launches  # noqa: E402
 from normalizingflows_torch.utils.bridge import load_jax_params  # noqa: E402
 
 torch.set_num_threads(1)
@@ -155,7 +156,7 @@ def test_launches_cover_the_run_in_order(n_steps, chunk, want, monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(tc, "TRAIN_LAUNCHES", 0)
+    launches.reset()
     flow = nft.realnvp(torch.Generator().manual_seed(0), 2, (8, 8),
                        nlayers=2, dtype=torch.float64, fused=True,
                        device="cpu")
@@ -170,7 +171,7 @@ def test_launches_cover_the_run_in_order(n_steps, chunk, want, monkeypatch):
         assert (batch, d) == (3, 2)
         assert xs_p == xs.data_ptr() + step0 * 3 * 2 * xs.element_size()
         assert losses_p == losses.data_ptr() + step0 * losses.element_size()
-    assert tc.TRAIN_LAUNCHES == len(want)
+    assert launches.counts()["realnvp_train"] == len(want)
 
 
 # (c) the entry point
@@ -238,6 +239,7 @@ def test_kernel_path_refuses_before_any_step(case, monkeypatch):
         raise AssertionError("the kernels were built")
 
     monkeypatch.setattr(_build, "library", no_build)
+    launches.reset()
     if case == "backend":
         _, flow = _pair("f64")
         match, d, blocks = "CUDA", 2, None
@@ -261,7 +263,7 @@ def test_kernel_path_refuses_before_any_step(case, monkeypatch):
             tc._launch(xs, leaves, run, 512)
     with pytest.raises(ValueError, match="backend"):
         tc.adam_train_realnvp_fused(*args, backend="triton")
-    assert tc.TRAIN_LAUNCHES == 0
+    assert launches.counts()["realnvp_train"] == 0
 
 
 # (f) the plain version's manual gradient against autograd
