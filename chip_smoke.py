@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-``--phases 1,2,12,18-21`` runs only those phases (phase 1 always; 7 adds 5
-and 15 adds 14, whose flows they take) and ends with the device line alone;
-with no argument every phase runs. It builds the hand-written CUDA kernels
+``--phases 1,2,12,18-21`` runs only those phases (phase 1 always; 7 adds 5,
+15 adds 14 and 31 adds 27 and 28, whose flows they take) and ends with the
+device line alone; with no argument every phase runs. It builds the hand-written CUDA kernels
 from ``normalizingflows_torch/csrc`` and drives the port's paths through
 them: reverse-KL ELBO training of the
 neural spline flow (K1 forward, K2), its density path, maximum-likelihood
@@ -134,8 +134,41 @@ counts by replay, one capture):
 26. the graphed steps of the NSF demo and wide, the MLE demo and wide and
     the fused RealNVP demo and reference default under torch.profiler,
     over a chunk of replays: kernels a step, device busy time a step, the
-    idle share, device time by category (last: a profiler run slows
-    the host after it).
+    idle share, device time by category (run after phases 27-31, with
+    their cells' profiles: a profiler run slows the host after it).
+
+Then the classic flows, whose paths launch none of K1-K6 (each phase
+resets the counts and asserts zero launches): each training cell graphed
+(the default), then eagerly (graph=False), one capture, and graphed
+against eager on the same presampled draws with identical bits (losses
+and final parameters), then profiled as phase 26 profiles its cells (the
+parity rows of benchmarks/PARITY.md, float64):
+
+27. the planar demo: `planarflow(DiagNormal.standard(2), 10)` on
+    Banana(2, 1, 10), `elbo_batch` with 32 samples, Adam(1e-2), 10,000
+    graphed steps (the parity row's length) and 200 eager; the ELBO from
+    65,536 draws before and after beside the parity row's -0.3164 (fails
+    only if it is not finite or did not rise);
+28. the radial demo: `radialflow` alike on `WarpedGauss(1, 0.12)`, beside
+    -0.2255;
+29. the Hamiltonian demo: `hamiltonian_flow(2, Funnel(2, -8, 5).score, 15,
+    L=3, eps0=0.05)` on `joint_logp(Funnel.log_prob, 2)`, `elbo` with 16
+    samples, Adam(3e-4), 2,000 graphed steps (a tenth of the parity row's)
+    and 50 eager; the ELBO must rise (parity row -2.4701 at 20,000);
+30. the double backward under the graph: `hamiltonian_flow` with
+    Banana(2, 1, 10)'s autograd score and 3 blocks, 50 steps graphed and
+    eager on the same presampled draws; if the capture is refused,
+    train_flow raises naming graph=False, and the phase says so and runs
+    that case with graph=False;
+31. on the card, the planar and radial demo flows phases 27 and 28
+    trained: the round trip at 65,536 rows in float64 and cast to float32
+    (the JAX suite's criterion, tests/test_flows.py: |x - T^-1(T(x))| <=
+    rtol * max(max|x|, 1), rtol 1e-4 float32 and 1e-9 float64, and the
+    log-dets alike); `log_prob` and its gradient (through the root
+    solver) against the same flow on the CPU in float64 (rtol 1e-9, atol
+    1e-12). A flow at its random init can hold a planar layer near
+    singular (w'u_hat near -1), where float32 loses the criterion at a few
+    of 65,536 rows in both packages alike.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
@@ -151,6 +184,7 @@ import copy
 import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -261,12 +295,35 @@ FIRST_LOSS_REL, TRAJECTORY_REL = 1e-6, 5e-5
 GRAPH_TOL = (1e-5, 1e-6)
 SAME_STEPS, SAME_CHECK, DRAW_STEPS = 50, 20, 10
 ANNEAL_BETAS, ANNEAL_ITERS = 4, 100
-ALL_PHASES = tuple(range(1, 27))
+# phases 27-31: the classic flows (benchmarks/parity.py's planar, radial
+# and hamiltonian rows, float64). Graphed and eager steps a cell, batch,
+# learning rate, and the parity row's final ELBO (benchmarks/PARITY.md);
+# the ELBO of a flow from ELBO_DRAWS draws (the same before and after);
+# the round trip and the log_prob check of phase 31 at ROWS rows; phase
+# 30's steps; profiled replays a cell (phase 26's method)
+CLASSIC = {
+    "planar": dict(steps=10_000, eager=200, batch=32, lr=1e-2,
+                   parity=-0.3164, parity_steps=10_000, profile=100),
+    "radial": dict(steps=10_000, eager=200, batch=32, lr=1e-2,
+                   parity=-0.2255, parity_steps=10_000, profile=100),
+    "hamiltonian": dict(steps=2_000, eager=50, batch=16, lr=3e-4,
+                        parity=-2.4701, parity_steps=20_000, profile=20),
+}
+CLASSIC_LAYERS, HAM_BLOCKS, HAM_DOUBLE_BLOCKS = 10, 15, 3
+ELBO_DRAWS, ROWS, DOUBLE_STEPS = 65_536, 65_536, 50
+CLASSIC_ROUND_TRIP = {torch.float32: 1e-4, torch.float64: 1e-9}
+CPU_TOL = (1e-9, 1e-12)
+CLASSIC_KINDS = {27: "planar", 28: "radial", 29: "hamiltonian"}
+# what phase 26's method reports of a profiled cell
+PROFILE_KEYS = ("kernels_per_step", "device_busy_ms_per_step",
+                "wall_ms_per_step", "device_idle_share",
+                "ms_per_step_by_category")
+ALL_PHASES = tuple(range(1, 32))
 
 
 def parse_phases(text: str) -> tuple:
     """"1,2,12,18-21" -> (1, 2, 12, 18, 19, 20, 21); anything else than
-    phases or ranges of phases 1..21 raises ValueError."""
+    phases or ranges of phases in ALL_PHASES raises ValueError."""
     out = set()
     for part in text.split(","):
         lo, dash, hi = part.strip().partition("-")
@@ -1803,17 +1860,21 @@ def phase_graph_step(name):
 # The trainers' default on the card: the step replayed from a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _graph_and_eager(phase, label, make, train, steps, per_step, name):
+def _graph_and_eager(phase, label, make, train, steps, per_step, name,
+                     eager_steps=None):
     """One cell graphed, then eagerly: ``make()`` builds its flow (one seed
-    both times), ``train(flow, graph, callback)`` trains it ``steps`` steps.
-    Each run's launch counts must be ``per_step`` (kernel -> launches a
-    step) times ``steps``, the graphed run's by replay, with one capture;
-    its losses finite. Returns both runs' flow, result, steps/s overall
-    and after the first chunk, peak memory and counts."""
+    both times), ``train(flow, graph, callback)`` trains it ``steps`` steps
+    graphed and ``eager_steps`` (default ``steps``) eagerly. Each run's
+    launch counts must be ``per_step`` (kernel -> launches a step; an
+    empty dict: no kernel of ours) times its steps, the graphed run's by
+    replay, with one capture; its losses finite. Returns both runs' flow,
+    result, steps/s overall and after the first chunk, peak memory and
+    counts."""
     from normalizingflows_torch.ops import launches
 
     out = {}
     for graph in (True, False):
+        steps_here = steps if graph else (eager_steps or steps)
         flow = make()
         gc.collect()
         torch.cuda.synchronize()
@@ -1823,39 +1884,42 @@ def _graph_and_eager(phase, label, make, train, steps, per_step, name):
         res, dt, steady = _stamped(lambda cb: train(flow, graph, cb))
         peak = torch.cuda.max_memory_allocated()
         path = "graph" if graph else "eager"
-        counts = expect_counts(f"phase {phase}, {label}, {path}",
-                               **{k: n * steps for k, n in per_step.items()})
+        counts = expect_counts(
+            f"phase {phase}, {label}, {path}",
+            **{k: n * steps_here for k, n in per_step.items()})
         captures = launches.captures()
         if captures != int(graph):
             raise AssertionError(f"phase {phase}, {label}, {path}: "
                                  f"{captures} captures, expected "
                                  f"{int(graph)}")
         losses = res.stats["loss"]
-        if len(losses) != steps or not torch.isfinite(
+        if len(losses) != steps_here or not torch.isfinite(
                 torch.from_numpy(losses)).all():
             raise AssertionError(f"phase {phase}, {label}, {path}: "
                                  "non-finite losses")
-        out[path] = dict(flow=flow, res=res, steps_per_s=steps / dt,
+        out[path] = dict(flow=flow, res=res, steps_per_s=steps_here / dt,
                          steady=steady, peak_mib=peak / 2**20,
                          held_mib=held / 2**20, counts=counts)
     g, e = out["graph"], out["eager"]
-    say(phase, f"{label}, {steps} steps: graph {g['steady']:.1f} steps/s "
+    say(phase, f"{label}, {steps} / {eager_steps or steps} steps graphed / "
+               f"eager: graph {g['steady']:.1f} steps/s "
                f"after the first chunk ({g['steps_per_s']:.1f} overall, "
                f"one capture), eager {e['steady']:.1f} "
                f"({e['steps_per_s']:.1f} overall); peak memory graph "
                f"{g['peak_mib']:.1f} MiB, eager {e['peak_mib']:.1f} MiB "
                f"({g['held_mib']:.1f} / {e['held_mib']:.1f} held before); "
-               f"launches a step {per_step} on both paths, by replay on the "
-               f"graph's; loss {g['res'].stats['loss'][0]:.3f} -> "
+               f"launches a step {per_step or 'none of K1-K6'} on both "
+               f"paths, by replay on the graph's; loss "
+               f"{g['res'].stats['loss'][0]:.3f} -> "
                f"{g['res'].stats['loss'][-1]:.3f} graphed, on {name}")
     return out
 
 
-def _same_inputs(phase, label, make, train, steps):
+def _same_inputs(phase, label, make, train, steps, strict=False):
     """``train(flow, graph)`` graphed and eagerly on flows from ``make()``
     (one seed), on the same inputs, both with Adam(capturable=True):
     per-step losses and final parameters within GRAPH_TOL. Returns whether
-    every bit agrees."""
+    every bit agrees; ``strict`` raises unless they do."""
     runs = {}
     for graph in (True, False):
         flow = make()
@@ -1876,6 +1940,9 @@ def _same_inputs(phase, label, make, train, steps):
                f"abs err {e:.3e}, final parameters {ep:.3e} (rtol "
                f"{GRAPH_TOL[0]}, atol {GRAPH_TOL[1]}); identical bits: "
                f"{same}")
+    if strict and not same:
+        raise AssertionError(f"phase {phase}, {label}: graphed and eager "
+                             "runs on the same inputs differ in their bits")
     return same
 
 
@@ -1946,7 +2013,7 @@ def _capture_failure_raises(phase, gen):
     say(phase, f"a launch refused inside the capture raised: {message}")
 
 
-def _presampled_train(objective_target, batch, lr, steps):
+def _presampled_train(logp, batch, lr, steps):
     """``train(flow, graph)`` for `_same_inputs`: ELBO steps on
     presample_base draws from one seed, Adam(capturable=True)."""
     import normalizingflows_torch as nft
@@ -1954,7 +2021,7 @@ def _presampled_train(objective_target, batch, lr, steps):
     def train(flow, graph):
         return nft.train_flow(
             torch.Generator(device=DEVICE).manual_seed(7),
-            nft.elbo_from_samples, flow, objective_target.log_prob,
+            nft.elbo_from_samples, flow, logp,
             max_iters=steps, check_every=SAME_CHECK,
             scan_inputs=nft.presample_base(batch),
             optimizer=lambda p: torch.optim.Adam(p, lr=lr, capturable=True),
@@ -1998,7 +2065,7 @@ def phase_graph_elbo(gen, name):
         wide, 2 * WIDE_STEPS, want(WIDE), name)
     out["identical"] = _same_inputs(
         22, "NSF demo", _demo_flow,
-        _presampled_train(target, DEMO_BATCH, DEMO_LR, SAME_STEPS),
+        _presampled_train(target.log_prob, DEMO_BATCH, DEMO_LR, SAME_STEPS),
         SAME_STEPS)
     _draws_differ(22, _demo_flow, DEMO_BATCH, DEMO_LR)
     _capture_failure_raises(22, gen)
@@ -2082,7 +2149,8 @@ def phase_graph_rnvp(name, k6=None, yardstick=None):
         RNVP_REF_STEPS, want, name)
     out["identical"] = _same_inputs(
         24, "fused RealNVP demo", lambda: _rnvp(RNVP_DEMO, 0, True),
-        _presampled_train(target, RNVP_BATCH, RNVP_LR, 2 * SAME_STEPS),
+        _presampled_train(target.log_prob, RNVP_BATCH, RNVP_LR,
+                          2 * SAME_STEPS),
         2 * SAME_STEPS)
     _draws_differ(24, lambda: _rnvp(RNVP_DEMO, 0, True), RNVP_BATCH, RNVP_LR)
     say(24, f"fused RealNVP demo through train_flow's graph "
@@ -2145,18 +2213,46 @@ def phase_annealed(gen, name):
     return {"counts": counts, "identical": identical, "steady": steady}
 
 
-def phase_graph_profile(gen, name):
-    """The graphed steps under torch.profiler: each cell trains 2 × P
-    steps in chunks of P from a fresh flow and the profiler covers the
-    second chunk, P replays; kernels a step, device busy ms a step (the
-    union of the kernels' intervals), the idle share of the window's wall
-    time and the device time by category (`benchmarks/torch_profile.py`'s
-    breakdown). Last, because a profiler run slows the host's launches
-    after it."""
-    import normalizingflows_torch as nft
-
+def profile_cell(phase, label, p, train, name) -> dict:
+    """A graphed cell under torch.profiler: ``train(p, callback)`` trains
+    2 × P steps in chunks of P from a fresh flow, and the profiler covers
+    the second chunk, P replays: kernels a step, device busy ms a step
+    (the union of the kernels' intervals), the idle share of the window's
+    wall time and the device time by category
+    (`benchmarks/torch_profile.py`'s breakdown)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
     from torch_profile import _breakdown
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    t0 = []
+
+    def callback(it, stat, f):
+        if not t0:  # after the first chunk: warm steps, capture
+            torch.cuda.synchronize()
+            prof.start()
+            t0.append(time.perf_counter())
+
+    train(p, callback)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0[0]
+    prof.stop()
+    r = _breakdown(prof, p, wall)
+    say(phase, f"{label}, {p} replays under the profiler: "
+               f"{r['kernels_per_step']:.1f} kernels a step, device busy "
+               f"{r['device_busy_ms_per_step']:.4f} ms of "
+               f"{r['wall_ms_per_step']:.4f} ms a step (idle "
+               f"{100 * r['device_idle_share']:.1f} %), by category "
+               f"{r['ms_per_step_by_category']}, on {name}")
+    return r
+
+
+def phase_graph_profile(gen, name):
+    """The graphed steps under torch.profiler (`profile_cell`). After
+    every other phase, because a profiler run slows the host's launches
+    after it."""
+    import normalizingflows_torch as nft
 
     banana = nft.Banana(2, 1.0, 100.0)
     wide_banana = nft.Banana(WIDE["q0"], 1.0, 100.0)
@@ -2187,32 +2283,199 @@ def phase_graph_profile(gen, name):
                                 RNVP_BATCH, RNVP_LR)),
         ("rnvp_ref", 20, elbo(lambda: _rnvp(RNVP_REF, 50, True), banana,
                               RNVP_REF_BATCH, RNVP_LR)))
-    out = {}
-    for label, p, train in cells:
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        t0 = []
+    return {label: profile_cell(26, label, p, train, name)
+            for label, p, train in cells}
 
-        def callback(it, stat, f):
-            if not t0:  # after the first chunk: warm steps, capture
-                torch.cuda.synchronize()
-                prof.start()
-                t0.append(time.perf_counter())
 
-        train(p, callback)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0[0]
-        prof.stop()
-        out[label] = _breakdown(prof, p, wall)
-        r = out[label]
-        say(26, f"{label}, {p} replays under the profiler: "
-                f"{r['kernels_per_step']:.1f} kernels a step, device busy "
-                f"{r['device_busy_ms_per_step']:.4f} ms of "
-                f"{r['wall_ms_per_step']:.4f} ms a step (idle "
-                f"{100 * r['device_idle_share']:.1f} %), by category "
-                f"{r['ms_per_step_by_category']}, on {name}")
-    return out
+# ---------------------------------------------------------------------------
+# The classic flows: planar, radial and Hamiltonian (no kernel of ours)
+# ---------------------------------------------------------------------------
+
+def _classic_cell(kind, dtype=torch.float64):
+    """(make, logp, objective) of a classic demo: ``make()`` builds its
+    flow on the card, the same weights at every call (seed 0)."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.models.hamiltonian import joint_logp
+
+    if kind == "hamiltonian":
+        funnel = nft.Funnel(2, -8.0, 5.0)
+        return (lambda: nft.hamiltonian_flow(
+                    2, funnel.score, HAM_BLOCKS, L=3, eps0=0.05, dtype=dtype,
+                    device=DEVICE),
+                joint_logp(funnel.log_prob, 2), nft.elbo)
+    build, target = ((nft.planarflow, nft.Banana(2, 1.0, 10.0))
+                     if kind == "planar"
+                     else (nft.radialflow, nft.WarpedGauss(1.0, 0.12)))
+    return (lambda: build(torch.Generator().manual_seed(0),
+                          nft.DiagNormal.standard(2, dtype, DEVICE),
+                          CLASSIC_LAYERS, dtype, DEVICE),
+            target.log_prob, nft.elbo_batch)
+
+
+def _elbo_of(flow, logp) -> float:
+    """The ELBO from ELBO_DRAWS base draws of one seed (the same draws for
+    every flow of a dimension: common random numbers for before/after)."""
+    import normalizingflows_torch as nft
+
+    with torch.no_grad():
+        return float(nft.elbo_batch(
+            torch.Generator(device=DEVICE).manual_seed(99), flow, logp,
+            ELBO_DRAWS))
+
+
+def phase_classic(phase, kind, name):
+    """A classic demo (phases 27-29): ``CLASSIC[kind]``'s steps graphed,
+    then eagerly, with no K1-K6 launch and one capture; the ELBO before
+    and after beside the parity row's; graphed against eager on the same
+    draws, which must give identical bits. Returns the cell (for
+    `graph_cells`), and its ELBOs and a thunk that profiles it."""
+    import normalizingflows_torch as nft
+
+    cfg = CLASSIC[kind]
+    make, logp, objective = _classic_cell(kind)
+
+    def train(flow, graph, callback, steps=None, check_every=None,
+              seed=phase):
+        steps = steps or (cfg["steps"] if graph else cfg["eager"])
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(seed), objective,
+            flow, logp, cfg["batch"], max_iters=steps,
+            check_every=check_every or (100 if graph else cfg["eager"] // 2),
+            callback=callback, graph=graph,
+            optimizer=lambda p: torch.optim.Adam(p, lr=cfg["lr"]))
+
+    before = _elbo_of(make(), logp)
+    out = {"demo": _graph_and_eager(phase, f"{kind} demo", make, train,
+                                    cfg["steps"], {}, name,
+                                    eager_steps=cfg["eager"])}
+    after = _elbo_of(out["demo"]["graph"]["flow"], logp)
+    if not (math.isfinite(after) and after > before):
+        raise AssertionError(f"phase {phase}, {kind} demo: the ELBO went "
+                             f"{before} -> {after}")
+    say(phase, f"{kind} demo: ELBO from {ELBO_DRAWS} draws {before:.4f} -> "
+               f"{after:.4f} after {cfg['steps']} graphed steps; the parity "
+               f"row (benchmarks/PARITY.md, the JAX package, "
+               f"{cfg['parity_steps']} steps) {cfg['parity']}; no K1-K6 "
+               f"launch on either path")
+    reset_counts()
+    out["identical"] = _same_inputs(
+        phase, f"{kind} demo", make,
+        _presampled_train(logp, cfg["batch"], cfg["lr"], SAME_STEPS),
+        SAME_STEPS, strict=True)
+    expect_counts(f"phase {phase}, {kind} demo on the same inputs")
+    info = {"elbo_before": before, "elbo_after": after,
+            "profile": lambda: profile_cell(
+                phase, f"{kind} demo", cfg["profile"],
+                lambda p, cb: train(make(), None, cb, 2 * p, p, seed=0),
+                name)}
+    return out, info
+
+
+def phase_double_backward(name):
+    """The Hamiltonian flow with Banana(2, 1, 10)'s autograd score, whose
+    step takes a double backward: DOUBLE_STEPS steps graphed and eagerly on
+    the same draws (identical bits), no K1-K6 launch, one capture. If the
+    capture is refused, train_flow raises naming graph=False; the phase
+    says so and runs that case with graph=False."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.models.hamiltonian import joint_logp
+    from normalizingflows_torch.ops import launches
+
+    banana = nft.Banana(2, 1.0, 10.0)
+    cfg = CLASSIC["hamiltonian"]
+    logp = joint_logp(banana.log_prob, 2)
+
+    def make():
+        return nft.hamiltonian_flow(2, banana.score, HAM_DOUBLE_BLOCKS, L=3,
+                                    eps0=0.05, dtype=torch.float64,
+                                    device=DEVICE)
+
+    train = _presampled_train(logp, cfg["batch"], cfg["lr"], DOUBLE_STEPS)
+    label = "Hamiltonian flow with Banana's autograd score"
+    reset_counts()
+    try:
+        identical = _same_inputs(30, label, make, train, DOUBLE_STEPS,
+                                 strict=True)
+    except RuntimeError as err:
+        if "graph=False" not in str(err):
+            raise
+        say(30, f"the graphed step with a double backward raised: {err}")
+        reset_counts()
+        losses = train(make(), False).stats["loss"]
+        expect_counts("phase 30, eager")
+        if not torch.isfinite(torch.from_numpy(losses)).all():
+            raise AssertionError("phase 30: non-finite eager losses")
+        say(30, f"{label}: ran {DOUBLE_STEPS} steps with graph=False, loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        return {"captured": False}
+    captures = launches.captures()
+    expect_counts("phase 30")
+    if captures != 1:
+        raise AssertionError(f"phase 30: {captures} captures, expected 1")
+    say(30, f"{label}: the double backward captured (one capture), "
+            f"identical bits graphed and eager: {identical}, no K1-K6 "
+            f"launch")
+
+    def profile_train(p, cb):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(0), nft.elbo, make(),
+            logp, cfg["batch"], max_iters=2 * p, check_every=p, callback=cb,
+            optimizer=lambda q: torch.optim.Adam(q, lr=cfg["lr"]))
+
+    return {"captured": True, "identical": identical,
+            "profile": lambda: profile_cell(30, label, 10, profile_train,
+                                            name)}
+
+
+def phase_classic_round_trip(trained, name):
+    """The planar and radial demo flows phases 27 and 28 trained
+    (``trained``: kind -> flow) on the card at ROWS rows: the round trip
+    through the root solver in float64 and cast to float32 (the JAX
+    suite's criterion), and log_prob with its gradient against the same
+    float64 flow on the CPU. No K1-K6 launch."""
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    for kind, trained_flow in trained.items():
+        for dtype in (torch.float32, torch.float64):
+            flow = copy.deepcopy(trained_flow).to(dtype)
+            reset_counts()
+            with torch.no_grad():
+                x = flow.base.sample(gen, (ROWS,))
+                y, ld = flow.bijector.forward_and_log_det(x)
+                back, ild = flow.bijector.inverse_and_log_det(y)
+            expect_counts(f"phase 31, {kind} round trip")
+            rtol = CLASSIC_ROUND_TRIP[dtype]
+            err = float((back - x).abs().max())
+            bound = rtol * max(float(x.abs().max()), 1.0)
+            ld_err = float((ld + ild).abs().max())
+            ld_bound = rtol * max(float(ld.abs().max()), 1.0)
+            say(31, f"{kind} round trip, {ROWS} rows, {dtype}: max |x - "
+                    f"T^-1(T(x))| {err:.3e} (bound {bound:.3e}), max |ld + "
+                    f"ld_inv| {ld_err:.3e} (bound {ld_bound:.3e})")
+            if not (err <= bound and ld_err <= ld_bound):
+                raise AssertionError(f"phase 31: {kind} {dtype} round trip "
+                                     "outside its bound")
+        flow = copy.deepcopy(trained_flow)
+        flow.zero_grad(set_to_none=True)  # the training's last gradients
+        cpu = copy.deepcopy(flow).to("cpu")
+        with torch.no_grad():
+            y = flow.sample(gen, (ROWS,))
+        reset_counts()
+        lp = flow.log_prob(y)
+        lp.mean().backward()
+        expect_counts(f"phase 31, {kind} log_prob")
+        lp_cpu = cpu.log_prob(y.cpu())
+        lp_cpu.mean().backward()
+        e = compare(f"{kind} log_prob, card vs CPU (float64)", lp.cpu(),
+                    lp_cpu, CPU_TOL)
+        # the trainable parameters: the demo froze the base
+        eg = max(compare(f"{kind} d log_prob / d {n}", p.grad.cpu(),
+                         q.grad, CPU_TOL, quiet=True)
+                 for (n, p), q in zip(flow.named_parameters(),
+                                      cpu.parameters()) if p.requires_grad)
+        say(31, f"{kind}: log_prob of {ROWS} rows and its gradient through "
+                f"the inverse on the card against the CPU, float64: max abs "
+                f"err {e:.3e} / {eg:.3e} (rtol {CPU_TOL[0]}, atol "
+                f"{CPU_TOL[1]}), on {name}")
 
 
 def graph_cells(phase: int, out: dict) -> dict:
@@ -2232,7 +2495,8 @@ def graph_cells(phase: int, out: dict) -> dict:
 
 def selected_phases(argv=None) -> set:
     """The phases a command line asks for, with phase 1 and the phases
-    whose results a selected one takes: 7 takes 5's flow, 15 takes 14's."""
+    whose results a selected one takes: 7 takes 5's flow, 15 takes 14's,
+    31 takes 27's and 28's."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", type=parse_phases, default=ALL_PHASES,
                         help="phases to run, e.g. 1,2,12,18-21 (default: "
@@ -2240,6 +2504,7 @@ def selected_phases(argv=None) -> set:
     phases = set(parser.parse_args(argv).phases) | {1}
     phases |= {5} if 7 in phases else set()
     phases |= {14} if 15 in phases else set()
+    phases |= {27, 28} if 31 in phases else set()
     return phases
 
 
@@ -2303,21 +2568,45 @@ def main(argv=None) -> int:
             yardstick=graph["graph_steps_per_s"] if 21 in phases else None)
     if 25 in phases:
         annealed = phase_annealed(gen, name)
+    classic = {}  # phases 27-29's cells and their ELBOs
+    for phase, kind in CLASSIC_KINDS.items():
+        if phase in phases:
+            classic[phase] = phase_classic(phase, kind, name)
+    if 30 in phases:
+        double = phase_double_backward(name)
+    if 31 in phases:
+        phase_classic_round_trip(
+            {CLASSIC_KINDS[p]: classic[p][0]["demo"]["graph"]["flow"]
+             for p in (27, 28)}, name)
+    # the profiles last: a profiler run slows the host's launches after it
     if 26 in phases:
         profiled = phase_graph_profile(gen, name)
+    for phase, (_, info) in classic.items():
+        info["profiled"] = info.pop("profile")()
+    if 30 in phases and double["captured"]:
+        double["profiled"] = double.pop("profile")()
     cells = {}
     for phase, out in graphed.items():
         cells.update(graph_cells(phase, out))
+    for phase, (out, info) in classic.items():
+        cell = graph_cells(phase, out)[f"demo_{phase}"]
+        cell.update(elbo_before=info["elbo_before"],
+                    elbo_after=info["elbo_after"],
+                    **{k: info["profiled"][k] for k in PROFILE_KEYS})
+        cells[f"{CLASSIC_KINDS[phase]}_{phase}"] = cell
+    if 30 in phases:
+        cells["double_backward_30"] = {
+            "captured": double["captured"],
+            "identical_bits": double.get("identical"),
+            **{k: double["profiled"][k] for k in PROFILE_KEYS
+               if "profiled" in double}}
     if 25 in phases:
         cells["annealed_demo"] = {"graph_steady": annealed["steady"],
                                   "identical_bits": annealed["identical"]}
     if 26 in phases:
         for label, r in profiled.items():
             cells.setdefault(f"profile_{label}", {}).update(
-                {k: r[k] for k in ("kernels_per_step",
-                                   "device_busy_ms_per_step",
-                                   "wall_ms_per_step", "device_idle_share",
-                                   "ms_per_step_by_category")})
+                {k: r[k] for k in PROFILE_KEYS})
     if cells:
         # the graphed cells beside the eager ones, measured in this call
         print(json.dumps({"graph_cells": cells}), flush=True)
@@ -2344,7 +2633,10 @@ def main(argv=None) -> int:
              "elbo_demo_graph": graphed[22]["demo"]["graph"]["counts"],
              "mle_demo_graph": graphed[23]["demo"]["graph"]["counts"],
              "realnvp_demo_graph": graphed[24]["demo"]["graph"]["counts"],
-             "annealed_demo_graph": annealed["counts"]}
+             "annealed_demo_graph": annealed["counts"],
+             **{f"{CLASSIC_KINDS[p]}_demo_graph":
+                out["demo"]["graph"]["counts"]
+                for p, (out, _) in classic.items()}}
     own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
            "rqs_bwd_invdir": "mle_demo_graph",
            "coupling_fwd": "realnvp_demo_graph",

@@ -9,23 +9,34 @@ whole training run) are CUDA C++ in `csrc/`, built with nvcc at first use.
 
 The port covers reverse-KL ELBO training of the neural spline flow, its
 density path (log_prob with gradients) and maximum-likelihood training,
-annealed (tempered-path) training, and RealNVP, unfused or through the
+annealed (tempered-path) training, RealNVP, unfused or through the
 fused coupling-stack kernels, whose whole ELBO training run
-`train_realnvp_fused` takes one kernel launch per chunk of steps. On the
+`train_realnvp_fused` takes one kernel launch per chunk of steps, and the
+classic flows: planar and radial (inverses by an implicit-gradient root
+solve) and the Hamiltonian flow with its targets. On the
 card the trainers replay their step from a CUDA graph (``graph=``):
   train_flow, train_flow_mle, train_flow_annealed,
   optimize                             -> .train
   elbo, elbo_batch, elbo_from_samples, elbo_stl, elbo_iw,
   loglikelihood, tempered              -> .objectives
   create_flow                          -> .models.flows
-  Shift, Scale                         -> .models.bijector
+  Shift, Scale, Stacked, Repeated, chain,
+  stack_bijectors                      -> .models.bijector
+  transformed                          -> .models.distributions
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
   realnvp, RealNVP_layer, AffineCoupling, CouplingPairStack
                                        -> .models.coupling
   realnvp(fused=True): FusedRealNVP,
   train_realnvp_fused (lazy)           -> .experimental
-  MLP, fnn                             -> .models.nets
-  Banana                               -> .models.targets
+  planarflow, radialflow, PlanarLayer, RadialLayer
+                                       -> .models.planar_radial
+  hamiltonian_flow, LeapFrog, momentum_normalization_layer
+                                       -> .models.hamiltonian
+                                          (and joint_logp, not re-exported,
+                                          as in the JAX package)
+  MLP, fnn, mlp3                       -> .models.nets
+  Banana, Funnel, GaussianMixture, Cross, WarpedGauss
+                                       -> .models.targets
   utils.data.make_loader, NumpyLoader  -> .utils.data
 Constructors build on the card unless given ``device="cpu"``.
 """
@@ -43,9 +54,13 @@ from .models.bijector import (  # noqa: E402
     Chain,
     Identity,
     Inverse,
+    Repeated,
     Scale,
     Shift,
+    Stacked,
+    chain,
     invert,
+    stack_bijectors,
 )
 from .models.coupling import (  # noqa: E402
     AffineCoupling,
@@ -58,16 +73,34 @@ from .models.distributions import (  # noqa: E402
     Distribution,
     StandardNormal,
     TransformedDistribution,
+    transformed,
 )
 from .models.flows import create_flow  # noqa: E402
-from .models.nets import MLP, fnn  # noqa: E402
+from .models.hamiltonian import (  # noqa: E402
+    LeapFrog,
+    hamiltonian_flow,
+    momentum_normalization_layer,
+)
+from .models.nets import MLP, fnn, mlp3  # noqa: E402
+from .models.planar_radial import (  # noqa: E402
+    PlanarLayer,
+    RadialLayer,
+    planarflow,
+    radialflow,
+)
 from .models.spline import (  # noqa: E402
     NeuralSplineCoupling,
     NSF_layer,
     SplinePairStack,
     nsf,
 )
-from .models.targets import Banana  # noqa: E402
+from .models.targets import (  # noqa: E402
+    Banana,
+    Cross,
+    Funnel,
+    GaussianMixture,
+    WarpedGauss,
+)
 from .objectives import (  # noqa: E402
     elbo,
     elbo_batch,
@@ -105,16 +138,19 @@ def __getattr__(name: str):
 
 __all__ = [
     # bijectors
-    "Bijector", "Chain", "Identity", "Inverse", "invert", "Shift", "Scale",
+    "Bijector", "Chain", "Identity", "Inverse", "Repeated", "Scale", "Shift",
+    "Stacked", "chain", "invert", "stack_bijectors",
     # distributions
     "DiagNormal", "Distribution", "StandardNormal",
-    "TransformedDistribution",
+    "TransformedDistribution", "transformed",
     # flows
-    "create_flow", "MLP", "fnn",
+    "create_flow", "MLP", "fnn", "mlp3",
     "NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf",
     "AffineCoupling", "CouplingPairStack", "RealNVP_layer", "realnvp",
+    "PlanarLayer", "RadialLayer", "planarflow", "radialflow",
+    "LeapFrog", "hamiltonian_flow", "momentum_normalization_layer",
     # targets
-    "Banana",
+    "Banana", "Cross", "Funnel", "GaussianMixture", "WarpedGauss",
     # objectives
     "elbo", "elbo_batch", "elbo_from_samples", "elbo_iw",
     "elbo_single_sample", "elbo_stl", "loglikelihood", "presample_base",

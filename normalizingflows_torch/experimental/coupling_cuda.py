@@ -60,6 +60,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops import launches
+from ..ops.masks import cached_index
 
 __all__ = [
     "coupling_stack_fused", "tile_flow", "tile_flow_bwd", "fwd_plan",
@@ -139,10 +140,7 @@ _INDEX: dict = {}
 
 
 def _index(idx, device):
-    key = (idx, device)
-    if key not in _INDEX:
-        _INDEX[key] = torch.tensor(idx, dtype=torch.long, device=device)
-    return _INDEX[key]
+    return cached_index(_INDEX, idx, device)
 
 
 def _pick(x, idx):

@@ -17,6 +17,7 @@ from .bijector import Bijector
 
 __all__ = [
     "Distribution", "DiagNormal", "StandardNormal", "TransformedDistribution",
+    "transformed",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -124,3 +125,9 @@ class TransformedDistribution(Distribution):
     def log_prob(self, y):
         x, log_det = self.bijector.inverse_and_log_det(y)
         return self.base.log_prob(x) + log_det
+
+
+def transformed(base: Distribution,
+                bijector: Bijector) -> TransformedDistribution:
+    """Bijectors.jl `transformed(q0, T)`."""
+    return TransformedDistribution(base, bijector)

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 
-__all__ = ["Dense", "MLP", "fnn", "leaky_relu"]
+__all__ = ["Dense", "MLP", "fnn", "mlp3", "leaky_relu"]
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -104,3 +104,18 @@ def fnn(
         act = output_activation if i == len(dims) - 2 else inlayer_activation
         layers.append(Dense.make(generator, din, dout, act, dtype, device))
     return MLP(layers)
+
+
+def mlp3(
+    generator: torch.Generator,
+    input_dim: int,
+    hidden_dim: int,
+    output_dim: int,
+    activation: Callable = leaky_relu,
+    dtype=torch.float32,
+    device=None,
+) -> MLP:
+    """3-layer MLP (reference `mlp3`, `src/flows/utils.jl:33-46`): in→h
+    (act), h→h (act), h→out (linear), on ``device`` (None: the card)."""
+    return fnn(generator, input_dim, [hidden_dim, hidden_dim], output_dim,
+               inlayer_activation=activation, dtype=dtype, device=device)

@@ -13,7 +13,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["PartitionMask", "interleave"]
+__all__ = ["PartitionMask", "interleave", "cached_index"]
+
+
+def cached_index(cache: dict, idx: tuple[int, ...], device) -> torch.Tensor:
+    """``idx`` as a long tensor on ``device``, made once and kept in
+    ``cache`` (keyed by index set and device): later calls copy nothing
+    from the host."""
+    key = (idx, device)
+    if key not in cache:
+        cache[key] = torch.tensor(idx, dtype=torch.long, device=device)
+    return cache[key]
 
 
 def _as_strided(idx: tuple[int, ...], dim: int):
@@ -77,13 +87,6 @@ class PartitionMask:
     def n_conditioned(self) -> int:
         return len(self.idx_b)
 
-    def _index(self, idx: tuple[int, ...], device) -> torch.Tensor:
-        key = (idx, device)
-        if key not in self._indices:
-            self._indices[key] = torch.tensor(idx, dtype=torch.long,
-                                              device=device)
-        return self._indices[key]
-
     def _take(self, x: torch.Tensor, idx: tuple[int, ...]) -> torch.Tensor:
         if not idx:
             return x[..., :0]
@@ -91,7 +94,7 @@ class PartitionMask:
         if s is not None:
             start, step = s
             return x[..., start::step]
-        return x[..., self._index(idx, x.device)]
+        return x[..., cached_index(self._indices, idx, x.device)]
 
     def partition(self, x: torch.Tensor):
         """Split (..., dim) into (x_A, x_B, x_C)."""
@@ -111,5 +114,6 @@ class PartitionMask:
         for idx, part in ((self.idx_a, x_a), (self.idx_b, x_b),
                           (self.idx_c, x_c)):
             if idx:
-                out = out.index_copy(-1, self._index(idx, out.device), part)
+                out = out.index_copy(
+                    -1, cached_index(self._indices, idx, out.device), part)
         return out

@@ -23,6 +23,7 @@ The flow is trained in place: `TrainResult.flow` is the module passed in.
 
 from __future__ import annotations
 
+import copy
 import functools
 import time
 import warnings
@@ -438,9 +439,12 @@ def train_flow_annealed(
     Trains against ``log p_β = (1−β)·log q_ref + β·log p`` for β ramping
     linearly over ``n_betas`` segments of ``iters_per_beta`` iterations
     (β = 1/n_betas, ..., 1), the last of which runs ``final_iters``
-    (default ``iters_per_beta``) at β=1. ``q_ref`` defaults to the flow's
-    base, so the β=0 problem is the identity map. ``objective`` is called
-    as ``objective(input, flow, logp_β, n_samples)`` (`objectives.tempered`).
+    (default ``iters_per_beta``) at β=1. ``q_ref`` defaults to a frozen
+    copy of ``flow.base`` as passed in (before any step, and not
+    ``resume_state``'s), so the β=0 problem is the identity map and the
+    path stays put when ``train_base=True`` moves the base. ``objective``
+    is called as ``objective(input, flow, logp_β, n_samples)``
+    (`objectives.tempered`).
     The other keywords are `train_flow`'s; each segment is a `train_flow`
     run resumed from the last. β is one 0-dim tensor on the flow's device,
     filled in place per segment, so the optimizer and one captured step
@@ -451,9 +455,12 @@ def train_flow_annealed(
     """
     from .objectives import tempered
 
+    # JAX binds flow.base.log_prob on an immutable pytree: the argument's
+    # base as it was. A deep copy keeps it so, on the base's device.
+    ref = (ref_logp if ref_logp is not None else
+           copy.deepcopy(flow.base).requires_grad_(False).log_prob)
     if resume_state is not None:
         flow = resume_state.flow
-    ref = ref_logp if ref_logp is not None else flow.base.log_prob
     like = next(flow.parameters())
     beta = torch.zeros((), dtype=like.dtype, device=like.device)
     flow, opt, it, run_chunk = _objective_steps(

@@ -34,15 +34,17 @@ def jax_arrays(tree) -> dict:
     return {jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves}
 
 
-def _meanfield(dt, a=None, b=None):
+def _meanfield(dt, a=None, b=None, loc=None):
     """The JAX mean-field flow (`tests/test_annealed.py:15-20`), scale
-    ``a`` and shift ``b`` (default 1 and 0), and the port's copy of it."""
+    ``a`` and shift ``b`` (default 1 and 0), its base's mean ``loc``
+    (default 0), and the port's copy of it."""
     jdt, tdt, ndt = DT[dt]
     a = np.ones(DIM, ndt) if a is None else np.asarray(a, ndt)
     b = np.zeros(DIM, ndt) if b is None else np.asarray(b, ndt)
+    loc = np.zeros(DIM, ndt) if loc is None else np.asarray(loc, ndt)
     jflow = nf.create_flow(
         [nf.Scale(jnp.asarray(a)), nf.Shift(jnp.asarray(b))],
-        nf.DiagNormal.standard(DIM, jdt))
+        nf.DiagNormal(jnp.asarray(loc), jnp.ones(DIM, jdt)))
     tflow = nft.create_flow(
         [nft.Scale(torch.ones(DIM, dtype=tdt)),
          nft.Shift(torch.zeros(DIM, dtype=tdt))],
@@ -156,6 +158,84 @@ def test_train_flow_annealed_matches_jax(dt):
         np.testing.assert_allclose(p.detach().numpy(),
                                    ref[name].detach().numpy(), rtol=rtol,
                                    atol=atol, err_msg=name)
+
+
+def _annealed_pair(dt, key, jflow, tflow, train_base, resume=None,
+                   segments=(4, 4, 3)):
+    """JAX `train_flow_annealed` on ``jflow`` and the port's on ``tflow``
+    with the same draws: (JAX result, port result). ``resume`` is a pair
+    of states to resume from."""
+    jt, tt = _targets(dt)
+    jdt = DT[dt][0]
+    kw = dict(n_betas=len(segments), iters_per_beta=segments[0],
+              final_iters=segments[-1], check_every=3,
+              train_base=train_base)
+    jres = nf.train_flow_annealed(
+        key, _jax_objective, jflow, jt.log_prob, N,
+        optimizer=optax.adam(LR),
+        scan_inputs=lambda k, f, n: jax.random.normal(k, (n, N, DIM), jdt),
+        resume_state=None if resume is None else resume[0], **kw)
+    draws = torch.from_numpy(_annealed_draws(key, dt, segments, 3))
+    pos = [0]
+
+    def presampled(generator, flow, chunk):
+        pos[0] += chunk
+        return draws[pos[0] - chunk:pos[0]]
+
+    res = nft.train_flow_annealed(
+        torch.Generator(), _port_objective, tflow, tt.log_prob, N,
+        optimizer=lambda p: torch.optim.Adam(p, lr=LR),
+        scan_inputs=presampled,
+        resume_state=None if resume is None else resume[1], **kw)
+    assert pos[0] == len(draws) == sum(segments)
+    return jres, res
+
+
+def _same_run(jres, res, dt):
+    rtol, atol = TOL[dt]
+    np.testing.assert_array_equal(res.stats["beta"], jres.stats["beta"])
+    np.testing.assert_allclose(res.stats["loss"], jres.stats["loss"],
+                               rtol=rtol, atol=atol)
+    ref = dict(load_jax_params(_meanfield(dt)[1],
+                               jax_arrays(jres.flow)).named_parameters())
+    for name, p in res.flow.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   ref[name].detach().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_train_flow_annealed_trains_the_base_as_jax_does(dt):
+    """``train_base=True``: the base trains, and the tempered path's q_ref
+    stays the base as passed in, as JAX's (bound on an immutable pytree)
+    does; a q_ref that followed the live base would change the path and
+    send gradient into the base through (1−β)·log q_ref."""
+    jflow, tflow = _meanfield(dt, a=[1.1, 0.9], b=[0.2, -0.1],
+                              loc=[0.5, -0.3])
+    start = tflow.base.loc.detach().clone()
+    jres, res = _annealed_pair(dt, jax.random.key(4), jflow, tflow, True)
+    assert not torch.equal(res.flow.base.loc.detach(), start)
+    assert all(p.requires_grad for p in res.flow.parameters())
+    _same_run(jres, res, dt)
+
+
+def test_train_flow_annealed_resumes_with_the_arguments_base():
+    """On resume, q_ref is the ``flow`` argument's base, not the resumed
+    state's (which a first run with ``train_base=True`` has moved)."""
+    dt = "f64"
+    jflow, tflow = _meanfield(dt, a=[1.1, 0.9], b=[0.2, -0.1],
+                              loc=[0.5, -0.3])
+    jfirst, first = _annealed_pair(dt, jax.random.key(5), jflow, tflow,
+                                   True, segments=(3, 3))
+    _same_run(jfirst, first, dt)
+    _, argument = _meanfield(dt, a=[1.1, 0.9], b=[0.2, -0.1],
+                             loc=[0.5, -0.3])
+    jres, res = _annealed_pair(dt, jax.random.key(6), jflow, argument, True,
+                               resume=(jfirst.state, first.state),
+                               segments=(3, 3))
+    assert res.flow is tflow and res.state.iteration == 12
+    np.testing.assert_array_equal(res.stats["iteration"], np.arange(7, 13))
+    _same_run(jres, res, dt)
 
 
 def test_annealed_reaches_far_target():

@@ -62,6 +62,18 @@ def test_public_names_are_spelled_as_in_the_jax_package():
     missing = [n for n in nft.__all__ if not hasattr(nft, n)]
     assert not missing
     assert set(nft.__all__) <= set(nf.__all__)
+    # the classic flow zoo, its combinators and targets
+    assert {"planarflow", "radialflow", "PlanarLayer", "RadialLayer",
+            "hamiltonian_flow", "LeapFrog", "momentum_normalization_layer",
+            "Stacked", "Repeated", "stack_bijectors", "chain", "transformed",
+            "mlp3", "Funnel", "GaussianMixture", "Cross",
+            "WarpedGauss"} <= set(nft.__all__)
+    # joint_logp is public in its module only, in both packages
+    from normalizingflows.jl_tpu.models import hamiltonian as jh
+    from normalizingflows_torch.models import hamiltonian as th
+
+    assert "joint_logp" in th.__all__ and callable(jh.joint_logp)
+    assert not hasattr(nf, "joint_logp") and not hasattr(nft, "joint_logp")
 
 
 def test_fused_path_loads_lazily():
