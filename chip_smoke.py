@@ -170,6 +170,45 @@ parity rows of benchmarks/PARITY.md, float64):
     singular (w'u_hat near -1), where float32 loses the criterion at a few
     of 65,536 rows in both packages alike.
 
+Then the rest of the flow zoo, float32, each training cell graphed, then
+eagerly, one capture, and graphed against eager on the same presampled
+draws or batches with identical bits (strict), profiled after every
+other phase as phase 26 profiles its cells:
+
+32. nsf_banana_hard's model (benchmarks/parity.py:222-241):
+    `nsf(2, identity_init=True, affine_wrap=True)` (an ActNorm each side
+    of the spline stack) on Banana(2, 1, 100), `elbo_batch` 64,
+    Adam(5e-4), 300 graphed and 20 eager steps, K1 and K2 20 a step, no
+    K3; `evaluate_flow` from 65,536 draws before and after (ELBO ± SEM,
+    log Z estimate, ESS/n; the ELBO must rise). No parity claim: the
+    row's warmup-cosine schedule is not ported;
+33. NSF wide (phase 6's shape) with `remat=True` and without, 20 steps
+    each graphed and eagerly on the same draws and weights: K1 and K2 20
+    a step in all four runs (the selective remat never runs K1 again),
+    remat against no remat within GRAPH_TOL with its bits reported, peak
+    allocated memory and steps/s of each; then steps/s of the default
+    graphed run (60 steps, chunks of 20) in turns: no remat, remat,
+    remat, no remat;
+34. the MLE demo (phase 10's recipe) with `remat=True`, 50 steps: K1
+    (inverse) and K3 20 a step, no K2; the held-out log-likelihood must
+    rise; remat against no remat on the same batches within GRAPH_TOL;
+35. the glow demo (benchmarks/parity.py:332-345): `glow(2, (32, 32),
+    nlayers=6)`, `glow_init_actnorms` on 1,024 base draws, `Cross()`,
+    `elbo_batch` 64, Adam(2e-3), 1,000 graphed and 50 eager steps, no
+    K1-K6 launch; the ELBO must rise; the trained flow's round trip at
+    65,536 rows through the triangular solves (phase 31's criterion,
+    float32 rtol 1e-4);
+36. the IAF demo (:347-359): `iaf(2, (32, 32), nlayers=5)` on
+    Banana(2, 1, 10), `elbo_batch` 64, Adam(2e-3), 1,000 graphed and 50
+    eager steps, no K1-K6 launch; the round trip through the sequential
+    inverse at 65,536 rows;
+37. the MAF demo (:361-373): `maf(2, (32, 32), nlayers=5)` by
+    `train_flow_mle` on phase 10's 65,536 exact draws of Banana(2, 1, 10),
+    batch 256, Adam(1e-3), 300 graphed and 50 eager steps, no K1-K6
+    launch; the held-out log-likelihood before and after beside the
+    target's E_p[log p]; `sample` (the sequential direction) and the round
+    trip at 65,536 rows.
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -318,7 +357,28 @@ CLASSIC_KINDS = {27: "planar", 28: "radial", 29: "hamiltonian"}
 PROFILE_KEYS = ("kernels_per_step", "device_busy_ms_per_step",
                 "wall_ms_per_step", "device_idle_share",
                 "ms_per_step_by_category")
-ALL_PHASES = tuple(range(1, 32))
+# phases 32-37: the rest of the flow zoo, float32. nsf_banana_hard's model
+# (benchmarks/parity.py:222-241, without its warmup-cosine schedule) for
+# WRAP_STEPS graphed and WRAP_EAGER eager steps; NSF wide with and without
+# remat for WIDE_STEPS steps each in chunks of WIDE_STEPS // 2, on the same
+# draws; the MLE demo with remat for MLE_REMAT_STEPS; the glow, iaf and maf
+# demos (benchmarks/parity.py:332-373): graphed and eager steps, batch,
+# learning rate, the parity row (benchmarks/PARITY.md) and its steps, and
+# the profiled replays; the diagnostics from ELBO_DRAWS draws, the round
+# trips at ROWS rows within CLASSIC_ROUND_TRIP
+NSF_WRAP = dict(DEMO, affine_wrap=True)
+WRAP_STEPS, WRAP_EAGER, MLE_REMAT_STEPS, RATE_CHUNK = 300, 20, 50, 20
+GLOW_INIT_ROWS = 1024
+ZOO = {
+    "glow": dict(steps=1_000, eager=50, batch=64, lr=2e-3, parity=-0.0674,
+                 parity_steps=10_000, profile=100),
+    "iaf": dict(steps=1_000, eager=50, batch=64, lr=2e-3, parity=-0.0506,
+                parity_steps=10_000, profile=100),
+    "maf": dict(steps=300, eager=50, batch=MLE_BATCH, lr=1e-3,
+                parity=-4.0476, parity_steps=3_000, profile=100),
+}
+ZOO_KINDS = {35: "glow", 36: "iaf", 37: "maf"}
+ALL_PHASES = tuple(range(1, 38))
 
 
 def parse_phases(text: str) -> tuple:
@@ -1915,35 +1975,47 @@ def _graph_and_eager(phase, label, make, train, steps, per_step, name,
     return out
 
 
+def _agree(phase, label, a, b, strict=False, what="graphed against eager"):
+    """Two runs' per-step losses and final parameters, ``a`` and ``b``
+    each (losses, parameters), within GRAPH_TOL. Returns whether every bit
+    agrees; ``strict`` raises unless they do."""
+    (la, pa), (lb, pb) = a, b
+    la, lb = torch.from_numpy(la), torch.from_numpy(lb)
+    e = compare(f"{label}: {what}, losses", la, lb, GRAPH_TOL)
+    ep = max(compare(f"{label}: {what}, parameters", x, y, GRAPH_TOL,
+                     quiet=True) for x, y in zip(pa, pb))
+    same = bool(torch.equal(la, lb)
+                and all(torch.equal(x, y) for x, y in zip(pa, pb)))
+    say(phase, f"{label}, {len(la)} steps on the same inputs: {what}, "
+               f"losses max abs err {e:.3e}, final parameters {ep:.3e} "
+               f"(rtol {GRAPH_TOL[0]}, atol {GRAPH_TOL[1]}); identical "
+               f"bits: {same}")
+    if strict and not same:
+        raise AssertionError(f"phase {phase}, {label}: {what} on the same "
+                             "inputs differ in their bits")
+    return same
+
+
+def _outcome(res, flow):
+    """A run's per-step losses and final parameters, for `_agree`."""
+    return (res.stats["loss"],
+            [p.detach().clone() for p in flow.parameters()])
+
+
 def _same_inputs(phase, label, make, train, steps, strict=False):
     """``train(flow, graph)`` graphed and eagerly on flows from ``make()``
     (one seed), on the same inputs, both with Adam(capturable=True):
-    per-step losses and final parameters within GRAPH_TOL. Returns whether
-    every bit agrees; ``strict`` raises unless they do."""
+    per-step losses and final parameters within GRAPH_TOL (`_agree`).
+    Returns whether every bit agrees; ``strict`` raises unless they do."""
     runs = {}
     for graph in (True, False):
         flow = make()
-        res = train(flow, graph)
-        runs[graph] = (res.stats["loss"],
-                       [p.detach().clone() for p in flow.parameters()])
-    (lg, pg), (le, pe) = runs[True], runs[False]
-    if len(lg) != steps:
-        raise AssertionError(f"phase {phase}, {label}: {len(lg)} steps")
-    e = compare(f"{label}: graphed vs eager losses", torch.from_numpy(lg),
-                torch.from_numpy(le), GRAPH_TOL)
-    ep = max(compare(f"{label}: graphed vs eager parameters", a, b,
-                     GRAPH_TOL, quiet=True) for a, b in zip(pg, pe))
-    same = bool(torch.equal(torch.from_numpy(lg), torch.from_numpy(le))
-                and all(torch.equal(a, b) for a, b in zip(pg, pe)))
-    say(phase, f"{label}, {steps} steps on the same inputs, both with "
-               f"Adam(capturable=True): graphed against eager, losses max "
-               f"abs err {e:.3e}, final parameters {ep:.3e} (rtol "
-               f"{GRAPH_TOL[0]}, atol {GRAPH_TOL[1]}); identical bits: "
-               f"{same}")
-    if strict and not same:
-        raise AssertionError(f"phase {phase}, {label}: graphed and eager "
-                             "runs on the same inputs differ in their bits")
-    return same
+        runs[graph] = _outcome(train(flow, graph), flow)
+    if len(runs[True][0]) != steps:
+        raise AssertionError(f"phase {phase}, {label}: "
+                             f"{len(runs[True][0])} steps")
+    return _agree(phase, label, runs[True], runs[False], strict,
+                  "both with Adam(capturable=True), graphed against eager")
 
 
 def _draws_differ(phase, make, batch, lr):
@@ -2427,6 +2499,32 @@ def phase_double_backward(name):
                                             name)}
 
 
+def _round_trip(phase, kind, flow, gen):
+    """T then T⁻¹ on ROWS base draws, with no K1-K6 launch: the JAX
+    suite's criterion (tests/test_flows.py), |x - T^-1(T(x))| <= rtol *
+    max(max|x|, 1) and the log-dets alike, rtol CLASSIC_ROUND_TRIP of the
+    flow's dtype."""
+    dtype = next(flow.parameters()).dtype
+    reset_counts()
+    with torch.no_grad():
+        x = flow.base.sample(gen, (ROWS,))
+        y, ld = flow.bijector.forward_and_log_det(x)
+        back, ild = flow.bijector.inverse_and_log_det(y)
+    expect_counts(f"phase {phase}, {kind} round trip")
+    rtol = CLASSIC_ROUND_TRIP[dtype]
+    err = float((back - x).abs().max())
+    bound = rtol * max(float(x.abs().max()), 1.0)
+    ld_err = float((ld + ild).abs().max())
+    ld_bound = rtol * max(float(ld.abs().max()), 1.0)
+    say(phase, f"{kind} round trip, {ROWS} rows, {dtype}: max |x - "
+               f"T^-1(T(x))| {err:.3e} (bound {bound:.3e}), max |ld + "
+               f"ld_inv| {ld_err:.3e} (bound {ld_bound:.3e})")
+    if not (err <= bound and ld_err <= ld_bound):
+        raise AssertionError(f"phase {phase}: {kind} {dtype} round trip "
+                             "outside its bound")
+    return {"round_trip_err": err, "round_trip_bound": bound}
+
+
 def phase_classic_round_trip(trained, name):
     """The planar and radial demo flows phases 27 and 28 trained
     (``trained``: kind -> flow) on the card at ROWS rows: the round trip
@@ -2436,24 +2534,7 @@ def phase_classic_round_trip(trained, name):
     gen = torch.Generator(device=DEVICE).manual_seed(31)
     for kind, trained_flow in trained.items():
         for dtype in (torch.float32, torch.float64):
-            flow = copy.deepcopy(trained_flow).to(dtype)
-            reset_counts()
-            with torch.no_grad():
-                x = flow.base.sample(gen, (ROWS,))
-                y, ld = flow.bijector.forward_and_log_det(x)
-                back, ild = flow.bijector.inverse_and_log_det(y)
-            expect_counts(f"phase 31, {kind} round trip")
-            rtol = CLASSIC_ROUND_TRIP[dtype]
-            err = float((back - x).abs().max())
-            bound = rtol * max(float(x.abs().max()), 1.0)
-            ld_err = float((ld + ild).abs().max())
-            ld_bound = rtol * max(float(ld.abs().max()), 1.0)
-            say(31, f"{kind} round trip, {ROWS} rows, {dtype}: max |x - "
-                    f"T^-1(T(x))| {err:.3e} (bound {bound:.3e}), max |ld + "
-                    f"ld_inv| {ld_err:.3e} (bound {ld_bound:.3e})")
-            if not (err <= bound and ld_err <= ld_bound):
-                raise AssertionError(f"phase 31: {kind} {dtype} round trip "
-                                     "outside its bound")
+            _round_trip(31, kind, copy.deepcopy(trained_flow).to(dtype), gen)
         flow = copy.deepcopy(trained_flow)
         flow.zero_grad(set_to_none=True)  # the training's last gradients
         cpu = copy.deepcopy(flow).to("cpu")
@@ -2478,10 +2559,343 @@ def phase_classic_round_trip(trained, name):
                 f"{CPU_TOL[1]}), on {name}")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the flow zoo: NSF's affine envelope and selective remat (K1,
+# K2/K3 under them), then Glow, IAF and MAF (no kernel of ours)
+# ---------------------------------------------------------------------------
+
+def _diagnose(phase, label, flow, logp) -> dict:
+    """`evaluate_flow` from ELBO_DRAWS draws of one seed (the same draws
+    for every flow of a dimension): ELBO ± SEM, log Ẑ and ESS/n, finite."""
+    import normalizingflows_torch as nft
+
+    with torch.no_grad():
+        d = nft.evaluate_flow(torch.Generator(device=DEVICE).manual_seed(99),
+                              flow, logp, ELBO_DRAWS)
+    out = {"elbo": float(d.elbo), "elbo_sem": float(d.elbo_sem),
+           "log_normalizer": float(d.log_normalizer),
+           "ess_per_n": float(d.ess)}
+    if not all(math.isfinite(v) for v in out.values()):
+        raise AssertionError(f"phase {phase}, {label}: diagnostics {out}")
+    say(phase, f"{label}: evaluate_flow from {ELBO_DRAWS} draws: ELBO "
+               f"{out['elbo']:.4f} ± {out['elbo_sem']:.4f} (SEM), log Z "
+               f"estimate {out['log_normalizer']:.4f}, ESS/n "
+               f"{out['ess_per_n']:.4f}")
+    return out
+
+
+def phase_nsf_wrap(gen, name):
+    """Phase 32: nsf_banana_hard's model, `nsf(affine_wrap=True)` (an
+    ActNorm each side of the spline stack), graphed WRAP_STEPS steps and
+    eagerly WRAP_EAGER, K1 and K2 20 a step; `evaluate_flow` before and
+    after; graphed against eager on the same draws, identical bits.
+    Returns the cell and its numbers."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    per_step = dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"),
+                             2 * NSF_WRAP["nlayers"])
+
+    def make():
+        return nft.nsf(torch.Generator().manual_seed(0), **NSF_WRAP)
+
+    def train(flow, graph, callback, steps=None, check_every=None):
+        return nft.train_flow(
+            gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
+            max_iters=steps or (WRAP_STEPS if graph else WRAP_EAGER),
+            check_every=check_every or (100 if graph else WRAP_EAGER // 2),
+            callback=callback, graph=graph,
+            optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR))
+
+    before = _diagnose(32, "nsf_banana_hard at init", make(),
+                       target.log_prob)
+    out = {"nsf_wrap": _graph_and_eager(32, "nsf_banana_hard", make, train,
+                                        WRAP_STEPS, per_step, name,
+                                        eager_steps=WRAP_EAGER)}
+    after = _diagnose(32, f"nsf_banana_hard after {WRAP_STEPS} graphed "
+                          "steps", out["nsf_wrap"]["graph"]["flow"],
+                      target.log_prob)
+    if not after["elbo"] > before["elbo"]:
+        raise AssertionError(f"phase 32: the ELBO went {before['elbo']} -> "
+                             f"{after['elbo']}")
+    say(32, "no parity claim: the parity row (benchmarks/PARITY.md, "
+            "-0.2163 at 50,000 steps) trains with a warmup-cosine schedule")
+    out["identical"] = _same_inputs(
+        32, "nsf_banana_hard", make,
+        _presampled_train(target.log_prob, DEMO_BATCH, DEMO_LR, SAME_STEPS),
+        SAME_STEPS, strict=True)
+    return out, {"cell": "nsf_wrap",
+                 "numbers": {"before": before, "after": after},
+                 "profile": lambda: profile_cell(
+                     32, "nsf_banana_hard", 50,
+                     lambda p, cb: train(make(), None, cb, 2 * p, p), name)}
+
+
+def phase_nsf_wide_remat(name):
+    """Phase 33: NSF wide with and without the selective remat, WIDE_STEPS
+    steps each graphed and eagerly on the same draws and weights (Adam
+    with capturable=True): K1 and K2 20 a step in all four runs (remat
+    never runs K1 again), graphed against eager identical bits, remat
+    against no remat within GRAPH_TOL (its bits reported), peak memory
+    and steps/s of each; then steps/s of each in turns."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(WIDE["q0"], 1.0, 100.0)
+    per_step = dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"),
+                             2 * WIDE["nlayers"])
+
+    def train(flow, graph, callback):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(33),
+            nft.elbo_from_samples, flow, target.log_prob,
+            max_iters=WIDE_STEPS, check_every=WIDE_STEPS // 2,
+            callback=callback, scan_inputs=nft.presample_base(WIDE_BATCH),
+            optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR,
+                                                 capturable=True),
+            graph=graph)
+
+    out, runs = {}, {}
+    for remat in (False, True):
+        cell = "nsf_wide_remat" if remat else "nsf_wide"
+        out[cell] = _graph_and_eager(
+            33, f"NSF wide, remat={remat}",
+            lambda: nft.nsf(torch.Generator().manual_seed(3), remat=remat,
+                            **WIDE), train, WIDE_STEPS, per_step, name)
+        runs[cell] = {path: _outcome(r["res"], r["flow"])
+                      for path, r in out[cell].items()}
+        _agree(33, f"NSF wide, remat={remat}", runs[cell]["graph"],
+               runs[cell]["eager"], strict=True)
+    out["identical"] = True
+    remat_same = _agree(33, "NSF wide", runs["nsf_wide_remat"]["graph"],
+                        runs["nsf_wide"]["graph"], what="remat against no "
+                        "remat, graphed")
+    # steps/s of the default graphed run (elbo_batch, the generator's
+    # draws), RATE_RUNS runs in turns: no remat, remat, remat, no remat
+    rates = {False: [], True: []}
+    for remat in (False, True, True, False):
+        flow = nft.nsf(torch.Generator().manual_seed(3), remat=remat, **WIDE)
+        reset_counts()
+        _, _, steady = _stamped(lambda cb: nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(35), nft.elbo_batch,
+            flow, target.log_prob, WIDE_BATCH, max_iters=3 * RATE_CHUNK,
+            check_every=RATE_CHUNK, callback=cb,
+            optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR)))
+        expect_counts(f"phase 33, remat={remat}, timed",
+                      **{k: n * 3 * RATE_CHUNK for k, n in per_step.items()})
+        rates[remat].append(steady)
+    say(33, f"NSF wide, graphed, steps/s over chunks 2-3 of {RATE_CHUNK} "
+            f"steps, in turns (no remat, remat, remat, no remat): no remat "
+            f"{rates[False][0]:.1f}, {rates[False][1]:.1f}; remat "
+            f"{rates[True][0]:.1f}, {rates[True][1]:.1f}, on {name}")
+    peak = {cell: {path: out[cell][path]["peak_mib"]
+                   for path in ("graph", "eager")}
+            for cell in ("nsf_wide", "nsf_wide_remat")}
+    say(33, f"NSF wide, {WIDE_STEPS} steps, batch {WIDE_BATCH}: peak "
+            f"allocated MiB graph / eager: no remat "
+            f"{peak['nsf_wide']['graph']:.1f} / "
+            f"{peak['nsf_wide']['eager']:.1f}, remat "
+            f"{peak['nsf_wide_remat']['graph']:.1f} / "
+            f"{peak['nsf_wide_remat']['eager']:.1f}; steps/s after the "
+            f"first chunk graph / eager: no remat "
+            f"{out['nsf_wide']['graph']['steady']:.1f} / "
+            f"{out['nsf_wide']['eager']['steady']:.1f}, remat "
+            f"{out['nsf_wide_remat']['graph']['steady']:.1f} / "
+            f"{out['nsf_wide_remat']['eager']['steady']:.1f}, on {name}")
+    return out, {"cell": "nsf_wide_remat",
+                 "numbers": {"remat_identical_bits": remat_same,
+                             "graph_steady_in_turns": {
+                                 "no_remat": rates[False],
+                                 "remat": rates[True]}},
+                 "profile": lambda: profile_cell(
+                     33, "NSF wide, remat", 10,
+                     lambda p, cb: _profiled_wide_remat(target, p, cb),
+                     name)}
+
+
+def _profiled_wide_remat(target, p, callback):
+    import normalizingflows_torch as nft
+
+    return nft.train_flow(
+        torch.Generator(device=DEVICE).manual_seed(34), nft.elbo_batch,
+        nft.nsf(torch.Generator().manual_seed(3), remat=True, **WIDE),
+        target.log_prob, WIDE_BATCH, max_iters=2 * p, check_every=p,
+        callback=callback,
+        optimizer=lambda q: torch.optim.Adam(q, lr=WIDE_LR))
+
+
+def phase_nsf_mle_remat(gen, name):
+    """Phase 34: `train_flow_mle` on the MLE demo with remat=True,
+    MLE_REMAT_STEPS steps graphed and eagerly: K1 (inverse) and K3 20 a
+    step, no K2; graphed against eager on the same batches, identical
+    bits; remat against no remat on the same batches within GRAPH_TOL."""
+    import normalizingflows_torch as nft
+
+    target, rows, held = _mle_data(gen, 2)
+    per_step = dict.fromkeys(("rqs_fwd", "rqs_bwd_invdir"),
+                             2 * DEMO["nlayers"])
+
+    def make(remat=True):
+        return nft.nsf(torch.Generator().manual_seed(0), remat=remat,
+                       **DEMO)
+
+    def train(flow, graph, callback=None, steps=MLE_REMAT_STEPS,
+              check_every=MLE_REMAT_STEPS // 2, capturable=False):
+        return nft.train_flow_mle(
+            flow, nft.utils.data.make_loader(rows, MLE_BATCH, seed=0),
+            max_iters=steps, check_every=check_every, callback=callback,
+            optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR,
+                                                 capturable=capturable),
+            graph=graph)
+
+    with torch.no_grad():
+        before = float(make().log_prob(held).mean())
+    out = {"nsf_mle_remat": _graph_and_eager(34, "MLE demo, remat", make,
+                                             train, MLE_REMAT_STEPS,
+                                             per_step, name)}
+    with torch.no_grad():
+        after = float(out["nsf_mle_remat"]["graph"]["flow"].log_prob(
+            held).mean())
+    if not after > before:
+        raise AssertionError(f"phase 34: held-out log-likelihood {before} "
+                             f"-> {after}")
+    say(34, f"MLE demo, remat: held-out mean log-likelihood {before:.4f} "
+            f"-> {after:.4f} in {MLE_REMAT_STEPS} graphed steps")
+
+    def same(flow, graph):
+        return train(flow, graph, steps=SAME_STEPS, check_every=SAME_CHECK,
+                     capturable=True)
+
+    out["identical"] = _same_inputs(34, "MLE demo, remat", make, same,
+                                    SAME_STEPS, strict=True)
+    runs = {}
+    for remat in (True, False):
+        flow = make(remat)
+        runs[remat] = _outcome(same(flow, True), flow)
+    remat_same = _agree(34, "MLE demo", runs[True], runs[False],
+                        what="remat against no remat, graphed")
+    return out, {"cell": "nsf_mle_remat",
+                 "numbers": {"held_out_before": before,
+                             "held_out_after": after,
+                             "remat_identical_bits": remat_same}}
+
+
+def phase_zoo(phase, kind, gen, name):
+    """Phases 35-37: the glow, iaf and maf demos (ZOO[kind]), graphed and
+    then eagerly, with no K1-K6 launch and one capture; the quality before
+    and after (`evaluate_flow`; maf: the held-out log-likelihood beside
+    the target's E_p[log p]), which must rise; graphed against eager on
+    the same inputs, identical bits; the trained flow's round trip at ROWS
+    rows (glow: the triangular solves; iaf and maf: the sequential
+    direction). Returns the cell and its numbers."""
+    import normalizingflows_torch as nft
+
+    cfg = ZOO[kind]
+    gen_seed = torch.Generator().manual_seed
+    if kind == "glow":
+        target = nft.Cross(device=DEVICE)
+
+        def make():
+            flow = nft.glow(gen_seed(0), 2, (32, 32), nlayers=6,
+                            device=DEVICE)
+            return nft.glow_init_actnorms(flow, flow.base.sample(
+                torch.Generator(device=DEVICE).manual_seed(1),
+                (GLOW_INIT_ROWS,)))
+    else:
+        if kind == "iaf":
+            target = nft.Banana(2, 1.0, 10.0)
+        else:
+            target, rows, held = _mle_data(gen, 2)
+        build = nft.iaf if kind == "iaf" else nft.maf
+
+        def make():
+            return build(gen_seed(0), 2, (32, 32), nlayers=5, device=DEVICE)
+
+    def train(flow, graph, callback=None, steps=None, check_every=None,
+              capturable=False, seed=phase):
+        steps = steps or (cfg["steps"] if graph else cfg["eager"])
+        check_every = check_every or (100 if graph else cfg["eager"] // 2)
+
+        def adam(p):
+            return torch.optim.Adam(p, lr=cfg["lr"], capturable=capturable)
+
+        if kind == "maf":
+            return nft.train_flow_mle(
+                flow, nft.utils.data.make_loader(rows, cfg["batch"], seed=0),
+                max_iters=steps, check_every=check_every, callback=callback,
+                optimizer=adam, graph=graph)
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(seed), nft.elbo_batch,
+            flow, target.log_prob, cfg["batch"], max_iters=steps,
+            check_every=check_every, callback=callback, optimizer=adam,
+            graph=graph)
+
+    numbers = {"before": _diagnose(phase, f"{kind} demo at init", make(),
+                                   target.log_prob)}
+    if kind == "maf":
+        with torch.no_grad():
+            numbers["held_out_before"] = float(make().log_prob(held).mean())
+            numbers["ceiling"] = float(target.log_prob(held).mean())
+    out = {kind: _graph_and_eager(phase, f"{kind} demo", make, train,
+                                  cfg["steps"], {}, name,
+                                  eager_steps=cfg["eager"])}
+    trained = out[kind]["graph"]["flow"]
+    numbers["after"] = _diagnose(
+        phase, f"{kind} demo after {cfg['steps']} graphed steps", trained,
+        target.log_prob)
+    if kind == "maf":
+        with torch.no_grad():
+            numbers["held_out_after"] = float(trained.log_prob(held).mean())
+        rise = (numbers["held_out_before"], numbers["held_out_after"])
+        say(phase, f"maf demo: held-out mean log-likelihood {rise[0]:.4f} "
+                   f"-> {rise[1]:.4f} (the target's E_p[log p] "
+                   f"{numbers['ceiling']:.4f}; the parity row "
+                   f"{cfg['parity']} at {cfg['parity_steps']} steps)")
+    else:
+        rise = (numbers["before"]["elbo"], numbers["after"]["elbo"])
+        say(phase, f"{kind} demo: ELBO {rise[0]:.4f} -> {rise[1]:.4f} (the "
+                   f"parity row {cfg['parity']} at {cfg['parity_steps']} "
+                   "steps; other draws and init, no parity claim)")
+    if not rise[1] > rise[0]:
+        raise AssertionError(f"phase {phase}, {kind} demo: {rise[0]} -> "
+                             f"{rise[1]}")
+    reset_counts()
+
+    def same(flow, graph):  # the MLE batches: the loader's, seed 0
+        return train(flow, graph, steps=SAME_STEPS, check_every=SAME_CHECK,
+                     capturable=True)
+
+    if kind != "maf":
+        same = _presampled_train(target.log_prob, cfg["batch"], cfg["lr"],
+                                 SAME_STEPS)
+    out["identical"] = _same_inputs(phase, f"{kind} demo", make, same,
+                                    SAME_STEPS, strict=True)
+    expect_counts(f"phase {phase}, {kind} demo on the same inputs")
+    sample_gen = torch.Generator(device=DEVICE).manual_seed(phase)
+    numbers.update(_round_trip(phase, f"{kind} demo", trained, sample_gen))
+    if kind == "maf":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ys = trained.sample(sample_gen, (ROWS,))
+        torch.cuda.synchronize()
+        numbers["sample_s"] = time.perf_counter() - t0
+        if ys.shape != (ROWS, 2) or not torch.isfinite(ys).all():
+            raise AssertionError(f"phase 37: maf samples {tuple(ys.shape)}")
+        expect_counts("phase 37, maf sample")
+        say(37, f"maf sample (the sequential direction, 2 masked passes a "
+                f"layer): {ROWS} rows in {numbers['sample_s']:.4f} s, "
+                f"finite, no K1-K6 launch")
+    return out, {"cell": kind, "numbers": numbers,
+                 "profile": lambda: profile_cell(
+                     phase, f"{kind} demo", cfg["profile"],
+                     lambda p, cb: train(make(), None, cb, 2 * p, p, seed=0),
+                     name)}
+
+
 def graph_cells(phase: int, out: dict) -> dict:
-    """Phase 22-24's cells as numbers: steps/s graphed and eager, after
-    the first chunk and overall, peak MiB, and whether graphed and eager
-    agreed bit for bit on the same inputs."""
+    """A graphed phase's cells as numbers: steps/s graphed and eager,
+    after the first chunk and overall, peak MiB, and whether graphed and
+    eager agreed bit for bit on the same inputs."""
     cells = {}
     for cell, runs in out.items():
         if cell == "identical":
@@ -2578,6 +2992,16 @@ def main(argv=None) -> int:
         phase_classic_round_trip(
             {CLASSIC_KINDS[p]: classic[p][0]["demo"]["graph"]["flow"]
              for p in (27, 28)}, name)
+    zoo = {}  # phases 32-37's cells and their numbers
+    if 32 in phases:
+        zoo[32] = phase_nsf_wrap(gen, name)
+    if 33 in phases:
+        zoo[33] = phase_nsf_wide_remat(name)
+    if 34 in phases:
+        zoo[34] = phase_nsf_mle_remat(gen, name)
+    for phase, kind in ZOO_KINDS.items():
+        if phase in phases:
+            zoo[phase] = phase_zoo(phase, kind, gen, name)
     # the profiles last: a profiler run slows the host's launches after it
     if 26 in phases:
         profiled = phase_graph_profile(gen, name)
@@ -2585,6 +3009,9 @@ def main(argv=None) -> int:
         info["profiled"] = info.pop("profile")()
     if 30 in phases and double["captured"]:
         double["profiled"] = double.pop("profile")()
+    for phase, (_, info) in zoo.items():
+        if "profile" in info:
+            info["profiled"] = info.pop("profile")()
     cells = {}
     for phase, out in graphed.items():
         cells.update(graph_cells(phase, out))
@@ -2600,6 +3027,13 @@ def main(argv=None) -> int:
             "identical_bits": double.get("identical"),
             **{k: double["profiled"][k] for k in PROFILE_KEYS
                if "profiled" in double}}
+    for phase, (out, info) in zoo.items():
+        zoo_cells = graph_cells(phase, out)
+        main = zoo_cells[f"{info['cell']}_{phase}"]
+        main.update(info["numbers"])
+        if "profiled" in info:
+            main.update({k: info["profiled"][k] for k in PROFILE_KEYS})
+        cells.update(zoo_cells)
     if 25 in phases:
         cells["annealed_demo"] = {"graph_steady": annealed["steady"],
                                   "identical_bits": annealed["identical"]}
@@ -2636,7 +3070,14 @@ def main(argv=None) -> int:
              "annealed_demo_graph": annealed["counts"],
              **{f"{CLASSIC_KINDS[p]}_demo_graph":
                 out["demo"]["graph"]["counts"]
-                for p, (out, _) in classic.items()}}
+                for p, (out, _) in classic.items()},
+             "nsf_wrap_demo_graph": zoo[32][0]["nsf_wrap"]["graph"]["counts"],
+             "nsf_wide_remat_graph":
+                 zoo[33][0]["nsf_wide_remat"]["graph"]["counts"],
+             "nsf_mle_remat_graph":
+                 zoo[34][0]["nsf_mle_remat"]["graph"]["counts"],
+             **{f"{kind}_demo_graph": zoo[p][0][kind]["graph"]["counts"]
+                for p, kind in ZOO_KINDS.items()}}
     own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
            "rqs_bwd_invdir": "mle_demo_graph",
            "coupling_fwd": "realnvp_demo_graph",

@@ -11,9 +11,10 @@ The port covers reverse-KL ELBO training of the neural spline flow, its
 density path (log_prob with gradients) and maximum-likelihood training,
 annealed (tempered-path) training, RealNVP, unfused or through the
 fused coupling-stack kernels, whose whole ELBO training run
-`train_realnvp_fused` takes one kernel launch per chunk of steps, and the
+`train_realnvp_fused` takes one kernel launch per chunk of steps, the
 classic flows: planar and radial (inverses by an implicit-gradient root
-solve) and the Hamiltonian flow with its targets. On the
+solve) and the Hamiltonian flow with its targets, Glow (ActNorm and PLU
+mixing), MAF/IAF, and the VI diagnostics. On the
 card the trainers replay their step from a CUDA graph (``graph=``):
   train_flow, train_flow_mle, train_flow_annealed,
   optimize                             -> .train
@@ -24,6 +25,10 @@ card the trainers replay their step from a CUDA graph (``graph=``):
   stack_bijectors                      -> .models.bijector
   transformed                          -> .models.distributions
   nsf, NSF_layer, NeuralSplineCoupling, SplinePairStack -> .models.spline
+  glow, glow_init_actnorms, GlowBlock, ActNorm,
+  InvertibleLinear                     -> .models.linear
+  iaf, maf, maf_layer, MADE, MaskedAutoregressive,
+  Permute                              -> .models.autoregressive
   realnvp, RealNVP_layer, AffineCoupling, CouplingPairStack
                                        -> .models.coupling
   realnvp(fused=True): FusedRealNVP,
@@ -37,6 +42,9 @@ card the trainers replay their step from a CUDA graph (``graph=``):
   MLP, fnn, mlp3                       -> .models.nets
   Banana, Funnel, GaussianMixture, Cross, WarpedGauss
                                        -> .models.targets
+  log_weights, elbo_with_sem, log_normalizer, ess, evaluate_flow,
+  FlowDiagnostics, sliced_wasserstein2,
+  grid_total_variation                 -> .diagnostics
   utils.data.make_loader, NumpyLoader  -> .utils.data
 Constructors build on the card unless given ``device="cpu"``.
 """
@@ -81,6 +89,21 @@ from .models.hamiltonian import (  # noqa: E402
     hamiltonian_flow,
     momentum_normalization_layer,
 )
+from .models.linear import (  # noqa: E402
+    ActNorm,
+    GlowBlock,
+    InvertibleLinear,
+    glow,
+    glow_init_actnorms,
+)
+from .models.autoregressive import (  # noqa: E402
+    MADE,
+    MaskedAutoregressive,
+    Permute,
+    iaf,
+    maf,
+    maf_layer,
+)
 from .models.nets import MLP, fnn, mlp3  # noqa: E402
 from .models.planar_radial import (  # noqa: E402
     PlanarLayer,
@@ -120,6 +143,16 @@ from .train import (  # noqa: E402
     train_flow_annealed,
     train_flow_mle,
 )
+from .diagnostics import (  # noqa: E402
+    FlowDiagnostics,
+    elbo_with_sem,
+    ess,
+    evaluate_flow,
+    grid_total_variation,
+    log_normalizer,
+    log_weights,
+    sliced_wasserstein2,
+)
 from .utils import data as _data  # noqa: E402,F401  (nft.utils.data)
 
 __version__ = "0.1.0"
@@ -146,6 +179,8 @@ __all__ = [
     # flows
     "create_flow", "MLP", "fnn", "mlp3",
     "NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf",
+    "MADE", "MaskedAutoregressive", "Permute", "iaf", "maf", "maf_layer",
+    "ActNorm", "GlowBlock", "InvertibleLinear", "glow", "glow_init_actnorms",
     "AffineCoupling", "CouplingPairStack", "RealNVP_layer", "realnvp",
     "PlanarLayer", "RadialLayer", "planarflow", "radialflow",
     "LeapFrog", "hamiltonian_flow", "momentum_normalization_layer",
@@ -158,4 +193,8 @@ __all__ = [
     # training
     "TrainResult", "TrainState", "optimize", "train_flow", "train_flow_mle",
     "train_flow_annealed",
+    # diagnostics
+    "FlowDiagnostics", "elbo_with_sem", "ess", "evaluate_flow",
+    "grid_total_variation", "log_normalizer", "log_weights",
+    "sliced_wasserstein2",
 ]

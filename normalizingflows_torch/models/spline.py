@@ -23,19 +23,22 @@ copy between the last Dense and the kernel.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..ops.masks import PartitionMask, interleave
 from ..ops.rqs import DEFAULT_MIN_DERIVATIVE
-from ..ops.rqs_cuda import BACKENDS, rqs_fused
+from ..ops.rqs_cuda import BACKENDS, rqs_fused, rqs_fused_vjp
 from ..utils.device import resolve_device
 from .bijector import Bijector
 from .distributions import DiagNormal, Distribution, TransformedDistribution
 from .flows import create_flow
+from .linear import ActNorm
 from .nets import MLP, fnn
 
 __all__ = ["NeuralSplineCoupling", "NSF_layer", "SplinePairStack", "nsf"]
@@ -100,15 +103,56 @@ class NeuralSplineCoupling(Bijector):
         return self.mask.combine(x_a, y_b, y_c), ld.sum(dim=-1)
 
 
+class _PairRemat(torch.autograd.Function):
+    """One NSF block under selective remat: ``stack._pair`` with only its
+    inputs (u, v) and the first coupling's kernel output u1 saved. The
+    backward recomputes the two conditioners from those and runs the RQS
+    VJP (K2, or K3 inverse) once a coupling through `rqs_fused_vjp`; the
+    kernel forward (K1) is never run again. (The second coupling's output
+    is the block's, saved by the next block or the caller.) The JAX
+    package's policy is the same: `save_only_these_names("rqs_out")`."""
+
+    @staticmethod
+    def forward(ctx, u, v, ld, stack, n1, n2, inverse, *params):
+        u1, v1, ld = stack._pair(u, v, ld, n1, n2, inverse)
+        ctx.save_for_backward(u, v, u1, *params)
+        ctx.stack, ctx.nets, ctx.inverse = stack, (n1, n2), inverse
+        ctx.n_first = len(list(n1.parameters()))
+        return u1, v1, ld
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_u1, g_v1, g_ld):
+        u, v, u1, *params = ctx.saved_tensors
+        (n1, n2), k = ctx.nets, ctx.n_first
+        need = ctx.needs_input_grad[7:]
+        vjp = functools.partial(ctx.stack._coupling_vjp, g_ld=g_ld,
+                                inverse=ctx.inverse)
+        # v1 = RQS(v, n2(u1)), then u1 = RQS(u, n1(v))
+        g_v, g_u1_cond, g2 = vjp(v, u1, n2, params[k:], need[k:], g_v1)
+        g_u, g_v_cond, g1 = vjp(u, v, n1, params[:k], need[:k],
+                                g_u1 + g_u1_cond)
+        return (g_u, g_v + g_v_cond, g_ld, None, None, None, None, *g1,
+                *g2)
+
+
 class SplinePairStack(Bijector):
     """N NSF blocks (complementary even/odd `NeuralSplineCoupling` pairs)
     with a split carry: partition once into (x_even, x_odd), run the
     blocks, riffle once. ``stacked["even"][i]`` and ``stacked["odd"][i]``
     are block i's conditioners (the JAX package stacks them along a
-    leading axis for `lax.scan`; here a Python loop walks the list)."""
+    leading axis for `lax.scan`; here a Python loop walks the list).
+
+    ``remat=True`` is JAX's selective remat: a block keeps only its inputs
+    and the RQS kernel's output between forward and backward, and its
+    backward recomputes the conditioner matmuls but never the kernel
+    forward (`_PairRemat`), so K1 runs once a coupling, as without remat.
+    `torch.utils.checkpoint` would run K1 again: it cannot see that the
+    kernel's outputs are the ones to keep."""
 
     def __init__(self, even: Sequence[MLP], odd: Sequence[MLP], K: int,
-                 B: float, dim: int, backend: str = "auto"):
+                 B: float, dim: int, backend: str = "auto",
+                 remat: bool = False):
         super().__init__()
         _check_backend(backend)
         if len(even) != len(odd):
@@ -116,9 +160,10 @@ class SplinePairStack(Bijector):
         self.stacked = nn.ModuleDict({"even": nn.ModuleList(even),
                                       "odd": nn.ModuleList(odd)})
         self.K, self.B, self.dim, self.backend = int(K), float(B), dim, backend
+        self.remat = bool(remat)
 
     @staticmethod
-    def from_pairs(pairs) -> "SplinePairStack":
+    def from_pairs(pairs, remat: bool = False) -> "SplinePairStack":
         c0 = pairs[0][0]
         dim = c0.mask.dim
         even, odd = tuple(range(0, dim, 2)), tuple(range(1, dim, 2))
@@ -129,7 +174,7 @@ class SplinePairStack(Bijector):
                     "use a Chain of couplings for other masks")
         return SplinePairStack([p[0].nn for p in pairs],
                                [p[1].nn for p in pairs], c0.K, c0.B, dim,
-                               c0.backend)
+                               c0.backend, remat)
 
     def _transform(self, v, net, cond, inverse):
         n_t = v.shape[-1]
@@ -139,13 +184,49 @@ class SplinePairStack(Bijector):
                           backend=self.backend)
         return y, ld.sum(dim=-1)
 
+    def _pair(self, u, v, ld, n1, n2, inverse):
+        """One block on the carry: u1 = RQS(u; n1(v)), then v1 = RQS(v;
+        n2(u1)). Forward, (u, v, n1, n2) is (x_even, x_odd, even, odd);
+        inverse, (y_odd, y_even, odd, even). The log-dets add in the order
+        of the JAX scan body: the even coupling's first."""
+        u1, ld1 = self._transform(u, n1, v, inverse)
+        v1, ld2 = self._transform(v, n2, u1, inverse)
+        ld = ld + ld2 + ld1 if inverse else ld + ld1 + ld2
+        return u1, v1, ld
+
+    def _coupling_vjp(self, x, cond, net, params, need, gy, g_ld, inverse):
+        """The VJP of one coupling y = RQS(x; net(cond)) whose log-det sum
+        gets ``g_ld``: (gx, gcond, the gradients of ``params`` where
+        ``need``). The conditioner is run again on ``cond`` with the saved
+        ``params``; the spline's VJP is `rqs_fused_vjp`."""
+        names = [n for n, _ in net.named_parameters()]
+        with torch.enable_grad():
+            cond = cond.detach().requires_grad_()
+            leaves = [p.detach().requires_grad_(bool(w))
+                      for p, w in zip(params, need)]
+            raw = torch.func.functional_call(
+                net, dict(zip(names, leaves)), (cond,))
+            raw = raw.reshape(raw.shape[:-1] + (x.shape[-1], 3 * self.K - 1))
+            gx, graw = rqs_fused_vjp(x, raw.detach(), gy,
+                                     g_ld.unsqueeze(-1).expand(x.shape),
+                                     self.B, inverse, self.backend)
+            wrt = [cond] + [p for p in leaves if p.requires_grad]
+            grads = iter(torch.autograd.grad(raw, wrt, graw))
+        gcond = next(grads)
+        return gx, gcond, [next(grads) if p.requires_grad else None
+                           for p in leaves]
+
+    def _block(self, u, v, ld, n1, n2, inverse):
+        if self.remat and torch.is_grad_enabled():
+            return _PairRemat.apply(u, v, ld, self, n1, n2, inverse,
+                                    *n1.parameters(), *n2.parameters())
+        return self._pair(u, v, ld, n1, n2, inverse)
+
     def forward_and_log_det(self, x):
         xa, xb = x[..., 0::2], x[..., 1::2]
         ld = x.new_zeros(x.shape[:-1])
         for net_e, net_o in zip(self.stacked["even"], self.stacked["odd"]):
-            xa, lde = self._transform(xa, net_e, xb, False)
-            xb, ldo = self._transform(xb, net_o, xa, False)
-            ld = ld + lde + ldo
+            xa, xb, ld = self._block(xa, xb, ld, net_e, net_o, False)
         return interleave(xa, xb, self.dim), ld
 
     def inverse_and_log_det(self, y):
@@ -153,9 +234,7 @@ class SplinePairStack(Bijector):
         ld = y.new_zeros(y.shape[:-1])
         for net_e, net_o in zip(reversed(self.stacked["even"]),
                                 reversed(self.stacked["odd"])):
-            yb, ldo = self._transform(yb, net_o, ya, True)
-            ya, lde = self._transform(ya, net_e, yb, True)
-            ld = ld + lde + ldo
+            yb, ya, ld = self._block(yb, ya, ld, net_o, net_e, True)
         return interleave(ya, yb, self.dim), ld
 
 
@@ -189,15 +268,24 @@ def nsf(
     """Neural spline flow (reference `neuralspline.jl:218-234` defaults):
     one `SplinePairStack` of ``nlayers`` blocks, the JAX ``scan=True``
     layout. ``identity_init`` makes every coupling start as the exact
-    identity. ``remat``, ``compute_dtype`` and ``affine_wrap`` are not
-    ported yet and raise unless left at their defaults."""
-    if remat or compute_dtype is not None or affine_wrap:
-        raise NotImplementedError(
-            "nsf(remat=, compute_dtype=, affine_wrap=) are not ported yet")
+    identity. ``remat`` is the selective remat of `SplinePairStack`.
+    ``affine_wrap`` puts an identity-initialized `ActNorm` on each side
+    of the stack, a trainable affine envelope: a bare spline is the
+    identity outside [−B, B], so the outer ActNorm maps the box onto the
+    target's support and the inner one spreads the base draws over the
+    knots. ``compute_dtype`` (the bf16 policy) is not ported yet and
+    raises."""
+    if compute_dtype is not None:
+        raise NotImplementedError("nsf(compute_dtype=) is not ported yet")
     _check_backend(backend)
     device = resolve_device(device)
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype, device)
-    pairs = [NSF_layer(generator, q0.event_dim, hdims, K, B, dtype, device,
+    dim = q0.event_dim
+    pairs = [NSF_layer(generator, dim, hdims, K, B, dtype, device,
                        backend, identity_init) for _ in range(nlayers)]
-    return create_flow([SplinePairStack.from_pairs(pairs)], q0)
+    layers = [SplinePairStack.from_pairs(pairs, remat=remat)]
+    if affine_wrap:
+        layers = ([ActNorm.identity(dim, dtype, device)] + layers
+                  + [ActNorm.identity(dim, dtype, device)])
+    return create_flow(layers, q0)

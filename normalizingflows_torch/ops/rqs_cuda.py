@@ -45,10 +45,10 @@ from . import launches
 from . import rqs as _oracle
 
 __all__ = [
-    "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_forward",
-    "rqs_fused_inverse", "tile_transform", "tile_bwd_analytic",
-    "tile_bwd_analytic_inverse", "fwd_plan", "FwdPlan", "bwd_plan",
-    "BwdPlan", "KERNEL_K",
+    "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_vjp",
+    "rqs_fused_forward", "rqs_fused_inverse", "tile_transform",
+    "tile_bwd_analytic", "tile_bwd_analytic_inverse", "fwd_plan", "FwdPlan",
+    "bwd_plan", "BwdPlan", "KERNEL_K",
 ]
 
 # K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
@@ -463,6 +463,20 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
     return gx, graw
 
 
+def _vjp(x, raw, gy, gld, B, K, inverse, use_kernel):
+    """The closed-form VJP at x (N,) and raw (N, P ≥ 3K−1): K2/K3, or
+    their plain versions; the pad columns get a zero cotangent."""
+    if use_kernel:
+        return _launch_bwd(x, raw, gy, gld, B, K, inverse)
+    tile = tile_bwd_analytic_inverse if inverse else tile_bwd_analytic
+    P = 3 * K - 1
+    gx, graw = tile(x, raw[:, :P], gy, gld, B)
+    if raw.shape[1] > P:
+        graw = torch.cat([graw, graw.new_zeros(
+            (graw.shape[0], raw.shape[1] - P))], dim=1)
+    return gx, graw
+
+
 class _RQSFused(torch.autograd.Function):
     """x (N,) contiguous, raw (N, P ≥ 3K−1) any strides, the spline's
     parameters in its first 3K−1 columns → (out, ld). Saves (x, raw) and
@@ -481,16 +495,8 @@ class _RQSFused(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy, gld):
         x, raw = ctx.saved_tensors
-        if ctx.use_kernel:
-            gx, graw = _launch_bwd(x, raw, gy, gld, ctx.B, ctx.K, ctx.inverse)
-        else:
-            tile = (tile_bwd_analytic_inverse if ctx.inverse
-                    else tile_bwd_analytic)
-            P = 3 * ctx.K - 1
-            gx, graw = tile(x, raw[:, :P], gy, gld, ctx.B)
-            if raw.shape[1] > P:
-                graw = torch.cat([graw, graw.new_zeros(
-                    (graw.shape[0], raw.shape[1] - P))], dim=1)
+        gx, graw = _vjp(x, raw, gy, gld, ctx.B, ctx.K, ctx.inverse,
+                        ctx.use_kernel)
         need_x, need_raw = ctx.needs_input_grad[:2]
         return (gx if need_x else None, graw if need_raw else None,
                 None, None, None, None)
@@ -530,6 +536,27 @@ def rqs_fused(x, raw, B: float, inverse: bool = False, backend: str = "auto"):
                          f"{tuple(raw.shape)} for x {tuple(x.shape)}")
     # a view for the conditioner's output
     return _apply(x, raw.reshape(-1, P), B, (P + 1) // 3, inverse, backend)
+
+
+def rqs_fused_vjp(x, raw, gy, gld, B: float, inverse: bool = False,
+                  backend: str = "auto"):
+    """The VJP of `rqs_fused` at (x, raw) for the cotangents ``gy`` and
+    ``gld`` of its two outputs (each shaped like ``x``): (gx, graw), shaped
+    like x and raw. It runs K2 (K3 for ``inverse``) once for CUDA tensors,
+    as `rqs_fused`'s backward does, and never the forward: the selective
+    remat of `models.spline.SplinePairStack` calls it on a coupling's
+    saved input and its recomputed raw."""
+    P = raw.shape[-1]
+    if (P + 1) % 3 or raw.shape[:-1] != x.shape:
+        raise ValueError(f"raw must be x.shape + (3K−1,), got "
+                         f"{tuple(raw.shape)} for x {tuple(x.shape)}")
+    raw2 = raw.reshape(-1, P)
+    if raw2.dtype != x.dtype:
+        raw2 = raw2.to(x.dtype)
+    gx, graw = _vjp(x.reshape(-1).contiguous(), raw2, gy.reshape(-1),
+                    gld.reshape(-1), float(B), (P + 1) // 3, bool(inverse),
+                    _use_kernel(backend, x))
+    return gx.reshape(x.shape), graw.reshape(raw.shape).to(raw.dtype)
 
 
 def rqs_fused_t(x_flat, raw_t, B: float, inverse: bool = False,

@@ -5,13 +5,13 @@ The JAX package's flows are pytrees; flattened with their paths they give
 ``.bijector.bijectors[0].stacked['even'].layers[2].W``. `load_jax_params`
 walks the same path through the torch module (attributes, ``['key']``
 entries of a `ModuleDict`, ``[i]`` entries of a `ModuleList`) and copies
-the array into the parameter it reaches. The two differ in one place: the
-JAX `SplinePairStack` stacks its blocks' conditioners along a leading
-axis, where the port keeps a list of per-block modules; when a path meets
-such a list with an attribute still to follow, the array's leading axis is
-split across the list. `Dense.W` is ``(in, out)`` on both sides, so no
-transpose is needed. This module imports no JAX: the caller flattens the
-JAX flow to numpy.
+the array into the parameter or buffer it reaches. The two differ in one
+place: the JAX `SplinePairStack` and `Repeated` stack their blocks'
+leaves along a leading axis, where the port keeps a list of per-block
+modules; when a path meets such a list with an attribute still to follow,
+the array's leading axis is split across the list. `Dense.W` is ``(in,
+out)`` on both sides, so no transpose is needed. This module imports no
+JAX: the caller flattens the JAX flow to numpy.
 """
 
 from __future__ import annotations
@@ -53,10 +53,14 @@ def _assign(obj, tokens, value: np.ndarray, path: str, seen: set):
     if not tokens:
         raise KeyError(f"{path} does not end at a parameter")
     head, rest = tokens[0], tokens[1:]
-    if isinstance(head, int) or isinstance(obj, nn.ModuleDict):
-        child = obj[head]
-    else:
-        child = getattr(obj, head)
+    try:
+        if isinstance(head, int) or isinstance(obj, nn.ModuleDict):
+            child = obj[head]
+        else:
+            child = getattr(obj, head)
+    except (AttributeError, IndexError, KeyError):
+        raise KeyError(f"{path}: {type(obj).__name__} has no "
+                       f"{head!r}") from None
     if rest:
         _assign(child, rest, value, path, seen)
         return
@@ -72,13 +76,18 @@ def _assign(obj, tokens, value: np.ndarray, path: str, seen: set):
 
 def load_jax_params(module: nn.Module, arrays: dict[str, np.ndarray]):
     """Copy ``arrays`` (JAX pytree path → numpy array) into ``module``'s
-    parameters, converting to each parameter's dtype and device. Raises if
-    a path does not resolve, a shape differs, or a parameter of ``module``
-    is left without a value."""
+    parameters and buffers (the JAX package's non-trainable leaves, such
+    as `InvertibleLinear`'s ``pmat`` and ``sign_s``), converting to each
+    tensor's dtype and device. Raises KeyError if a path does not resolve
+    to a tensor, or a parameter or persistent buffer of ``module`` is left
+    without a value, and ValueError if a shape differs. Non-persistent
+    buffers (masks and indices made at construction, static fields in
+    JAX) are not expected."""
     seen: set[int] = set()
     for path, value in arrays.items():
         _assign(module, _tokens(path), np.asarray(value), path, seen)
-    missing = [n for n, p in module.named_parameters() if id(p) not in seen]
+    missing = [n for n, t in module.state_dict(keep_vars=True).items()
+               if id(t) not in seen]
     if missing:
         raise KeyError(f"no value for parameters {missing}")
     return module

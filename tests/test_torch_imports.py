@@ -68,6 +68,18 @@ def test_public_names_are_spelled_as_in_the_jax_package():
             "Stacked", "Repeated", "stack_bijectors", "chain", "transformed",
             "mlp3", "Funnel", "GaussianMixture", "Cross",
             "WarpedGauss"} <= set(nft.__all__)
+    # the rest of the zoo and the diagnostics
+    assert {"ActNorm", "GlowBlock", "InvertibleLinear", "glow",
+            "glow_init_actnorms", "MADE", "MaskedAutoregressive", "Permute",
+            "iaf", "maf", "maf_layer", "FlowDiagnostics", "elbo_with_sem",
+            "ess", "evaluate_flow", "grid_total_variation", "log_normalizer",
+            "log_weights", "sliced_wasserstein2"} <= set(nft.__all__)
+    # MaskedDense is public in its module only, in both packages
+    from normalizingflows.jl_tpu.models import autoregressive as jar
+    from normalizingflows_torch.models import autoregressive as tar
+
+    assert "MaskedDense" in tar.__all__ and "MaskedDense" in jar.__all__
+    assert not hasattr(nf, "MaskedDense") and not hasattr(nft, "MaskedDense")
     # joint_logp is public in its module only, in both packages
     from normalizingflows.jl_tpu.models import hamiltonian as jh
     from normalizingflows_torch.models import hamiltonian as th

@@ -4,7 +4,9 @@ A JAX `nsf(...)` is built from a key, its parameters are carried over with
 `load_jax_params`, and both flows get the same base draws (numpy, from a
 seed). Compared: forward and inverse with log-dets, `sample_and_log_prob`,
 the ELBO value and the gradient of every parameter, plus Banana,
-`DiagNormal`, `interleave` and `PartitionMask`. The JAX side runs its RQS
+`DiagNormal`, `interleave` and `PartitionMask`; `nsf(affine_wrap=True)`;
+`nsf(remat=True)` against ``remat=False`` (the same bits) and against JAX's
+selective remat, and how often it runs the spline forward. The JAX side runs its RQS
 kernel as its own tests do: `backend="pallas", interpret=True`, and
 `backend="oracle"`.
 
@@ -52,13 +54,15 @@ def _close(a, b, tol):
     np.testing.assert_allclose(a, np.asarray(b), rtol=tol[0], atol=tol[1])
 
 
-def _pair(dt, K, backend="pallas", identity_init=False, seed=0):
+def _pair(dt, K, backend="pallas", identity_init=False, seed=0, **kw):
+    """A JAX nsf and the port's copy; ``kw`` (``affine_wrap``, ``remat``)
+    goes to both."""
     jdt, tdt, _ = DT[dt]
     jflow = nf.nsf(jax.random.key(seed), DIM, HDIMS, K=K, B=BOX,
                    nlayers=NLAYERS, dtype=jdt, backend=backend,
-                   interpret=True, identity_init=identity_init)
+                   interpret=True, identity_init=identity_init, **kw)
     tflow = nft.nsf(torch.Generator().manual_seed(seed), DIM, HDIMS, K=K,
-                    B=BOX, nlayers=NLAYERS, dtype=tdt, device="cpu")
+                    B=BOX, nlayers=NLAYERS, dtype=tdt, device="cpu", **kw)
     load_jax_params(tflow, jax_arrays(jflow))
     return jflow, tflow
 
@@ -298,10 +302,141 @@ def test_bridge_rejects_what_does_not_fit():
 
 
 def test_unported_options_raise():
+    """Only the bf16 ``compute_dtype`` is left unported; ``remat`` and
+    ``affine_wrap`` build (their tests are below)."""
     g = torch.Generator().manual_seed(0)
-    for kw in (dict(remat=True), dict(affine_wrap=True),
-               dict(compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            nft.nsf(g, DIM, HDIMS, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        nft.nsf(g, DIM, HDIMS, device="cpu", compute_dtype=torch.bfloat16)
+    flow = nft.nsf(g, DIM, HDIMS, device="cpu", remat=True, affine_wrap=True)
+    assert flow.bijector.bijectors[1].remat
     with pytest.raises(ValueError):
         nft.nsf(g, DIM, HDIMS, device="cpu", backend="pallas")
+
+
+# --------------------------------------------------------------------------
+# the affine envelope and the selective remat
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt,backend", [("f32", "pallas"), ("f64", "oracle")])
+def test_affine_wrap_matches_jax(dt, backend):
+    """`nsf(affine_wrap=True)`: an ActNorm on each side of the stack, at
+    ``.bijector.bijectors[0]`` and ``[2]`` (the stack at ``[1]``), moved
+    off the identity; forward, inverse, `log_prob`, the ELBO and the
+    gradient of every parameter, the ActNorms' included."""
+    jflow, tflow = _pair(dt, 10, backend, identity_init=True,
+                         affine_wrap=True)
+    jflow = _perturb(jflow)
+    load_jax_params(tflow, jax_arrays(jflow))
+    kinds = [type(b).__name__ for b in tflow.bijector.bijectors]
+    assert kinds == ["ActNorm", "SplinePairStack", "ActNorm"]
+    x = _draws(dt, seed=13)
+    tol = TOL[dt]
+    y_j, ld_j = jax.jit(jflow.bijector.forward_and_log_det)(jnp.asarray(x))
+    y_t, ld_t = tflow.bijector.forward_and_log_det(torch.from_numpy(x))
+    _close(y_t, y_j, tol["v"])
+    _close(ld_t, ld_j, tol["v"])
+    _close(tflow.log_prob(y_t.detach()),
+           jax.jit(jflow.log_prob)(y_j), tol["v"])
+
+    jt, tt = nf.Banana(DIM, 1.0, 100.0), nft.Banana(DIM, 1.0, 100.0)
+    val_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda f: nf.elbo_from_samples(jnp.asarray(x), f, jt.log_prob)))(jflow)
+    val_t = nft.elbo_from_samples(torch.from_numpy(x), tflow, tt.log_prob)
+    val_t.backward()
+    _close(val_t, val_j, tol["v"])
+    ref = dict(load_jax_params(copy.deepcopy(tflow),
+                               jax_arrays(grads_j)).named_parameters())
+    assert {"bijector.bijectors.0.log_scale",
+            "bijector.bijectors.2.shift"} <= set(ref)
+    for name, p in tflow.named_parameters():
+        _close(p.grad, ref[name].detach().numpy(), tol["g"])
+
+
+def _remat_pair(dt, seed=0):
+    """Two copies of one perturbed flow, ``remat`` False and True."""
+    flows = []
+    for remat in (False, True):
+        f = nft.nsf(torch.Generator().manual_seed(seed), DIM, HDIMS, K=8,
+                    B=BOX, nlayers=NLAYERS, dtype=DT[dt][1], device="cpu",
+                    identity_init=True, remat=remat, affine_wrap=True)
+        noise = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in f.parameters():
+                p.add_(0.1 * torch.randn(p.shape, generator=noise,
+                                         dtype=p.dtype))
+        flows.append(f)
+    return flows
+
+
+OBJECTIVES = {
+    "elbo": lambda f, x: nft.elbo_from_samples(
+        x, f, nft.Banana(DIM, 1.0, 100.0).log_prob),
+    "loglikelihood": lambda f, x: nft.loglikelihood(f, x),
+    "elbo_stl": lambda f, x: nft.elbo_stl(
+        torch.Generator().manual_seed(5), f,
+        nft.Banana(DIM, 1.0, 100.0).log_prob, BATCH),
+}
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("objective", sorted(OBJECTIVES))
+def test_remat_gives_the_same_loss_and_gradients(objective, dt):
+    """The selective remat against no remat, both directions (the ELBO
+    runs the stack forward, the log-likelihood inverse, the STL ELBO both):
+    the same operations in the same order, so the same bits."""
+    plain, remat = _remat_pair(dt)
+    x = torch.from_numpy(_draws(dt, seed=14))
+    out = []
+    for f in (plain, remat):
+        val = OBJECTIVES[objective](f, x)
+        val.backward()
+        out.append((val.detach(), [p.grad for p in f.parameters()]))
+    (v0, g0), (v1, g1) = out
+    assert torch.equal(v0, v1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_remat_matches_jax_remat():
+    """The port's remat against JAX's `save_only_these_names("rqs_out")`
+    remat over the Pallas kernel in interpret mode (f32): the ELBO and its
+    gradients."""
+    jflow, tflow = _pair("f32", 10, "pallas", identity_init=True, remat=True)
+    jflow = _perturb(jflow)
+    load_jax_params(tflow, jax_arrays(jflow))
+    x = _draws("f32", seed=15)
+    jt, tt = nf.Banana(DIM, 1.0, 100.0), nft.Banana(DIM, 1.0, 100.0)
+    val_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda f: nf.elbo_from_samples(jnp.asarray(x), f, jt.log_prob)))(jflow)
+    val_t = nft.elbo_from_samples(torch.from_numpy(x), tflow, tt.log_prob)
+    val_t.backward()
+    _close(val_t, val_j, TOL["f32"]["v"])
+    ref = dict(load_jax_params(copy.deepcopy(tflow),
+                               jax_arrays(grads_j)).named_parameters())
+    for name, p in tflow.named_parameters():
+        _close(p.grad, ref[name].detach().numpy(), TOL["f32"]["g"])
+
+
+@pytest.mark.parametrize("objective,fwd,bwd", [
+    ("elbo", "tile_transform", "tile_bwd_analytic"),
+    ("loglikelihood", "tile_transform", "tile_bwd_analytic_inverse")])
+@pytest.mark.parametrize("remat", [False, True])
+def test_remat_runs_the_spline_forward_once_a_coupling(objective, fwd, bwd,
+                                                       remat, monkeypatch):
+    """On the CPU the plain tiles stand for K1 and K2/K3: one step (value
+    and gradient) runs the spline forward once a coupling and its VJP once
+    a coupling, with remat as without. `torch.utils.checkpoint` around a
+    block would run the forward twice a coupling."""
+    from normalizingflows_torch.ops import rqs_cuda
+
+    calls = {fwd: 0, bwd: 0}
+    for name in calls:
+        tile = getattr(rqs_cuda, name)
+
+        def counted(*a, _tile=tile, _name=name, **kw):
+            calls[_name] += 1
+            return _tile(*a, **kw)
+
+        monkeypatch.setattr(rqs_cuda, name, counted)
+    flow = _remat_pair("f32")[int(remat)]
+    OBJECTIVES[objective](flow, torch.from_numpy(_draws("f32"))).backward()
+    assert calls == {fwd: 2 * NLAYERS, bwd: 2 * NLAYERS}

@@ -169,6 +169,30 @@ def test_rqs_fused_gradients_match_oracle(inverse, used):
         _close(a, b, TOL["f64"]["g"])
 
 
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rqs_fused_vjp_is_rqs_fused_backward(inverse, dt):
+    """`rqs_fused_vjp` (what the selective remat calls) gives the gradients
+    autograd takes through `rqs_fused`, bit for bit, on (2, n) batches of
+    x with raw (2, n, 3K−1); it refuses a raw of the wrong shape and a CUDA
+    backend on CPU tensors."""
+    x, raw = _inputs(dt, 8, seed=19)
+    xt, rt = _t(x).reshape(2, -1), _t(raw).reshape(2, N // 2, -1)
+    gen = torch.Generator().manual_seed(3)
+    gy = torch.randn(xt.shape, generator=gen, dtype=xt.dtype)
+    gld = torch.randn(xt.shape, generator=gen, dtype=xt.dtype)
+    xg, rg = xt.clone().requires_grad_(), rt.clone().requires_grad_()
+    y, ld = rqs_cuda.rqs_fused(xg, rg, B, inverse=inverse)
+    want = torch.autograd.grad((y, ld), (xg, rg), (gy, gld))
+    got = rqs_cuda.rqs_fused_vjp(xt, rt, gy, gld, B, inverse)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    with pytest.raises(ValueError):
+        rqs_cuda.rqs_fused_vjp(xt, rt[..., :-1], gy, gld, B)
+    with pytest.raises(ValueError):
+        rqs_cuda.rqs_fused_vjp(xt, rt, gy, gld, B, backend="cuda")
+
+
 def test_outside_box_passes_gradient_through():
     """Outside [−B, B]: y = x, ld = 0, so gx = gy and graw = 0."""
     x, raw = _inputs("f64", 10, seed=17)
