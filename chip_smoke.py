@@ -209,6 +209,42 @@ other phase as phase 26 profiles its cells:
     target's E_p[log p]; `sample` (the sequential direction) and the round
     trip at 65,536 rows.
 
+Then the experiment path, float32, each run graphed (the default):
+
+38. the NSF wide configuration (phase 6's shape,
+    benchmarks/roofline.py:245-258, with the config's random init) as a
+    TrainConfig through config_from_json(config_to_json(...)):
+    `TrainConfig.run` for 40 steps in chunks of 10, against 20 steps →
+    `save_train_state` (with the training generator) → a fresh flow,
+    Adam and generator built from the same JSON → `load_train_state` →
+    20 steps: identical bits in the losses, the parameters, the Adam
+    state and the generator (strict), K1 = K2 = 20 a step by replay in
+    each run; the resume made three times from the one checkpoint, each
+    with the first's bits; the generator after 20 replayed steps equals 20
+    eager steps'; the checkpoint's size, save and load times, and each
+    run's first chunk (3 eager steps and the capture) against the later
+    ones;
+39. `FlowConfig(family="realnvp", fused=True)` at the demo shape from
+    JSON, 1,000 steps, one K4 and one K5 a step; `save_pytree` →
+    `load_pytree` into a flow of another seed: sampling 262,144 rows from
+    one seed gives identical bits;
+40. MLE wide from a raw float32 file of 65,536 exact draws of
+    Banana(64, 1, 10) (16.8 MB, written under build/chip_smoke/) through
+    `TrainConfig(objective="mle", data_path=...)`, batch 4,096, 20 steps:
+    K1 (inverse) and K3 20 a step; the batches on the card (a spy on the
+    step runner's input buffer) equal the same seed's `NativeLoader`
+    batches read on the host; a chunk's host time in the loader and the
+    copy, `NativeLoader` against `NumpyLoader` and page-locked against
+    pageable, beside the chunk's device time (CUDA events);
+41. `utils.profiling`: `time_scan_steps` on the graphed NSF demo step
+    (300 and 600 steps) beside phase 22's steps/s, and `trace` around 20
+    graphed steps writing a Chrome trace that holds K1/K2's kernels (run
+    after phase 42: a profiler run slows the host after it);
+42. SGD under the trainers' graph: a config with optimizer "sgd" (no
+    capturable mode, no step count) captures, K1/K2 20 a step by replay,
+    and graphed against eager on the same draws gives identical bits
+    (strict).
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -226,11 +262,13 @@ import json
 import math
 import re
 import statistics
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 DEVICE = "cuda"
@@ -378,7 +416,16 @@ ZOO = {
                 parity=-4.0476, parity_steps=3_000, profile=100),
 }
 ZOO_KINDS = {35: "glow", 36: "iaf", 37: "maf"}
-ALL_PHASES = tuple(range(1, 38))
+# phases 38-42: the experiment path. The NSF wide and fused RealNVP demo
+# configurations run EXP_STEPS / RNVP_STEPS graphed steps from JSON (chunks
+# of EXP_CHECK for the wide ones); checkpoints, raw data and the trace go to
+# EXP_DIR in the checkout (.gitignore lists build/); a chunk's loader and
+# copy timed over LOADER_CHUNKS chunks; time_scan_steps at SCAN_STEPS and
+# twice as many; SGD_STEPS steps of SGD(SGD_LR) under the graph
+EXP_STEPS, EXP_CHECK, EXP_DIR = 40, 10, Path("build") / "chip_smoke"
+RESUMES = 3  # phase 38 resumes from its checkpoint this many times
+LOADER_CHUNKS, SCAN_STEPS, SGD_STEPS, SGD_LR = 5, 300, 50, 1e-4
+ALL_PHASES = tuple(range(1, 43))
 
 
 def parse_phases(text: str) -> tuple:
@@ -2892,6 +2939,436 @@ def phase_zoo(phase, kind, gen, name):
                      name)}
 
 
+# ---------------------------------------------------------------------------
+# The experiment path: configs from JSON, checkpoints with an exact resume,
+# the native prefetching loader into page-locked buffers, the profiling
+# utilities, SGD under the graph
+# ---------------------------------------------------------------------------
+
+
+def _exp_dir() -> Path:
+    """Where phases 38-41 write their checkpoints, raw data and trace: a
+    directory of the checkout that .gitignore lists."""
+    d = Path(__file__).resolve().parent / EXP_DIR
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _nsf_wide_config(objective, **kw):
+    """The NSF wide shape (phase 6's, benchmarks/roofline.py:245-258) as a
+    TrainConfig, through config_from_json(config_to_json(...)). The
+    config's nsf has the constructor's default init (random weights, as
+    the JAX package's FlowConfig builds it)."""
+    import normalizingflows_torch as nft
+
+    cfg = nft.TrainConfig(
+        flow=nft.FlowConfig(family="nsf", dim=WIDE["q0"],
+                            hdims=WIDE["hdims"], nlayers=WIDE["nlayers"],
+                            K=WIDE["K"], B=WIDE["B"]),
+        objective=objective, **kw)
+    text = nft.config_to_json(cfg)
+    back = nft.config_from_json(text)
+    if back != cfg:
+        raise AssertionError(f"the config's JSON round trip changed it: "
+                             f"{back} != {cfg}")
+    return back, text
+
+
+def _chunk_times(train):
+    """``train(callback)``: (result, first chunk ms, mean ms of the chunks
+    after it), each chunk ending at its losses' fetch."""
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(lambda it, stat, f: stamps.append(time.perf_counter()))
+    later = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return res, 1e3 * (stamps[0] - t0), (statistics.mean(later) if later
+                                         else float("nan"))
+
+
+def _adam_tensors(opt):
+    """An optimizer's per-parameter state as (name, tensor) pairs."""
+    return [(k, v) for s in opt.state_dict()["state"].values()
+            for k, v in sorted(s.items())]
+
+
+def phase_exp_resume(name):
+    """Phase 38: the NSF wide configuration from JSON, graphed EXP_STEPS
+    steps in chunks of EXP_CHECK, against EXP_STEPS/2 steps →
+    save_train_state → a fresh flow, optimizer and generator from the same
+    JSON → load_train_state → EXP_STEPS/2 steps: identical bits in the
+    losses, the parameters, the Adam state and the generator. K1 = K2 = 20
+    a step by replay in each run. The generator after EXP_STEPS/2 graphed
+    steps against EXP_STEPS/2 eager steps; the checkpoint's size, save and
+    load times; the resumed run's first chunk against the later ones,
+    over RESUMES resumes from the one checkpoint."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import launches
+    from normalizingflows_torch.train import TrainState
+    from normalizingflows_torch.utils import checkpoint
+    from normalizingflows_torch.utils.pytree import trainable_parameters
+
+    cfg, text = _nsf_wide_config(
+        "elbo_batch", optimizer=nft.OptimizerConfig(learning_rate=WIDE_LR),
+        max_iters=EXP_STEPS, n_samples=WIDE_BATCH, check_every=EXP_CHECK,
+        seed=38)
+    target = nft.Banana(WIDE["q0"], 1.0, 100.0)
+    half = EXP_STEPS // 2
+    per_step = 2 * WIDE["nlayers"]
+    out = {}
+
+    def run(label, steps, *, generator, graph=None, **kw):
+        reset_counts()
+        res, first, later = _chunk_times(lambda cb: cfg.run(
+            target.log_prob, generator=generator, max_iters=steps,
+            callback=cb, graph=graph, **kw))
+        if graph is None:
+            expect_counts(f"phase 38, {label}", rqs_fwd=per_step * steps,
+                          rqs_bwd_fwddir=per_step * steps)
+            if launches.captures() != 1:
+                raise AssertionError(f"phase 38, {label}: "
+                                     f"{launches.captures()} captures")
+        losses = res.stats["loss"]
+        if len(losses) != steps or not torch.isfinite(
+                torch.from_numpy(losses)).all():
+            raise AssertionError(f"phase 38, {label}: non-finite losses")
+        out[label] = dict(first_chunk_ms=first, later_chunk_ms=later,
+                          counts=all_counts())
+        return res
+
+    _, gen_a = cfg.generators()
+    res_a = run("straight", EXP_STEPS, generator=gen_a)
+    _, gen_b = cfg.generators()
+    res_b1 = run("first half", half, generator=gen_b)
+    path = _exp_dir() / "nsf_wide_state.pt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_train_state(str(path), res_b1.state, generator=gen_b)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    size = path.stat().st_size
+    n_params = sum(p.numel() for p in res_b1.flow.parameters())
+
+    def resume(label):
+        """A fresh flow, Adam and generator from the JSON, the checkpoint
+        loaded into them (timed), then `half` steps."""
+        cfg2 = nft.config_from_json(text)
+        flow = cfg2.flow.build(torch.Generator().manual_seed(999))
+        opt = cfg2.optimizer.build()(trainable_parameters(flow,
+                                                          cfg2.train_base))
+        _, gen = cfg2.generators()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = checkpoint.load_train_state(
+            str(path), TrainState(flow, opt, 0), generator=gen)
+        torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+        if state.iteration != half:
+            raise AssertionError(f"phase 38: resumed at {state.iteration}")
+        res = run(label, half, generator=gen, resume_state=state)
+        resumed_ms.append(out[label]["first_chunk_ms"])
+        return res, flow, opt, gen
+
+    load_ms, resumed_ms = [], []
+    res_b2, flow, opt, gen_c = resume("resumed")
+    same_loss = bool(np.array_equal(
+        np.concatenate([res_b1.stats["loss"], res_b2.stats["loss"]]),
+        res_a.stats["loss"]))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        res_a.flow.state_dict().values(), flow.state_dict().values()))
+    adam_a, adam_c = _adam_tensors(res_a.state.opt_state), _adam_tensors(opt)
+    same_adam = len(adam_a) == len(adam_c) and all(
+        ka == kc and torch.equal(a, c)
+        for (ka, a), (kc, c) in zip(adam_a, adam_c))
+    same_gen = torch.equal(gen_a.get_state(), gen_c.get_state())
+    say(38, f"NSF wide from JSON, {EXP_STEPS} graphed steps against {half} "
+            f"→ save_train_state → fresh flow, Adam and generator from the "
+            f"JSON → load_train_state → {half}: identical bits: losses "
+            f"{same_loss}, parameters {same_params}, Adam state "
+            f"{same_adam}, generator {same_gen}; K1 = K2 = {per_step} a step "
+            f"by replay in all three runs")
+    if not (same_loss and same_params and same_adam and same_gen):
+        raise AssertionError("phase 38: the resumed run left the "
+                             "uninterrupted run's trajectory")
+    # the resume again, timed: each must give the first resume's bits
+    for i in range(1, RESUMES):
+        again = resume(f"resumed {i}")[0].stats["loss"]
+        if not np.array_equal(again, res_b2.stats["loss"]):
+            raise AssertionError(f"phase 38: resume {i} differs")
+    # the generator after `half` graphed steps (3 eager, replays) against
+    # `half` eager ones from the same seed
+    _, gen_e = cfg.generators()
+    run("eager half", half, generator=gen_e, graph=False)
+    _, gen_b = cfg.generators()
+    gen_b.set_state(torch.load(path, weights_only=True)["generator"])
+    if not torch.equal(gen_e.get_state(), gen_b.get_state()):
+        raise AssertionError("phase 38: the generator's state after "
+                             f"{half} replayed steps differs from {half} "
+                             "eager steps'")
+    numbers = dict(
+        checkpoint_bytes=size, n_params=n_params, save_ms=save_ms,
+        load_ms=load_ms,
+        straight_first_chunk_ms=out["straight"]["first_chunk_ms"],
+        straight_later_chunk_ms=out["straight"]["later_chunk_ms"],
+        resumed_first_chunk_ms=resumed_ms,
+        resumed_later_chunk_ms=out["resumed"]["later_chunk_ms"],
+        identical_bits=True)
+    say(38, f"checkpoint {size / 1e6:.3f} MB ({n_params} parameters and "
+            f"both Adam moments), save {save_ms:.1f} ms, load "
+            f"{', '.join(f'{t:.1f}' for t in load_ms)} ms ({RESUMES} "
+            f"resumes); chunks of {EXP_CHECK} steps: straight run first "
+            f"{numbers['straight_first_chunk_ms']:.1f} ms, later "
+            f"{numbers['straight_later_chunk_ms']:.1f} ms; resumed runs "
+            f"first {', '.join(f'{t:.1f}' for t in resumed_ms)} ms (3 "
+            f"eager steps and the capture), later "
+            f"{numbers['resumed_later_chunk_ms']:.1f} ms; the generator "
+            f"after {half} replayed steps equals {half} eager steps', on "
+            f"{name}")
+    return numbers, out["straight"]["counts"]
+
+
+def phase_exp_fused(gen, name):
+    """Phase 39: FlowConfig(family="realnvp", fused=True) at the demo
+    shape from JSON, RNVP_STEPS graphed steps, one K4 and one K5 a step;
+    save_pytree → a flow of another seed → load_pytree: sampling at
+    SAMPLE_BATCH from one seed gives identical bits."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.utils import checkpoint
+
+    cfg = nft.config_from_json(nft.config_to_json(nft.TrainConfig(
+        flow=nft.FlowConfig(family="realnvp", dim=RNVP_DEMO["q0"],
+                            hdims=RNVP_DEMO["hdims"],
+                            nlayers=RNVP_DEMO["nlayers"], fused=True),
+        optimizer=nft.OptimizerConfig(learning_rate=RNVP_LR),
+        max_iters=RNVP_STEPS, n_samples=RNVP_BATCH, check_every=100,
+        seed=39)))
+    target = nft.Banana(2, 1.0, 100.0)
+    reset_counts()
+    res, dt, steady = _stamped(lambda cb: cfg.run(target.log_prob,
+                                                  callback=cb))
+    counts = expect_counts("phase 39", coupling_fwd=RNVP_STEPS,
+                           coupling_bwd=RNVP_STEPS)
+    losses = res.stats["loss"]
+    if not (np.isfinite(losses).all()
+            and losses[-100:].mean() < losses[:100].mean()):
+        raise AssertionError(f"phase 39: the loss went {losses[:100].mean()}"
+                             f" -> {losses[-100:].mean()}")
+    path = _exp_dir() / "rnvp_flow.pt"
+    checkpoint.save_pytree(str(path), res.flow)
+    other = checkpoint.load_pytree(str(path), cfg.flow.build(
+        torch.Generator().manual_seed(1)))
+    with torch.no_grad():
+        draws = [f.sample_and_log_prob(torch.Generator(
+            device=DEVICE).manual_seed(5), (SAMPLE_BATCH,))
+            for f in (res.flow, other)]
+    same = all(torch.equal(a, b) for a, b in zip(*draws))
+    say(39, f"fused RealNVP demo from JSON: {RNVP_STEPS} graphed steps, "
+            f"{steady:.1f} steps/s after the first chunk "
+            f"({RNVP_STEPS / dt:.1f} overall), loss {losses[:100].mean():.3f} -> "
+            f"{losses[-100:].mean():.3f} (means of 100), K4 and K5 one a "
+            f"step ({counts['coupling_fwd']}, {counts['coupling_bwd']}); "
+            f"save_pytree/load_pytree: {SAMPLE_BATCH} samples and "
+            f"log-densities identical bits {same}, on {name}")
+    if not same:
+        raise AssertionError("phase 39: the loaded flow samples otherwise")
+    return dict(steady=steady, steps_per_s=RNVP_STEPS / dt,
+                identical_bits=same), counts
+
+
+def _loader_times(loader, buf, dev) -> dict:
+    """Median ms, over LOADER_CHUNKS chunks, of ``loader`` writing a
+    chunk into ``buf`` and of its copy to ``dev`` (non_blocking, then a
+    sync: asynchronous only from a page-locked buffer)."""
+    fill, copy_ = [], []
+    for _ in range(LOADER_CHUNKS):
+        t0 = time.perf_counter()
+        loader.next_batches(len(buf), out=buf)
+        t1 = time.perf_counter()
+        dev.copy_(buf, non_blocking=True)
+        torch.cuda.synchronize()
+        fill.append(1e3 * (t1 - t0))
+        copy_.append(1e3 * (time.perf_counter() - t1))
+    return {"fill_ms": statistics.median(fill),
+            "copy_ms": statistics.median(copy_)}
+
+
+def phase_exp_mle_raw(gen, name):
+    """Phase 40: MLE wide from a raw float32 file of MLE_ROWS exact draws
+    of Banana(64, 1, 10) through TrainConfig(objective="mle",
+    data_path=...), MLE_WIDE_STEPS steps in chunks of EXP_CHECK: K1
+    (inverse) and K3 20 a step; the batches that reached the card equal
+    the same seed's NativeLoader batches read on the host; then a chunk's
+    host time in the loader and the copy, NativeLoader against
+    NumpyLoader and page-locked against pageable, against the chunk's
+    device time."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch import train as train_mod
+    from normalizingflows_torch.utils import data
+
+    dim = WIDE["q0"]
+    rows = nft.Banana(dim, 1.0, 10.0).sample(gen, (MLE_ROWS,)).cpu().numpy()
+    raw = data.to_raw_file(str(_exp_dir() / "banana64.f32"), rows)
+    cfg, _ = _nsf_wide_config(
+        "mle", optimizer=nft.OptimizerConfig(learning_rate=MLE_LR),
+        max_iters=MLE_WIDE_STEPS, check_every=EXP_CHECK, data_path=raw,
+        batch_size=MLE_WIDE_BATCH, seed=40)
+
+    # a spy on the step runner: what each chunk left in the card's input
+    # buffer, and CUDA events around each chunk (its copy and its steps)
+    seen, events, run = [], [], train_mod._Steps.run
+
+    def spy(steps, chunk, inputs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = run(steps, chunk, inputs)
+        stop.record()
+        seen.append(steps.inputs[:chunk].clone())
+        events.append((start, stop))
+        return r
+
+    train_mod._Steps.run = spy
+    reset_counts()
+    try:
+        res, first, later = _chunk_times(lambda cb: cfg.run(callback=cb))
+    finally:
+        train_mod._Steps.run = run
+    per_step = 2 * WIDE["nlayers"]
+    counts = expect_counts("phase 40", rqs_fwd=per_step * MLE_WIDE_STEPS,
+                           rqs_bwd_invdir=per_step * MLE_WIDE_STEPS)
+    losses = res.stats["loss"]
+    if not np.isfinite(losses).all():
+        raise AssertionError("phase 40: non-finite losses")
+    host = data.NativeLoader(raw, MLE_ROWS, dim, MLE_WIDE_BATCH, seed=40)
+    want = host.next_batches(MLE_WIDE_STEPS)
+    host.close()
+    same = torch.equal(torch.cat(seen).cpu(), torch.from_numpy(want))
+    mb = Path(raw).stat().st_size / 1e6
+    say(40, f"MLE wide from a raw float32 file ({mb:.1f} MB, {MLE_ROWS} "
+            f"rows of {dim}) through TrainConfig: "
+            f"{MLE_WIDE_STEPS} graphed steps, loss {losses[0]:.2f} -> "
+            f"{losses[-1]:.2f}, K1 (inverse) and K3 {per_step} a step "
+            f"({counts['rqs_fwd']}, {counts['rqs_bwd_invdir']}); the "
+            f"batches on the card equal the same seed's NativeLoader "
+            f"batches read on the host: {same}")
+    if not same:
+        raise AssertionError("phase 40: the card trained on other batches")
+    torch.cuda.synchronize()
+    device_ms = [s.elapsed_time(e) for s, e in events]
+    shape = (EXP_CHECK, MLE_WIDE_BATCH, dim)
+    dev = torch.empty(shape, device=DEVICE)
+    bufs = {"pinned": torch.empty(shape, pin_memory=True),
+            "pageable": torch.empty(shape)}
+    loaders = {"native": data.NativeLoader(raw, MLE_ROWS, dim,
+                                           MLE_WIDE_BATCH, seed=1),
+               "numpy": data.NumpyLoader(rows, MLE_WIDE_BATCH, seed=1)}
+    times = {f"{lk}_{bk}": _loader_times(loader, buf, dev)
+             for lk, loader in loaders.items() for bk, buf in bufs.items()}
+    loaders["native"].close()
+    chunk_ms = device_ms[-1]
+    mb = math.prod(shape) * 4 / 1e6
+    say(40, f"a chunk of {EXP_CHECK} batches ({mb:.1f} MB): device time (CUDA events around its copy and "
+            f"steps) first {device_ms[0]:.2f} ms, then {chunk_ms:.2f} ms; "
+            f"host ms to fill / copy, median of {LOADER_CHUNKS}: "
+            + ", ".join(f"{k} {v['fill_ms']:.2f} / {v['copy_ms']:.2f}"
+                        for k, v in times.items())
+            + f"; the training run's chunks (host clock): first "
+            f"{first:.1f} ms, then {later:.1f} ms, on {name}")
+    return dict(chunk_device_ms=device_ms, chunk_host_ms=[first, later],
+                loader_ms=times, batches_equal=same), counts
+
+
+def phase_exp_profiling(gen, name, graphed_rate=None):
+    """Phase 41: `utils.profiling`: `time_scan_steps` (the slope between
+    SCAN_STEPS and twice as many steps, each call a graphed `train_flow`
+    run ending in its losses' fetch) on the NSF demo, beside phase 22's
+    graphed steps/s (``graphed_rate``, where it ran); `trace` around 20
+    graphed steps writes a Chrome trace that holds the card's kernels."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.utils import profiling
+
+    target = nft.Banana(2, 1.0, 100.0)
+    flow = _demo_flow()
+    state = [None]
+
+    def run_steps(m):
+        res = nft.train_flow(
+            gen, nft.elbo_batch, flow, target.log_prob, DEMO_BATCH,
+            max_iters=m, check_every=m, resume_state=state[0],
+            optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR))
+        state[0] = res.state
+        return res.stats["loss"][-1:]
+
+    per_step = profiling.time_scan_steps(run_steps, n=SCAN_STEPS, reps=3)
+    d = _exp_dir() / "trace"
+    shutil.rmtree(d, ignore_errors=True)
+    with profiling.trace(str(d)) as prof:
+        run_steps(20)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    from torch_profile import _kernel_events
+
+    files = [f for f in d.iterdir() if f.is_file()]
+    kernels = _kernel_events(prof)
+    rqs = sum(1 for e in kernels if "rqs_" in e.name)
+    kernels = len(kernels)
+    size = files[0].stat().st_size if len(files) == 1 else 0
+    say(41, f"time_scan_steps on the graphed NSF demo step ({SCAN_STEPS} "
+            f"and {2 * SCAN_STEPS} steps, best of 3): {1e3 * per_step:.4f}"
+            f" ms a step = {1 / per_step:.1f} steps/s"
+            + (f" (phase 22, after the first chunk: {graphed_rate:.1f})"
+               if graphed_rate else "")
+            + f"; trace of 20 steps: {len(files)} file, {size} bytes, "
+            f"{kernels} kernel events ({rqs} of K1/K2), on {name}")
+    if size == 0 or rqs == 0:
+        raise AssertionError(f"phase 41: trace wrote {files}, {kernels} "
+                             f"kernel events, {rqs} of K1/K2")
+    return dict(scan_ms_per_step=1e3 * per_step,
+                scan_steps_per_s=1 / per_step, trace_bytes=size,
+                trace_kernel_events=kernels)
+
+
+def phase_exp_sgd(name):
+    """Phase 42: SGD under the trainers' graph: TrainConfig's optimizer
+    "sgd" (no capturable mode, no step count) captures, K1 and K2 20 a
+    step by replay, and graphed against eager on the same draws gives
+    identical bits."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.ops import launches
+
+    target = nft.Banana(2, 1.0, 100.0)
+    opt = nft.OptimizerConfig(name="sgd", learning_rate=SGD_LR)
+    cfg = nft.config_from_json(nft.config_to_json(nft.TrainConfig(
+        flow=nft.FlowConfig(family="nsf", nlayers=DEMO["nlayers"],
+                            hdims=DEMO["hdims"]),
+        optimizer=opt, max_iters=SGD_STEPS, n_samples=DEMO_BATCH,
+        check_every=SAME_CHECK, seed=42)))
+    reset_counts()
+    res = cfg.run(target.log_prob)
+    per_step = 2 * DEMO["nlayers"]
+    expect_counts("phase 42", rqs_fwd=per_step * SGD_STEPS,
+                  rqs_bwd_fwddir=per_step * SGD_STEPS)
+    if launches.captures() != 1 or not np.isfinite(res.stats["loss"]).all():
+        raise AssertionError(f"phase 42: {launches.captures()} captures, "
+                             f"losses {res.stats['loss']}")
+
+    def train(flow, graph):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(7),
+            nft.elbo_from_samples, flow, target.log_prob,
+            max_iters=SGD_STEPS, check_every=SAME_CHECK,
+            scan_inputs=nft.presample_base(DEMO_BATCH),
+            optimizer=opt.build(), graph=graph)
+
+    runs = {}
+    for graph in (True, False):
+        flow = _demo_flow(seed=42)
+        runs[graph] = _outcome(train(flow, graph), flow)
+    same = _agree(42, "NSF demo, SGD", runs[True], runs[False], strict=True)
+    say(42, f"SGD({SGD_LR}) from a config, graphed by default: one capture, "
+            f"K1 and K2 {per_step} a step by replay; graphed against eager "
+            f"on the same draws, identical bits: {same}, on {name}")
+    return {"captured": True, "identical_bits": same}
+
+
 def graph_cells(phase: int, out: dict) -> dict:
     """A graphed phase's cells as numbers: steps/s graphed and eager,
     after the first chunk and overall, peak MiB, and whether graphed and
@@ -3002,6 +3479,22 @@ def main(argv=None) -> int:
     for phase, kind in ZOO_KINDS.items():
         if phase in phases:
             zoo[phase] = phase_zoo(phase, kind, gen, name)
+    experiment, exp_counts = {}, {}  # phases 38-42
+    if 38 in phases:
+        (experiment["nsf_wide_resume_38"],
+         exp_counts["nsf_wide_config_graph"]) = phase_exp_resume(name)
+    if 39 in phases:
+        (experiment["rnvp_config_39"],
+         exp_counts["realnvp_config_graph"]) = phase_exp_fused(gen, name)
+    if 40 in phases:
+        (experiment["mle_wide_raw_40"],
+         exp_counts["mle_wide_raw_graph"]) = phase_exp_mle_raw(gen, name)
+    if 42 in phases:
+        experiment["sgd_42"] = phase_exp_sgd(name)
+    if 41 in phases:  # its trace is a profiler run: after the rates
+        experiment["profiling_41"] = phase_exp_profiling(
+            gen, name, graphed[22]["demo"]["graph"]["steady"]
+            if 22 in phases else None)
     # the profiles last: a profiler run slows the host's launches after it
     if 26 in phases:
         profiled = phase_graph_profile(gen, name)
@@ -3044,6 +3537,8 @@ def main(argv=None) -> int:
     if cells:
         # the graphed cells beside the eager ones, measured in this call
         print(json.dumps({"graph_cells": cells}), flush=True)
+    if experiment:
+        print(json.dumps({"experiment": experiment}), flush=True)
     torch.cuda.synchronize()
     device_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3077,7 +3572,8 @@ def main(argv=None) -> int:
              "nsf_mle_remat_graph":
                  zoo[34][0]["nsf_mle_remat"]["graph"]["counts"],
              **{f"{kind}_demo_graph": zoo[p][0][kind]["graph"]["counts"]
-                for p, kind in ZOO_KINDS.items()}}
+                for p, kind in ZOO_KINDS.items()},
+             **exp_counts}
     own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
            "rqs_bwd_invdir": "mle_demo_graph",
            "coupling_fwd": "realnvp_demo_graph",

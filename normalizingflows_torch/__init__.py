@@ -14,7 +14,8 @@ fused coupling-stack kernels, whose whole ELBO training run
 `train_realnvp_fused` takes one kernel launch per chunk of steps, the
 classic flows: planar and radial (inverses by an implicit-gradient root
 solve) and the Hamiltonian flow with its targets, Glow (ActNorm and PLU
-mixing), MAF/IAF, and the VI diagnostics. On the
+mixing), MAF/IAF, and the VI diagnostics; experiments from a JSON config,
+checkpoints with an exact resume, and the native prefetching loader. On the
 card the trainers replay their step from a CUDA graph (``graph=``):
   train_flow, train_flow_mle, train_flow_annealed,
   optimize                             -> .train
@@ -45,7 +46,14 @@ card the trainers replay their step from a CUDA graph (``graph=``):
   log_weights, elbo_with_sem, log_normalizer, ess, evaluate_flow,
   FlowDiagnostics, sliced_wasserstein2,
   grid_total_variation                 -> .diagnostics
-  utils.data.make_loader, NumpyLoader  -> .utils.data
+  FlowConfig, OptimizerConfig, TrainConfig,
+  config_to_json, config_from_json     -> .config
+  utils.data: make_loader, NativeLoader (the C++ prefetching loader),
+  NumpyLoader                          -> .utils.data
+  utils.checkpoint: save_pytree, load_pytree, save_train_state,
+  load_train_state, load_jax_checkpoint -> .utils.checkpoint
+  utils.profiling: trace, sync_fetch, time_scan_steps
+                                       -> .utils.profiling
 Constructors build on the card unless given ``device="cpu"``.
 """
 
@@ -153,7 +161,17 @@ from .diagnostics import (  # noqa: E402
     log_weights,
     sliced_wasserstein2,
 )
-from .utils import data as _data  # noqa: E402,F401  (nft.utils.data)
+from .config import (  # noqa: E402
+    FlowConfig,
+    OptimizerConfig,
+    TrainConfig,
+    config_from_json,
+    config_to_json,
+)
+# nft.utils.data, .checkpoint and .profiling, as in the JAX package
+from .utils import checkpoint as _checkpoint  # noqa: E402,F401
+from .utils import data as _data  # noqa: E402,F401
+from .utils import profiling as _profiling  # noqa: E402,F401
 
 __version__ = "0.1.0"
 
@@ -193,6 +211,9 @@ __all__ = [
     # training
     "TrainResult", "TrainState", "optimize", "train_flow", "train_flow_mle",
     "train_flow_annealed",
+    # configs
+    "FlowConfig", "OptimizerConfig", "TrainConfig",
+    "config_from_json", "config_to_json",
     # diagnostics
     "FlowDiagnostics", "elbo_with_sem", "ess", "evaluate_flow",
     "grid_total_variation", "log_normalizer", "log_weights",

@@ -69,6 +69,12 @@ def _default_optimizer(params, capturable: bool) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=1e-3, capturable=capturable)
 
 
+# Optimizers a graph captures without a capturable mode: SGD keeps no step
+# count, its learning rate and momentum are floats the capture bakes in, and
+# its momentum buffers are made in the eager warm steps.
+_STEPLESS = (torch.optim.SGD,)
+
+
 def _make_capturable(opt: torch.optim.Optimizer):
     """Switch on ``capturable`` (device-side step counts) in every param
     group, and move step counts an eager run left on the host to their
@@ -97,16 +103,18 @@ def _start(flow, optimizer, train_base, resume_state, graph):
     else:
         opt, start_iter = _default_optimizer(params, graphed), 0
     if graphed:
-        if "capturable" not in opt.defaults:
+        stepless = isinstance(opt, _STEPLESS)
+        if "capturable" not in opt.defaults and not stepless:
             raise TypeError(
                 f"{type(opt).__name__} has no capturable mode, which a CUDA "
-                "graph of the step needs: use Adam or AdamW, or pass "
+                "graph of the step needs: use Adam, AdamW or SGD, or pass "
                 "graph=False")
         if not on_cuda:
             raise ValueError("graph=True needs the flow's parameters on a "
                              "CUDA device; on the CPU pass graph=False or "
                              "None")
-        _make_capturable(opt)
+        if not stepless:
+            _make_capturable(opt)
     return flow, opt, start_iter, params, graphed
 
 
@@ -141,7 +149,10 @@ class _Steps:
     buffer's dtype); None, when every step gets ``generator``; or, eagerly
     only, any sequence. Step i reads row i of the buffer at the
     device-side index, writes losses[i] and gnorms[i], and advances the
-    index. Graphed, the first ``WARM_STEPS`` steps of the run are eager on
+    index. The copy into the buffer does not block the host: from a
+    page-locked tensor it runs on the stream, and ``copied`` (a CUDA event
+    recorded after it) says when the host tensor may be written again.
+    Graphed, the first ``WARM_STEPS`` steps of the run are eager on
     a side stream, then the step is captured once (capture executes
     nothing) and every later step is a replay; ``generator`` is registered
     with the graph, so each replay draws anew."""
@@ -153,6 +164,7 @@ class _Steps:
         self.input_dtype = input_dtype
         self.index = torch.zeros((), dtype=torch.long, device=device)
         self.inputs = self.losses = self.gnorms = None
+        self.copied = None  # recorded after the last copy into ``inputs``
         self.graph = None
         self.warm = WARM_STEPS if graphed else 0
 
@@ -171,7 +183,10 @@ class _Steps:
                     f"a chunk of {chunk} steps got inputs shaped "
                     f"{tuple(inputs.shape)}; the run's first chunk had "
                     f"(chunk,) + {tuple(self.inputs.shape[1:])}")
-            self.inputs[:chunk].copy_(inputs)
+            self.inputs[:chunk].copy_(inputs, non_blocking=True)
+            if self.inputs.is_cuda:
+                self.copied = torch.cuda.Event()
+                self.copied.record()
             return lambda: self.inputs.index_select(
                 0, self.index.view(1)).squeeze(0)
         if self.graphed:
@@ -240,6 +255,44 @@ class _Steps:
             self._capture(fetch)
         for _ in range(chunk - eager):
             self.graph.replay()
+
+
+class _HostChunks:
+    """A loader's chunks in one host buffer of ``rows`` batches, allocated
+    at the first chunk and page-locked if ``pin``. The port's loaders
+    write their batches into it; another loader's ``next_batches(k)`` is
+    copied in, in its own dtype."""
+
+    def __init__(self, loader, rows: int, pin: bool):
+        from .utils.data import NativeLoader, NumpyLoader
+
+        self.loader, self.rows, self.pin = loader, rows, pin
+        self.writes_out = isinstance(loader, (NativeLoader, NumpyLoader))
+        self.buf = None
+
+    def _alloc(self, shape, dtype):
+        if self.buf is None:
+            self.buf = torch.empty((self.rows,) + tuple(shape), dtype=dtype,
+                                   pin_memory=self.pin)
+        return self.buf
+
+    def fill(self, chunk: int) -> torch.Tensor:
+        """The next ``chunk`` batches, as a view of the buffer."""
+        if self.writes_out:
+            buf = self._alloc((self.loader.batch, self.loader.dim),
+                              torch.float32)
+            self.loader.next_batches(chunk, out=buf[:chunk])
+            return buf[:chunk]
+        batches = torch.from_numpy(np.asarray(
+            self.loader.next_batches(chunk)))
+        buf = self._alloc(batches.shape[1:], batches.dtype)
+        if batches.shape[0] != chunk or batches.shape[1:] != buf.shape[1:]:
+            raise ValueError(
+                f"a chunk of {chunk} steps got batches shaped "
+                f"{tuple(batches.shape)}; the run's first chunk had "
+                f"(chunk,) + {tuple(buf.shape[1:])}")
+        buf[:chunk].copy_(batches)
+        return buf[:chunk]
 
 
 def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
@@ -386,11 +439,15 @@ def train_flow_mle(
 
     ``loader`` is any object with ``next_batches(k) -> (k, batch, dim)``
     (`utils.data.make_loader`). Per chunk of ``check_every`` steps the
-    chunk's batches are fetched once and copied, in one host→device copy,
-    into a static buffer in the flow's dtype; each step maximises
-    `objectives.loglikelihood` of its batch, the density path (inverse
-    with log-det). `_drive_chunks`, stats, callback, convergence check and
-    ``graph`` are `train_flow`'s. ``train_base=False`` freezes
+    chunk's batches are fetched once into one host buffer, page-locked
+    when the flow is on the card (the port's `NativeLoader` and
+    `NumpyLoader` write into it, ``next_batches(k, out=)``; another
+    loader's chunk is copied in), and copied, in one host→device copy that
+    does not block, into a static buffer in the flow's dtype; the next
+    chunk waits for that copy before it refills the host buffer. Each step
+    maximises `objectives.loglikelihood` of its batch, the density path
+    (inverse with log-det). `_drive_chunks`, stats, callback, convergence
+    check and ``graph`` are `train_flow`'s. ``train_base=False`` freezes
     ``flow.base``.
     """
     from .objectives import loglikelihood
@@ -400,10 +457,12 @@ def train_flow_mle(
     steps = _Steps(
         _step_body(opt, params, lambda batch: -loglikelihood(flow, batch)),
         params[0].device, check_every, graphed, input_dtype=params[0].dtype)
+    host = _HostChunks(loader, check_every, pin=params[0].is_cuda)
 
     def run_chunk(chunk):
-        return steps.run(chunk, torch.from_numpy(
-            np.asarray(loader.next_batches(chunk))))
+        if steps.copied is not None:
+            steps.copied.synchronize()  # the last chunk left the host buffer
+        return steps.run(chunk, host.fill(chunk))
 
     return _drive_chunks(run_chunk, flow, opt, start_iter, max_iters,
                          check_every, callback, hasconverged, show_progress,

@@ -373,8 +373,8 @@ def test_numpy_loader_gives_the_jax_batches():
 
 def test_make_loader_files(tmp_path, monkeypatch):
     """.npy and single-array .npz load (the npz handle is closed); an npz
-    of two arrays and a raw float32 file raise; `to_raw_file` writes the JAX
-    package's bytes."""
+    of two arrays raises; `to_raw_file` writes the JAX package's bytes,
+    which load through the native loader."""
     arr = np.arange(24, dtype=np.float32).reshape(8, 3)
     np.save(tmp_path / "a.npy", arr)
     np.savez(tmp_path / "one.npz", x=arr)
@@ -398,8 +398,10 @@ def test_make_loader_files(tmp_path, monkeypatch):
     jax_data.to_raw_file(str(tmp_path / "b.f32"), arr)
     assert (tmp_path / "a.f32").read_bytes() == \
         (tmp_path / "b.f32").read_bytes()
-    with pytest.raises(NotImplementedError):
-        data.make_loader(raw, 4, n_rows=8, dim=3)
+    loader = data.make_loader(raw, 8, n_rows=8, dim=3, seed=1)
+    assert isinstance(loader, data.NativeLoader)
+    np.testing.assert_array_equal(np.sort(next(loader), axis=0), arr)
+    loader.close()
 
 
 class _AsDtype:

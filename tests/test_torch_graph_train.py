@@ -174,12 +174,22 @@ def test_graph_on_a_cpu_flow_raises():
 
 
 def test_graph_needs_a_capturable_optimizer():
+    """An optimizer with a host-side step count and no capturable mode
+    (Adagrad) is refused under a graph; SGD, which keeps no step count, is
+    taken (here it then meets the CPU) and not made capturable."""
     _, tflow = _flows("f64")
     target = nft.Banana(DIM, 1.0, 100.0)
     with pytest.raises(TypeError, match="capturable.*graph=False"):
         nft.train_flow(torch.Generator(), nft.elbo_batch, tflow,
                        target.log_prob, BATCH, max_iters=2, graph=True,
-                       optimizer=lambda p: torch.optim.SGD(p, lr=0.1))
+                       optimizer=lambda p: torch.optim.Adagrad(p, lr=0.1))
+    made = []
+    with pytest.raises(ValueError, match="CUDA device"):
+        nft.train_flow(torch.Generator(), nft.elbo_batch, tflow,
+                       target.log_prob, BATCH, max_iters=2, graph=True,
+                       optimizer=lambda p: made.append(
+                           torch.optim.SGD(p, lr=0.1)) or made[-1])
+    assert "capturable" not in made[0].param_groups[0]
 
 
 def test_graph_takes_only_tensor_inputs():

@@ -35,8 +35,14 @@ def test_imports_with_jax_blocked():
         "assert 'normalizingflows' not in sys.modules\n"
         "from normalizingflows_torch.ops import _build\n"
         "assert _build._LIB is None\n"
+        "from normalizingflows_torch.utils import data\n"
+        "assert data._library.cache_info().currsize == 0\n"
         "print(len(nft.__all__))\n")
     assert "normalizingflows_torch.experimental.train_cuda" in modules
+    assert {"normalizingflows_torch.config",
+            "normalizingflows_torch.utils.checkpoint",
+            "normalizingflows_torch.utils.data",
+            "normalizingflows_torch.utils.profiling"} <= set(modules)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -74,6 +80,18 @@ def test_public_names_are_spelled_as_in_the_jax_package():
             "iaf", "maf", "maf_layer", "FlowDiagnostics", "elbo_with_sem",
             "ess", "evaluate_flow", "grid_total_variation", "log_normalizer",
             "log_weights", "sliced_wasserstein2"} <= set(nft.__all__)
+    # the experiment path: configs at the top, the utilities by module
+    assert {"FlowConfig", "OptimizerConfig", "TrainConfig",
+            "config_from_json", "config_to_json"} <= set(nft.__all__)
+    from normalizingflows.jl_tpu.utils import checkpoint as jck
+    from normalizingflows.jl_tpu.utils import data as jdata
+    from normalizingflows.jl_tpu.utils import profiling as jprof
+
+    for theirs, ours in ((jck, nft.utils.checkpoint),
+                         (jdata, nft.utils.data),
+                         (jprof, nft.utils.profiling)):
+        assert set(theirs.__all__) <= set(ours.__all__)
+        assert all(callable(getattr(ours, n)) for n in ours.__all__)
     # MaskedDense is public in its module only, in both packages
     from normalizingflows.jl_tpu.models import autoregressive as jar
     from normalizingflows_torch.models import autoregressive as tar
