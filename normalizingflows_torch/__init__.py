@@ -15,7 +15,8 @@ fused coupling-stack kernels, whose whole ELBO training run
 classic flows: planar and radial (inverses by an implicit-gradient root
 solve) and the Hamiltonian flow with its targets, Glow (ActNorm and PLU
 mixing), MAF/IAF, and the VI diagnostics; experiments from a JSON config,
-checkpoints with an exact resume, and the native prefetching loader. On the
+checkpoints with an exact resume, the native prefetching loader, Adam under
+a warmup-cosine schedule, the plots, the demos and the parity harness. On the
 card the trainers replay their step from a CUDA graph (``graph=``):
   train_flow, train_flow_mle, train_flow_annealed,
   optimize                             -> .train
@@ -54,6 +55,12 @@ card the trainers replay their step from a CUDA graph (``graph=``):
   load_train_state, load_jax_checkpoint -> .utils.checkpoint
   utils.profiling: trace, sync_fetch, time_scan_steps
                                        -> .utils.profiling
+  utils.viz: compare_trained_and_untrained_flow, visualize,
+  plot_losses (matplotlib imported at a call) -> .utils.viz
+  adam, warmup_cosine_decay_schedule (optax's names; the schedule runs
+  inside the graphed step)             -> .optim
+  the seven demos and the parity harness, runnable with python -m
+                                       -> .examples
 Constructors build on the card unless given ``device="cpu"``.
 """
 
@@ -168,10 +175,21 @@ from .config import (  # noqa: E402
     config_from_json,
     config_to_json,
 )
-# nft.utils.data, .checkpoint and .profiling, as in the JAX package
+# nft.utils.data, .checkpoint, .profiling and .viz, as in the JAX package
 from .utils import checkpoint as _checkpoint  # noqa: E402,F401
 from .utils import data as _data  # noqa: E402,F401
 from .utils import profiling as _profiling  # noqa: E402,F401
+from .utils import viz as _viz  # noqa: E402,F401
+# optax's names for the one optimizer and schedule the demos use, and the
+# JAX package's viz functions: attributes of the package, not in __all__,
+# which names only the JAX package's top-level names
+from . import optim  # noqa: E402
+from .optim import adam, warmup_cosine_decay_schedule  # noqa: E402,F401
+from .utils.viz import (  # noqa: E402,F401
+    compare_trained_and_untrained_flow,
+    plot_losses,
+    visualize,
+)
 
 __version__ = "0.1.0"
 

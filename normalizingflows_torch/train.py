@@ -118,6 +118,18 @@ def _start(flow, optimizer, train_base, resume_state, graph):
     return flow, opt, start_iter, params, graphed
 
 
+# The float hyperparameters a capture of the step bakes in. A tensor lr
+# (`optim.adam` with a schedule) is read by address at every replay and is
+# not among them.
+_BAKED_KEYS = ("lr", "betas", "eps", "weight_decay", "momentum")
+
+
+def _baked(opt: torch.optim.Optimizer) -> list:
+    return [{k: g[k] for k in _BAKED_KEYS
+             if k in g and not torch.is_tensor(g[k])}
+            for g in opt.param_groups]
+
+
 @functools.cache
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
     """The warm steps' stream on ``device``, one for the process: cuBLAS
@@ -155,13 +167,17 @@ class _Steps:
     Graphed, the first ``WARM_STEPS`` steps of the run are eager on
     a side stream, then the step is captured once (capture executes
     nothing) and every later step is a replay; ``generator`` is registered
-    with the graph, so each replay draws anew."""
+    with the graph, so each replay draws anew. The capture bakes in the
+    float hyperparameters of ``opt``'s groups (`_baked`): at every later
+    chunk boundary a changed one raises, where the eager loop would have
+    taken it."""
 
     def __init__(self, body, device, check_every, graphed, generator=None,
-                 input_dtype=None):
+                 input_dtype=None, opt=None):
         self.body, self.device, self.check_every = body, device, check_every
         self.graphed, self.generator = graphed, generator
         self.input_dtype = input_dtype
+        self.opt, self.baked = opt, None
         self.index = torch.zeros((), dtype=torch.long, device=device)
         self.inputs = self.losses = self.gnorms = None
         self.copied = None  # recorded after the last copy into ``inputs``
@@ -226,9 +242,28 @@ class _Steps:
                 f"capturing the train step in a CUDA graph failed: {err}; "
                 "pass graph=False to train without a graph") from err
         self.graph = graph
+        if self.opt is not None:
+            self.baked = _baked(self.opt)
+
+    def _check_baked(self):
+        """Raise if a float hyperparameter of the optimizer changed since
+        the capture, which replays would not see."""
+        now = _baked(self.opt)
+        for i, (was, is_) in enumerate(zip(self.baked, now)):
+            for k in was:
+                if was[k] != is_[k]:
+                    raise RuntimeError(
+                        f"param group {i}'s {k} changed from {was[k]!r} to "
+                        f"{is_[k]!r} after the train step was captured in a "
+                        "CUDA graph, which baked in the old value: a rate "
+                        "that changes during a run goes inside the step, "
+                        "as optim.adam(warmup_cosine_decay_schedule(...)) "
+                        "puts it, or pass graph=False")
 
     def run(self, chunk: int, inputs):
         """``chunk`` steps on ``inputs``: (losses, gnorms), on the device."""
+        if self.baked is not None:
+            self._check_baked()
         fetch = self._fetch(chunk, inputs)
         self.index.zero_()
         if not self.graphed:
@@ -353,7 +388,7 @@ def _objective_steps(generator, objective, flow, args, optimizer, train_base,
     steps = _Steps(
         _step_body(opt, params, lambda inp: -objective(inp, flow, *args)),
         params[0].device, check_every, graphed,
-        generator=generator if scan_inputs is None else None)
+        generator=generator if scan_inputs is None else None, opt=opt)
 
     def run_chunk(chunk):
         inputs = (None if scan_inputs is None
@@ -456,7 +491,8 @@ def train_flow_mle(
         flow, optimizer, train_base, resume_state, graph)
     steps = _Steps(
         _step_body(opt, params, lambda batch: -loglikelihood(flow, batch)),
-        params[0].device, check_every, graphed, input_dtype=params[0].dtype)
+        params[0].device, check_every, graphed, input_dtype=params[0].dtype,
+        opt=opt)
     host = _HostChunks(loader, check_every, pin=params[0].is_cuda)
 
     def run_chunk(chunk):

@@ -165,8 +165,9 @@ def load_train_state(path: str, template_state,
 
 
 # A JAX (flow, opt_state, iteration) leaf path: [0] the flow's, [1] the
-# optax state's (an Adam count, or a moment's leaf at the flow path that
-# follows mu/nu), [2] the iteration.
+# optax state's (a count: Adam's, or with a schedule also its
+# ScaleByScheduleState's; or a moment's leaf at the flow path that follows
+# mu/nu), [2] the iteration.
 _ADAM_LEAF = re.compile(r"\[1\](?:\[\d+\])*\.(count|mu|nu)(.*)")
 
 
@@ -182,9 +183,13 @@ def load_jax_checkpoint(path: str, flow: nn.Module, leaf_paths,
     ``mu``, ``nu``) becomes ``optimizer``'s per-parameter ``step``,
     ``exp_avg`` and ``exp_avg_sq`` (a `torch.optim.Adam` or AdamW over
     the flow's trainable parameters); the moments of parameters outside
-    the optimizer (a frozen base) are not kept. Returns the flow for a
-    flow's file, and a `TrainState` (the iteration as an int) for a train
-    state's."""
+    the optimizer (a frozen base) are not kept. The state of
+    ``optax.adam(schedule)`` holds one more leaf, the schedule's
+    ``ScaleByScheduleState.count`` (``[1][1].count``): it is the count the
+    schedule reads, which `optim.adam` takes from Adam's ``step``, so it
+    maps onto the same ``step`` and must equal Adam's ``count``
+    (ValueError where they differ). Returns the flow for a flow's file, and
+    a `TrainState` (the iteration as an int) for a train state's."""
     from ..train import TrainState
 
     with np.load(path) as z:
@@ -198,7 +203,7 @@ def load_jax_checkpoint(path: str, flow: nn.Module, leaf_paths,
             raise ValueError(f"{path} holds a flow, not a train state")
         return load_jax_params(flow, dict(zip(paths, leaves)))
 
-    params, moments, count, iteration = {}, {"mu": {}, "nu": {}}, None, None
+    params, moments, counts, iteration = {}, {"mu": {}, "nu": {}}, {}, None
     for p, leaf in zip(paths, leaves):
         if p.startswith("[0]"):
             params[p[3:]] = leaf
@@ -208,11 +213,15 @@ def load_jax_checkpoint(path: str, flow: nn.Module, leaf_paths,
             raise ValueError(f"{path}: {p} is not a leaf of an optax Adam "
                              "state")
         elif m.group(1) == "count":
-            count = int(leaf)
+            counts[p] = int(leaf)
         else:
             moments[m.group(1)][m.group(2)] = leaf
     if iteration is None:
         raise ValueError(f"{path}: no iteration leaf [2]")
+    if len(set(counts.values())) > 1:
+        raise ValueError(f"{path}: the optax state's counts differ "
+                         f"({counts}); Adam's and its schedule's must agree")
+    count = next(iter(counts.values()), None)
     load_jax_params(flow, params)
     if optimizer is not None:
         if count is None:

@@ -612,13 +612,14 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], set(range(1, 43))),
+    ([], set(range(1, 46))),
     (["--phases", "1,2,12,18-21"], {1, 2, 12, 18, 19, 20, 21}),
     (["--phases", "22-26"], {1, 22, 23, 24, 25, 26}),
     (["--phases", "27-31"], {1, 27, 28, 29, 30, 31}),
     (["--phases", "31"], {1, 27, 28, 31}),
     (["--phases", "32-37"], {1, 32, 33, 34, 35, 36, 37}),
     (["--phases", "38-42"], {1, 38, 39, 40, 41, 42}),
+    (["--phases", "43-45"], {1, 43, 44, 45}),
     (["--phases", "12"], {1, 12}),
     (["--phases", "7,15"], {1, 5, 7, 14, 15}),
 ])
@@ -627,7 +628,7 @@ def test_chip_smoke_phase_selection(argv, want):
     assert cs.selected_phases(argv) == want
 
 
-@pytest.mark.parametrize("text", ["0", "43", "3-1", "x", "1,,2", "-3",
+@pytest.mark.parametrize("text", ["0", "46", "3-1", "x", "1,,2", "-3",
                                   "1-"])
 def test_chip_smoke_rejects_bad_phases(text):
     cs = _chip_smoke()

@@ -43,6 +43,14 @@ def test_imports_with_jax_blocked():
             "normalizingflows_torch.utils.checkpoint",
             "normalizingflows_torch.utils.data",
             "normalizingflows_torch.utils.profiling"} <= set(modules)
+    # the schedule, the plots, the demos and the parity harness
+    assert {"normalizingflows_torch.optim",
+            "normalizingflows_torch.utils.viz",
+            "normalizingflows_torch.examples.parity",
+            "normalizingflows_torch.examples.demo_neural_spline_flow",
+            "normalizingflows_torch.examples.demo_maf_mle"} <= set(modules)
+    assert sum(m.startswith("normalizingflows_torch.examples.demo_")
+               for m in modules) == 7
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -98,6 +106,20 @@ def test_public_names_are_spelled_as_in_the_jax_package():
 
     assert "MaskedDense" in tar.__all__ and "MaskedDense" in jar.__all__
     assert not hasattr(nf, "MaskedDense") and not hasattr(nft, "MaskedDense")
+    # optax's adam and schedule, and the JAX package's viz functions, are
+    # attributes of the port's package (not in __all__, whose names are
+    # the JAX package's top-level ones)
+    from normalizingflows.jl_tpu.utils import viz as jviz
+    from normalizingflows_torch import optim
+    from normalizingflows_torch.utils import viz as tviz
+
+    assert nft.adam is optim.adam
+    assert nft.warmup_cosine_decay_schedule is \
+        optim.warmup_cosine_decay_schedule
+    assert set(optim.__all__) == {"adam", "warmup_cosine_decay_schedule"}
+    assert set(jviz.__all__) <= set(tviz.__all__)
+    assert all(getattr(nft, n) is getattr(tviz, n) for n in jviz.__all__)
+    assert not set(optim.__all__) & set(nft.__all__)
     # joint_logp is public in its module only, in both packages
     from normalizingflows.jl_tpu.models import hamiltonian as jh
     from normalizingflows_torch.models import hamiltonian as th
