@@ -273,6 +273,43 @@ otherwise:
     than twice the SEMs (the Hamiltonian row at 100 steps reported), and
     its launches.
 
+Then bfloat16: the bf16 ``compute_dtype`` policy (bfloat16 operands,
+float32 sums; the conditioners' products are cuBLAS calls,
+``torch.mm(..., out_dtype=float32)``) and bfloat16 parameters, with the
+kernels' bfloat16 instantiations (csrc/rqs_bf16.cu, csrc/coupling_bf16.cu),
+whose launches count apart (``rqs_fwd_f32_rbf16``, ``coupling_fwd_bf16``,
+...):
+
+46. K1–K3 on (x float32, raw bfloat16) and (x, raw bfloat16) against
+    their plain versions, bit for bit, at N 64/256/257/131,072, K 8/10:
+    staged elem-major, the direct read, param-major and padded (exact-zero
+    pad gradients); device times at K=10 warm and cold beside the byte
+    bound with two-byte raw;
+47. K4/K5's policy and bfloat16-storage instantiations against their plain
+    versions at the demo's N 16/300/262,144, forward and inverse, within
+    CPL_BF16_TOL; each twice with identical bits; K4's two tiles with
+    identical bits; device times beside the float32 kernels';
+48. the slice's main path: wide RealNVP (d=128, [256,256]x10, remat, batch
+    4096, Adam(1e-3), Banana(128, 1, 100)) under the policy through the
+    graphed `train_flow`: graphed against eager identical bits (strict),
+    no K1-K6 launch, the first loss within 5 % of float32's from the same
+    init and draws and both falling, steps/s in turns against float32,
+    peak memory, a profile;
+    the product's bits against `allow_bf16_reduced_precision_reduction`;
+49. NSF wide under the policy, with and without remat: K1 and K2 on
+    bfloat16 raw 20 a step, graphed against eager identical bits, remat
+    against no remat, the loss against float32's, steps/s in turns, a
+    profile; the MLE demo under the policy (K1 inverse and K3 on bfloat16
+    raw);
+50. bfloat16 parameters: `FlowConfig(dtype="bfloat16")` from JSON for
+    realnvp (unfused and fused: K4/K5 ``_bf16``), nsf (ELBO: K1/K2
+    ``_bf16``; MLE: K1 inverse and K3 ``_bf16``), glow, maf and iaf
+    through `TrainConfig.run`, 200 graphed steps each: launches, falling
+    finite losses, bfloat16 parameters, a checkpoint round trip;
+51. the fused RealNVP demo under the policy, 1,000 graphed steps, one K4
+    and one K5 ``_f32_cbf16`` a step, graphed against eager identical
+    bits.
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -316,9 +353,10 @@ WIDE_STEPS, WIDE_BATCH, WIDE_LR = 20, 4096, 1e-3
 MLE_ROWS, MLE_HELD_OUT, MLE_LR = 65536, 8192, 1e-3
 MLE_STEPS, MLE_BATCH = 300, 256
 MLE_WIDE_STEPS, MLE_WIDE_BATCH = 20, 4096
-# the card's published peaks (H100 SXM datasheet, at 700 W):
-# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
-PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# the card's published peaks (H100 SXM datasheet, at 700 W, dense):
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
+# bfloat16 operands summed in float32 on the tensor cores 989 TFLOP/s
+PEAK_BYTES_PER_S, PEAK_F32_PER_S, PEAK_BF16_PER_S = 3.35e12, 67e12, 989e12
 # RealNVP: the demo (bench.py:37-43, example/demo_RealNVP.jl), the
 # reference default (`realnvp` defaults, Agrawal–Sheldon–Domke) and the wide
 # GEMM-bound shape of the unfused path (benchmarks/roofline.py:180-193)
@@ -360,6 +398,14 @@ REPLACES = {
     "realnvp_train": "normalizingflows/jl_tpu/experimental/train_pallas.py"
                      ":254",
 }
+# the bfloat16 instantiations replace the same Pallas kernels: their bf16
+# raw feed (K1–K3) and `compute_dtype` (K4/K5)
+for _k in KERNELS:
+    for _s in ("f32_rbf16", "bf16"):
+        REPLACES[f"{_k}_{_s}"] = REPLACES[_k] + ", bfloat16"
+for _k in CPL_KERNELS:
+    for _s in ("f32_cbf16", "bf16"):
+        REPLACES[f"{_k}_{_s}"] = REPLACES[_k] + ", bfloat16"
 # Kernel against plain version. f32: tests/test_rqs_kernel.py:43-44 (values
 # rtol/atol 1e-5; log-dets rtol 1e-4, atol 1e-5) and :78-79 (gradients rtol
 # 2e-3, atol 1e-4). f64: rtol 1e-9, atol 1e-10, the same differences at f64
@@ -476,7 +522,74 @@ DEMO_RUNS = (("demo_neural_spline_flow", {}, 400, 20),
 # harness's own hamiltonian(100): -6.2408±1.0214 -> -4.8034±0.2549 on the
 # CPU) is reported, not held to it
 PARITY_NOT_SIGNIFICANT = ("hamiltonian_funnel",)
-ALL_PHASES = tuple(range(1, 46))
+# phases 46-51: bfloat16. Phase 46: K1–K3's (x, raw) instantiations and
+# their sizes; phase 47: K4/K5's variants ((dtype, compute_dtype)), their
+# N, and their tolerances against the plain versions. The policy rounds
+# the same operands on both sides but sums in other orders (cuBLAS against
+# FMA chains), so a float32 difference of an ulp can round a later operand
+# to the neighbouring bfloat16 (2^-8 apart); a row holds hundreds of such
+# roundings, so some rows flip one, and an exp, a small output or a
+# leaky-ReLU pre-activation near 0 (slope 1 or 0.01) can make that a
+# large relative change (on the card at 262,144 rows: 1 of 524,288 y
+# elements moved 0.0265 at |y| 0.0045, and 2 gx elements 1.77 times the
+# cotangents' scale, 1/N). So two levels: every y and ld element within
+# JAX's own bf16 policy bound against float32, rtol/atol 0.05
+# (tests/test_dtype_policy.py), every gx element within rtol 0.05 and 4
+# times the cotangents' scale (atol 4/N), every weight gradient within
+# rtol 0.05 and 0.05 times its largest element; and at most FLIP_SHARE
+# of y, ld and gx outside FLIP_TOL, the float32 plain version's roundoff.
+# A weight gradient is a sum over the N rows, whose conditioning varies
+# with the leaf and the direction (the float32 K5 itself is 1e-6 to 1e-3
+# off its plain version, relative L2, at 262,144 rows), so each leaf's
+# relative L2 error is held to LEAF_FACTOR times the float32 K5's on the
+# same inputs, plus LEAF_FLOOR (`_leaf_check`). Readings on the card: the
+# policy at most 59 times float32's; K5 summing unrounded gW operands
+# 2,081 to 23,000 times at N 16, 300 and 262,144 inverse (14 to 78 times
+# at 262,144 forward, where the sums cancel most). bfloat16 storage
+# rounds one float32 value once on each side: the float32 tolerances
+# (TOL) plus 2^-7, each weight gradient's atol scaled by its largest
+# element where that is below 1.
+RQS_BF16_SIZES = (64, 256, 257, 131072)
+RQS_BF16_TYPES = ((torch.float32, "f32_rbf16"), (torch.bfloat16, "bf16"))
+CPL_BF16_VARIANTS = {"f32_cbf16": (torch.float32, torch.bfloat16),
+                     "bf16": (torch.bfloat16, None)}
+CPL_BF16_N = (16, 300, 262144)
+FLIP_TOL, FLIP_SHARE = (1e-4, 1e-4), 1e-3
+LEAF_FACTOR, LEAF_FLOOR = 300.0, 1e-6
+CPL_BF16_TOL = {
+    "f32_cbf16": dict(y=(5e-2, 5e-2), ld=(5e-2, 5e-2), g=(5e-2, 5e-2),
+                      gx=(5e-2, 4.0)),
+    "bf16": dict(y=(1e-5 + 2 ** -7, 1e-3), ld=(1e-4 + 2 ** -7, 1e-3),
+                 g=(2e-3 + 2 ** -7, 1e-3)),
+}
+# phases 48-49: POLICY_STEPS graphed and eager steps of wide RealNVP under
+# the policy (and NSF wide's WIDE_STEPS); the policy's first loss within
+# POLICY_BAND relative of float32's from the same init and draws (JAX's
+# policy bound), the last POLICY_LAST steps' mean loss of each below its
+# first (`_policy_band`); the first step's gradient on the draws times
+# FIRST_STEP_SCALE within POLICY_BAND of float32's and within
+# WITNESS_SHARE of that distance of a float64-summed witness of the
+# policy (`_first_step`; readings on the card, wide RealNVP: 4.1e-3 and
+# 1.0e-3; on the raw draws at init 0.57 and 0.19, ill-conditioned);
+# `_MixedMatmul` at the main path's shapes within MIXED_BAND of the
+# witness (`_mixed_check`); POLICY_MLE_STEPS steps of the
+# MLE demo under the policy. Phase 50: bfloat16 parameters, (label,
+# family, fused, objective) from JSON, BF16_STEPS graphed steps of
+# BF16_NLAYERS layers, the loss's mean over BF16_MEAN steps at each end.
+# Phase 51: the fused demo under the policy, RNVP_STEPS graphed and
+# POLICY_FUSED_EAGER eager steps.
+POLICY_STEPS, POLICY_LAST, POLICY_BAND = 40, 10, 0.05
+FIRST_STEP_SCALE, WITNESS_SHARE, MIXED_BAND = 0.1, 0.5, 1e-4
+POLICY_MLE_STEPS, POLICY_FUSED_EAGER = 100, 100
+BF16_FAMILIES = (("realnvp", "realnvp", False, "elbo_batch"),
+                 ("realnvp_fused", "realnvp", True, "elbo_batch"),
+                 ("nsf", "nsf", False, "elbo_batch"),
+                 ("nsf_mle", "nsf", False, "mle"),
+                 ("glow", "glow", False, "elbo_batch"),
+                 ("maf", "maf", False, "mle"),
+                 ("iaf", "iaf", False, "elbo_batch"))
+BF16_STEPS, BF16_MEAN, BF16_NLAYERS = 200, 20, 5
+ALL_PHASES = tuple(range(1, 52))
 
 
 def parse_phases(text: str) -> tuple:
@@ -554,19 +667,23 @@ def device_ms(fn, reps=7, inner=20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(kernel: str, n: int, K: int, word_bytes: int):
+def bound_ms(kernel: str, n: int, K: int, word_bytes: int,
+             raw_bytes: int | None = None):
     """The least time the card could take for one call on these inputs:
     bytes moved (each input read once, each output written once) over the
     memory rate, against operations over the float32 rate. K1 reads x and
     3K−1 raw words and writes y, ld: 3K+2 words an element; K2/K3 read x,
-    raw, gy, gld and write gx, graw: 6K+2. Operations are counted from
-    csrc/rqs.cu (each add, multiply, divide, compare, select, exp, log and
-    sqrt as one): about 32K+35 an element for K1 (tables, bin, spline) and
-    65K+100 for K2/K3 (the same tables, the closed-form reverse, two
-    softmax/cumsum reverses, the softplus reverse)."""
-    words, ops = ((3 * K + 2, 32 * K + 35) if kernel == "rqs_fwd"
-                  else (6 * K + 2, 65 * K + 100))
-    t_bytes = n * words * word_bytes / PEAK_BYTES_PER_S
+    raw, gy, gld and write gx, graw: 6K+2. x's words are ``word_bytes``
+    each, raw's ``raw_bytes`` (default the same). Operations are counted
+    from csrc/rqs_device.cuh (each add, multiply, divide, compare, select,
+    exp, log and sqrt as one): about 32K+35 an element for K1 (tables,
+    bin, spline) and 65K+100 for K2/K3 (the same tables, the closed-form
+    reverse, two softmax/cumsum reverses, the softplus reverse)."""
+    rb = word_bytes if raw_bytes is None else raw_bytes
+    x_words, raw_words, ops = ((3, 3 * K - 1, 32 * K + 35)
+                               if kernel == "rqs_fwd"
+                               else (4, 2 * (3 * K - 1), 65 * K + 100))
+    t_bytes = n * (x_words * word_bytes + raw_words * rb) / PEAK_BYTES_PER_S
     t_ops = n * ops / PEAK_F32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -618,19 +735,52 @@ def phase_device() -> str:
     return smi
 
 
-# a kernel's mangled name in ptxas's report: its name, its type (f or d),
-# then its bool (Lb0/Lb1) and int (Li16: H, or K for RQS) template
-# arguments in order; the bools are INVERSE, then STAGED for K1, and
-# STAGED for K2/K3
+# a kernel's mangled name in ptxas's report: its name, its types (f, d,
+# 13__nv_bfloat16, or S.._ repeating one), then its bool (Lb0/Lb1) and int
+# (Li16: H, or K for RQS) template arguments in order, and for K4/K5 the
+# policy (Exact, Bf16Operands, Bf16Storage); the bools are INVERSE, then
+# STAGED for K1, and STAGED for K2/K3
 _KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
                           r"coupling_bwd|coupling_fwd_lanes|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
-                          r"rqs_bwd_invdir)I([fd])((?:L[bi]\d+E)*)")
+                          r"rqs_bwd_invdir)I")
+_TYPES = (("f", "f32"), ("d", "f64"), ("13__nv_bfloat16", "bf16"))
 _BOOLS = {"rqs_fwd": (("fwd", "inv"), ("direct", "staged")),
           "rqs_bwd_fwddir": (("direct", "staged"),),
           "rqs_bwd_invdir": (("direct", "staged"),)}
 # K1's float32 K=10 forward staged instantiation, whose SASS phase 2 counts
-K1_SASS = "rqs_fwdIfLi10ELb0ELb1E"
+K1_SASS = "rqs_fwdIffLi10ELb0ELb1E"
+
+
+def _kernel_variant(kind: str, rest: str):
+    """(types, the instantiation's C entry suffix, the template arguments
+    after the types) of a mangled name's tail ``rest``, after its kernel's
+    name and ``I``: "f32", "f64", K1–K3's "f32_rbf16" (bfloat16 raw) and
+    "bf16", K4/K5's "f32_cbf16" (the policy) and "bf16" (storage)."""
+    types = []
+    while True:
+        for code, t in _TYPES:
+            if rest.startswith(code):
+                types.append(t)
+                rest = rest[len(code):]
+                break
+        else:
+            m = re.match(r"S\d*_", rest)
+            if not (m and types):
+                break
+            types.append(types[-1])
+            rest = rest[m.end():]
+    seg = rest.split("EEv")[0]
+    if "Bf16Operands" in seg:
+        sfx = "f32_cbf16"
+    elif "Bf16Storage" in seg or (kind == "coupling_bwd_reduce"
+                                  and types[-1:] == ["bf16"]):
+        sfx = "bf16"
+    elif kind.startswith("rqs") and types == ["f32", "bf16"]:
+        sfx = "f32_rbf16"
+    else:
+        sfx = types[0] if types else "?"
+    return types, sfx, seg
 
 
 def ptxas_report(log: str) -> list:
@@ -643,10 +793,11 @@ def ptxas_report(log: str) -> list:
             m = _KERNEL_NAME.search(line)
             name = None
             if m:
-                kind, t, rest = m.groups()
-                args = ["f32" if t == "f" else "f64"]
+                kind = m.group(1)
+                _, sfx, seg = _kernel_variant(kind, line[m.end():])
+                args = [sfx]
                 bools = iter(_BOOLS.get(kind, (("fwd", "inv"),)))
-                for flag, value in re.findall(r"L([bi])(\d+)E", rest):
+                for flag, value in re.findall(r"L([bi])(\d+)E", seg):
                     args.append(next(bools)[value == "1"] if flag == "b" else
                                 f"{'K' if kind.startswith('rqs') else 'H'}"
                                 f"={value}")
@@ -734,11 +885,17 @@ def phase_build():
               "rqs_fwd<", "rqs_bwd_fwddir<", "rqs_bwd_invdir<"):
         if build.log and not any(r[0].startswith(k) for r in report):
             raise AssertionError(f"no {k[:-1]} in ptxas's report")
-    spilled = [k for k, _, stores, _ in report if stores and "f32" in k
+    spilled = [k for k, _, stores, _ in report if stores
+               and ("f32" in k or "bf16" in k)
                and k.startswith(("coupling_fwd", "coupling_bwd",
                                  "realnvp_train<", "rqs_"))]
     if spilled:
-        raise AssertionError(f"float32 K1–K6 spill registers: {spilled}")
+        raise AssertionError(f"float32 and bfloat16 K1–K6 spill registers: "
+                             f"{spilled}")
+    for k in ("rqs_fwd<f32_rbf16", "rqs_fwd<bf16", "rqs_bwd_fwddir<bf16",
+              "coupling_fwd<f32_cbf16", "coupling_bwd<bf16"):
+        if build.log and not any(r[0].startswith(k) for r in report):
+            raise AssertionError(f"no {k}> in ptxas's report")
     _build.library()
     est = static_issue_estimate(build.path)
     if est is None:
@@ -1080,9 +1237,8 @@ def phase_main_path(gen, name):
     if not last < first:
         raise AssertionError(f"demo loss did not fall: {first} -> {last}")
     per_step = 2 * DEMO["nlayers"]
-    want = {"rqs_fwd": per_step * DEMO_STEPS,
-            "rqs_bwd_fwddir": per_step * DEMO_STEPS, "rqs_bwd_invdir": 0,
-            "coupling_fwd": 0, "coupling_bwd": 0, "realnvp_train": 0}
+    want = {**dict.fromkeys(launches, 0), "rqs_fwd": per_step * DEMO_STEPS,
+            "rqs_bwd_fwddir": per_step * DEMO_STEPS}
     if launches != want:
         raise AssertionError(f"launches {launches} in {DEMO_STEPS} steps, "
                              f"expected {want}")
@@ -1208,9 +1364,8 @@ def phase_mle(gen, name):
         raise AssertionError(f"held-out log-likelihood did not rise: "
                              f"{before} -> {after}")
     per_step = 2 * DEMO["nlayers"]
-    want = {"rqs_fwd": per_step * MLE_STEPS, "rqs_bwd_fwddir": 0,
-            "rqs_bwd_invdir": per_step * MLE_STEPS, "coupling_fwd": 0,
-            "coupling_bwd": 0, "realnvp_train": 0}
+    want = {**dict.fromkeys(launches, 0), "rqs_fwd": per_step * MLE_STEPS,
+            "rqs_bwd_invdir": per_step * MLE_STEPS}
     if launches != want:
         raise AssertionError(f"launches {launches} in {MLE_STEPS} steps, "
                              f"expected {want}")
@@ -1277,41 +1432,61 @@ def rnvp_n_params(cfg: dict) -> int:
     return n
 
 
-def coupling_work(kernel: str, cfg: dict, n: int, word_bytes: int):
-    """(operations, bytes) one call of K4 or K5 needs on n rows, counted
-    from csrc/coupling.cu. Per coupling and net: a multiply and an add per
-    weight (MACs), a bias add and an activation per unit; per transformed
-    element an exp, a multiply, an add and the log-det add. K5's work is
-    the VJP's: one forward (the kernel runs it twice, once keeping each
-    coupling's input and once rebuilding its caches, but the second is its
-    choice, not the function's), then per layer the weight gradient Hᵀ·G
-    and the input cotangent G·Wᵀ (a MAC each per weight and row), the slope
-    and the bias gradient per unit, and ~6 operations per transformed
-    element. Bytes:
-    K4 reads x and the weights and writes y and ld; K5 reads x, gy, gld and
-    the weights and writes gx and the weight gradients."""
+def _coupling_ops(kernel: str, cfg: dict):
+    """(MAC operations, other operations) one row of K4 or K5 needs,
+    counted from csrc/coupling.cu. Per coupling and net: a multiply and an
+    add per weight (the MACs), a bias add and an activation per unit; per
+    transformed element an exp, a multiply, an add and the log-det add.
+    K5's work is the VJP's: one forward (the kernel runs it twice, once
+    keeping each coupling's input and once rebuilding its caches, but the
+    second is its choice, not the function's), then per layer the weight
+    gradient Hᵀ·G and the input cotangent G·Wᵀ (a MAC each per weight and
+    row), the slope and the bias gradient per unit, and ~6 operations per
+    transformed element."""
     d, hdims, L = cfg["q0"], cfg["hdims"], cfg["nlayers"]
-    ops, n_params = 0, rnvp_n_params(cfg)
+    mac_ops = other = 0
     for n_a in ((d + 1) // 2, d // 2):
         widths = [d - n_a, *hdims, n_a]
         macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
         units = sum(widths[1:])
-        fwd = 2 * (2 * macs + 2 * units) + 4 * n_a
-        if kernel == "coupling_fwd":
-            ops += L * fwd
-        else:
-            ops += L * (fwd + 2 * (4 * macs + 2 * units) + 6 * n_a)
+        mac_ops += L * 2 * 2 * macs
+        other += L * (2 * 2 * units + 4 * n_a)
+        if kernel != "coupling_fwd":
+            mac_ops += L * 2 * 4 * macs
+            other += L * (2 * 2 * units + 6 * n_a)
+    return mac_ops, other
+
+
+def coupling_work(kernel: str, cfg: dict, n: int, word_bytes: int):
+    """(operations, bytes) one call of K4 or K5 needs on n rows
+    (`_coupling_ops`). Bytes: K4 reads x and the weights and writes y and
+    ld; K5 reads x, gy, gld and the weights and writes gx and the weight
+    gradients."""
+    d, n_params = cfg["q0"], rnvp_n_params(cfg)
     if kernel == "coupling_fwd":
         words = n * (2 * d + 1) + n_params
     else:
         words = n * (3 * d + 1) + 2 * n_params
-    return n * ops, words * word_bytes
+    return n * sum(_coupling_ops(kernel, cfg)), words * word_bytes
 
 
-def coupling_bound_ms(kernel: str, cfg: dict, n: int):
-    """The float32 bound (the timed shapes are float32)."""
-    ops, nbytes = coupling_work(kernel, cfg, n, 4)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+def coupling_bound_ms(kernel: str, cfg: dict, n: int, word_bytes: int = 4,
+                      policy: bool = False):
+    """(bound in ms, what bounds it) of one call of K4 or K5 on n rows:
+    the larger of its bytes over the memory rate and its operations over
+    the peak for their type. In float32 (and in bfloat16 storage, whose
+    arithmetic is float32) every operation counts at the float32 rate.
+    Under the bf16 policy the MACs multiply bfloat16 operands and sum in
+    float32, which the tensor cores run at PEAK_BF16_PER_S: the MACs count
+    at that rate and the rest at the float32 rate, and since the two units
+    run side by side the larger of the two times is the operations' bound.
+    The kernel itself runs its MACs on the CUDA cores."""
+    macs, other = _coupling_ops(kernel, cfg)
+    t_bytes = coupling_work(kernel, cfg, n, word_bytes)[1] / PEAK_BYTES_PER_S
+    if policy:
+        t_ops = max(n * macs / PEAK_BF16_PER_S, n * other / PEAK_F32_PER_S)
+    else:
+        t_ops = n * (macs + other) / PEAK_F32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1356,13 +1531,17 @@ def _cpl_run(cc, x, fb, gy, gld, inverse):
     return [y.detach(), ld.detach(), *grads]
 
 
-def _kink_rows(cc, x, groups, sels):
+def _kink_rows(cc, x, groups, sels, cd=None):
     """Rows of x (n, d) at which a leaky-ReLU pre-activation of the stack,
-    forward or inverse, lies within KINK of 0 (computed in float64). There
-    the slope is 1 on one side and 0.01 on the other, and two correct
+    forward or inverse, lies within KINK of 0 (computed in float64; under
+    the bf16 policy ``cd`` from the operands rounded as it rounds them).
+    There the slope is 1 on one side and 0.01 on the other, and two correct
     computations whose roundings put the pre-activation on different sides
     (K5 and cuBLAS, or the plain version in float32 and in float64) give
     that row's gx different one-sided derivatives."""
+    def rnd(t):
+        return t if cd is None else t.to(cd).double()
+
     g64 = {grp: {net: [(layer[0].double(), layer[1].double())
                        for layer in groups[grp][net]] for net in ("s", "t")}
            for grp in ("even", "odd")}
@@ -1375,20 +1554,20 @@ def _kink_rows(cc, x, groups, sels):
             for net in (s_w, t_w):
                 h = cc._pick(h_x, idx_b)
                 for W, b in net[:-1]:
-                    z = h @ W + b
+                    z = rnd(h) @ rnd(W) + b
                     near |= (z.abs() < KINK).any(1)
                     h = cc._leaky_relu(z)
             h_x, ld = cc._apply_coupling(h_x, ld, idx_a, idx_b, s_w, t_w,
-                                         inverse)
+                                         inverse, cd)
     return near
 
 
-def _off_kinks(cc, x, groups, sels, gen):
+def _off_kinks(cc, x, groups, sels, gen, cd=None):
     """(x, draws): x with every row that `_kink_rows` flags drawn again
     from ``gen`` until none is, so that K5 is held to its plain version
     where the derivative is defined, and the rows drawn again."""
     draws = 0
-    while bool((near := _kink_rows(cc, x, groups, sels)).any()):
+    while bool((near := _kink_rows(cc, x, groups, sels, cd)).any()):
         draws += int(near.sum())
         x[near] = torch.randn((int(near.sum()), x.shape[1]), generator=gen,
                               device=x.device, dtype=x.dtype)
@@ -3766,6 +3945,911 @@ def phase_parity_quick(name):
     return out, seconds
 
 
+# ---------------------------------------------------------------------------
+# Phases 46-51: bfloat16 (the bf16 compute_dtype policy and bfloat16
+# parameters)
+# ---------------------------------------------------------------------------
+
+def _bf16_rqs_case(gen, xdt, K, n):
+    """Phase 46's inputs at N = n: x (batch, n_t) in ``xdt``, raw a
+    bfloat16 view of the conditioner's (batch, n_t·(3K−1)) output, its
+    padded copy, and the cotangents, drawn in float32 and rounded."""
+    P = 3 * K - 1
+    n_t = 32 if n == 131072 else 1
+    batch = n // n_t
+    x = ((torch.rand((batch, n_t), generator=gen, device=DEVICE) * 3.0
+          - 1.5) * B).to(xdt)
+    raw = (3.0 * torch.randn((batch, n_t * P), generator=gen,
+                             device=DEVICE)).to(torch.bfloat16)
+    gy = torch.randn((n,), generator=gen, device=DEVICE).to(xdt)
+    gld = torch.randn((n,), generator=gen, device=DEVICE).to(xdt)
+    rawf = raw.view(-1, P)
+    pad = torch.cat([rawf, torch.randn((n, 3), generator=gen, device=DEVICE
+                                       ).to(torch.bfloat16)], 1)
+    return x, raw.view(batch, n_t, P), x.reshape(-1), rawf, pad, gy, gld
+
+
+def phase_rqs_bf16(gen):
+    """Phase 46: K1–K3's bfloat16 instantiations against their plain
+    versions on the card, bit for bit: (x float32, raw bfloat16), the
+    policy's NSF, and (x, raw bfloat16), bfloat16 parameters; K 8 and 10,
+    N in RQS_BF16_SIZES; raw elem-major through the staged tile, forced
+    onto the direct read, param-major, and padded elem-major (the pad's
+    gradient exact zeros); graw in bfloat16. Then device times at K=10 and
+    N in RQS_TIMED, warm, and at 131072 with a cold L2, beside the byte
+    bound with two-byte raw."""
+    from normalizingflows_torch.ops import rqs_cuda
+
+    bf = torch.bfloat16
+    results = {}
+    checks = 0
+    for xdt, sfx in RQS_BF16_TYPES:
+        for k in KERNELS:
+            results[f"{k}_{sfx}"] = {"err": 0.0}
+        for K in (8, 10):
+            P = 3 * K - 1
+            for n in RQS_BF16_SIZES:
+                x, raw3, xf, rawf, pad, gy, gld = _bf16_rqs_case(gen, xdt, K,
+                                                                 n)
+                tag = f"{sfx} K={K} N={n}"
+                for inverse in (False, True):
+                    d = "inv" if inverse else "fwd"
+                    kname = "K3" if inverse else "K2"
+                    tile = (rqs_cuda.tile_bwd_analytic_inverse if inverse
+                            else rqs_cuda.tile_bwd_analytic)
+                    y, ld, gx, graw = _grads(lambda a, r: rqs_cuda.rqs_fused(
+                        a, r, B, inverse=inverse, backend="cuda"),
+                        x, raw3, gy, gld)
+                    if y.dtype != xdt or graw.dtype != bf:
+                        raise AssertionError(f"{tag}: outputs in {y.dtype}, "
+                                             f"graw in {graw.dtype}")
+                    y_p, ld_p = rqs_cuda.tile_transform(xf, rawf, B, inverse)
+                    gx_p, graw_p = tile(xf, rawf, gy, gld, B)
+                    _same(f"K1 {d} y {tag}", y.reshape(-1), y_p)
+                    _same(f"K1 {d} ld {tag}", ld.reshape(-1), ld_p)
+                    _same(f"{kname} gx {tag}", gx.reshape(-1), gx_p)
+                    _same(f"{kname} graw {tag}", graw.reshape(-1, P), graw_p)
+                    with direct_read(rqs_cuda):
+                        y_d, ld_d = rqs_cuda._launch_fwd(xf, rawf, B, K,
+                                                         inverse)
+                        gx_d, graw_d = rqs_cuda._launch_bwd(
+                            xf, rawf, gy, gld, B, K, inverse)
+                    _same(f"K1 {d} {tag} direct y", y_d, y_p)
+                    _same(f"K1 {d} {tag} direct ld", ld_d, ld_p)
+                    _same(f"{kname} {tag} direct gx", gx_d, gx_p)
+                    _same(f"{kname} {tag} direct graw", graw_d, graw_p)
+                    y_t, ld_t, gx_t, graw_t = _grads(
+                        lambda a, r: rqs_cuda.rqs_fused_t(
+                            a, r, B, inverse=inverse, backend="cuda"),
+                        xf, rawf.T.contiguous(), gy, gld)
+                    _same(f"K1 {d} {tag} param-major y", y_t, y_p)
+                    _same(f"K1 {d} {tag} param-major ld", ld_t, ld_p)
+                    _same(f"{kname} {tag} param-major gx", gx_t, gx_p)
+                    _same(f"{kname} {tag} param-major graw", graw_t.T,
+                          graw_p)
+                    del graw_t
+                    poison = torch.full_like(pad, float("nan"))
+                    del poison  # the allocator hands this block to graw
+                    y_e, ld_e, gx_e, graw_e = _grads(
+                        lambda a, r: rqs_cuda.rqs_fused_e(
+                            a, r, B, K, inverse=inverse, backend="cuda"),
+                        xf, pad, gy, gld)
+                    _same(f"K1 {d} {tag} padded y", y_e, y_p)
+                    _same(f"{kname} {tag} padded gx", gx_e, gx_p)
+                    _same(f"{kname} {tag} padded graw", graw_e[:, :P],
+                          graw_p)
+                    if torch.count_nonzero(graw_e[:, P:]) or not bool(
+                            torch.isfinite(graw_e[:, P:]).all()):
+                        raise AssertionError(f"{kname} {tag}: pad columns "
+                                             "of graw are not exact zeros")
+                    checks += 16
+    torch.cuda.synchronize()
+    say(46, f"K1–K3 bfloat16 (x float32 or bfloat16, raw bfloat16): "
+            f"{checks} outputs identical to the plain versions' bits "
+            f"(staged, direct read, param-major, padded with exact-zero pad "
+            f"gradients; graw bfloat16), K 8/10, N {RQS_BF16_SIZES}")
+
+    K, P = 10, 29
+    flush = torch.empty(FLUSH_BYTES // 4, device=DEVICE)
+    flush_ms = device_ms(flush.zero_)
+    for xdt, sfx in RQS_BF16_TYPES:
+        xb = torch.finfo(xdt).bits // 8
+        for n in RQS_TIMED:
+            _, _, x, raw, _, gy, gld = _bf16_rqs_case(gen, xdt, K, n)
+            calls = {
+                "rqs_fwd": (
+                    lambda: rqs_cuda._launch_fwd(x, raw, B, K, False),
+                    lambda: rqs_cuda.tile_transform(x, raw, B)),
+                "rqs_bwd_fwddir": (
+                    lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K,
+                                                 False),
+                    lambda: rqs_cuda.tile_bwd_analytic(x, raw, gy, gld, B)),
+                "rqs_bwd_invdir": (
+                    lambda: rqs_cuda._launch_bwd(x, raw, gy, gld, B, K, True),
+                    lambda: rqs_cuda.tile_bwd_analytic_inverse(
+                        x, raw, gy, gld, B)),
+            }
+            for kernel, (launch, plain) in calls.items():
+                r = results[f"{kernel}_{sfx}"]
+                ms, plain_ms = device_ms(launch), device_ms(plain)
+                bms, by = bound_ms(kernel, n, K, xb, raw_bytes=2)
+                r.setdefault("ms_by_n", {})[n] = ms
+                r.setdefault("plain_ms_by_n", {})[n] = plain_ms
+                r.setdefault("bound_ms_by_n", {})[n] = bms
+                line = (f"{kernel}_{sfx} N={n} K=10: kernel {ms:.5f} ms, "
+                        f"plain {plain_ms:.5f} ms, bound {bms:.5f} ms ({by}, "
+                        f"{xb}-byte x, 2-byte raw), {100 * bms / ms:.1f} % of "
+                        f"it")
+                if n == 131072:
+                    cold = device_ms(lambda: (flush.zero_(), launch())) \
+                        - flush_ms
+                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, cold_ms=cold)
+                    line += f"; cold L2 {cold:.5f} ms"
+                say(46, line + " (device time a call: median of 7 CUDA-graph "
+                               "replays of 20 calls, CUDA events)")
+    return results
+
+
+def _flipped_share(name, got, want, limit):
+    """The share of elements outside FLIP_TOL (a float32 roundoff rounding
+    a later operand to the neighbouring bfloat16); raises past ``limit``."""
+    got, want = got.detach().double(), want.detach().double()
+    out = (got - want).abs() > FLIP_TOL[1] + FLIP_TOL[0] * want.abs()
+    share = float(out.double().mean()) if out.numel() else 0.0
+    if share > limit:
+        raise AssertionError(f"{name}: {100 * share:.3f} % of the elements "
+                             f"outside rtol/atol {FLIP_TOL}, over "
+                             f"{100 * limit:.3f} %")
+    return share
+
+
+def _rel(a, b):
+    """‖a − b‖ / ‖b‖ over lists of tensors, in float64 (0 where both are
+    zero, inf where only b is)."""
+    num = sum(float(((x.double() - y.double()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
+
+
+def _leaf_check(cc, fb, x, gy, gld, sels, inverse, got, wants, tag):
+    """The policy's weight gradients from K5 (``got``) against its plain
+    version's (``wants``), each leaf's relative L2 error held to
+    LEAF_FACTOR times the float32 K5's against the float32 plain version
+    on the same inputs and weights, plus LEAF_FLOOR. The sums are the
+    same in the same orders; the policy adds roundings that float32
+    roundoff can flip, and an ill-conditioned sum amplifies both alike.
+    Returns the largest ratio of the two errors."""
+    xg = x.detach().requires_grad_()
+    y32, ld32 = cc.coupling_stack_fused(xg, fb.groups, fb.idx_even,
+                                        fb.idx_odd, inverse=inverse,
+                                        backend="cuda")
+    g32 = torch.autograd.grad((y32, ld32), cc._leaves(fb.groups), (gy, gld))
+    t32 = cc._leaves(cc.tile_flow_bwd(x, fb.groups, gy, gld, sels,
+                                      inverse)[1])
+    worst = 0.0
+    for i, (a, b, a32, b32) in enumerate(zip(got, wants, g32, t32)):
+        err, err32 = _rel([a], [b]), _rel([a32], [b32])
+        if err > LEAF_FACTOR * err32 + LEAF_FLOOR:
+            raise AssertionError(
+                f"K5 {tag} leaf {i}: relative L2 error {err:.3e} against "
+                f"the plain version, float32's {err32:.3e} (limit "
+                f"{LEAF_FACTOR} times it plus {LEAF_FLOOR})")
+        worst = max(worst, err / max(err32, LEAF_FLOOR))
+    return worst
+
+
+def _bf16_fused(cfg, variant, seed=30):
+    """A perturbed fused RealNVP stack of ``cfg`` for a bf16 variant:
+    "f32_cbf16" (float32 weights, the policy) or "bf16" (bfloat16
+    weights)."""
+    import normalizingflows_torch as nft
+
+    dtype, cd = CPL_BF16_VARIANTS[variant]
+    flow = nft.realnvp(torch.Generator().manual_seed(seed), fused=True,
+                       dtype=dtype, compute_dtype=cd, **cfg)
+    return _perturbed(flow).bijector.bijectors[0]
+
+
+def phase_coupling_bf16(gen):
+    """Phase 47: K4 and K5's bfloat16 instantiations, the policy's
+    ("f32_cbf16") and bfloat16 storage ("bf16"), against their plain
+    versions on the card at the demo's N 16, 300 and 262,144, forward and
+    inverse, within CPL_BF16_TOL (y, ld, gx and every weight gradient, on
+    rows off the leaky ReLU's kink), the policy's weight gradients also
+    against the float32 K5's error (`_leaf_check`); K4 and K5 twice with
+    identical bits;
+    K4's two tiles with identical bits. Then device times at CPL_TIMED
+    beside the float32 kernels in this call."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    results = {f"{k}_{v}": {"err": 0.0, "ms_by_n": {}, "plain_ms_by_n": {},
+                            "bound_ms_by_n": {}, "f32_ms_by_n": {}}
+               for v in CPL_BF16_VARIANTS for k in CPL_KERNELS}
+    n_cmp = redrawn = 0
+    flips = leaf_ratio = 0.0
+    for variant, (dtype, cd) in CPL_BF16_VARIANTS.items():
+        tol = CPL_BF16_TOL[variant]
+        fb = _bf16_fused(RNVP_DEMO, variant)
+        d, depth = RNVP_DEMO["q0"], len(RNVP_DEMO["hdims"]) + 1
+        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+        leaves = cc._leaves(fb.groups)
+        for n in CPL_BF16_N:
+            x, draws = _off_kinks(cc, torch.randn(
+                (n, d), generator=gen, device=DEVICE, dtype=dtype),
+                fb.groups, sels, gen, cd)
+            redrawn += draws
+            gy = (torch.randn((n, d), generator=gen, device=DEVICE)
+                  / n).to(dtype)
+            gld = (torch.randn((n,), generator=gen, device=DEVICE)
+                   / n).to(dtype)
+            tag = f"{variant} demo N={n}"
+
+            def run(inverse):
+                xg = x.detach().requires_grad_()
+                y, ld = cc.coupling_stack_fused(
+                    xg, fb.groups, fb.idx_even, fb.idx_odd, inverse=inverse,
+                    backend="cuda", compute_dtype=cd)
+                return [y.detach(), ld.detach(), *torch.autograd.grad(
+                    (y, ld), [xg] + leaves, (gy, gld))]
+
+            for inverse in (False, True):
+                dr = "inv" if inverse else "fwd"
+                got, again = run(inverse), run(inverse)
+                for i, (a, b) in enumerate(zip(got, again)):
+                    _same(f"K4/K5 {dr} {tag} output {i}, two runs", a, b)
+                if any(t.dtype != dtype for t in got):
+                    raise AssertionError(f"{tag}: outputs not in {dtype}")
+                for lanes in (True, False):
+                    with fwd_tile(cc, lanes):
+                        y_t, ld_t = cc._launch_fwd(x, leaves, sels, depth,
+                                                   inverse, compute_dtype=cd)
+                    _same(f"K4 {dr} {tag} y, tile {lanes}", y_t, got[0])
+                    _same(f"K4 {dr} {tag} ld, tile {lanes}", ld_t, got[1])
+                y_p, ld_p = cc.tile_flow(x, fb.groups, sels, inverse, cd)
+                gx_p, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels,
+                                              inverse, cd)
+                e4 = max(compare(f"K4 {dr} y  {tag}", got[0], y_p, tol["y"]),
+                         compare(f"K4 {dr} ld {tag}", got[1], ld_p,
+                                 tol["ld"]))
+                gx_tol = tol.get("gx", tol["g"])
+                e5 = compare(f"K5 {dr} {tag} gx", got[2], gx_p,
+                             (gx_tol[0], gx_tol[1] / n))
+                wants = cc._leaves(tree)
+                for i, (a, b) in enumerate(zip(got[3:], wants)):
+                    scale = min(1.0, float(b.detach().abs().max()))
+                    e5 = max(e5, compare(f"K5 {dr} {tag} leaf {i}", a, b,
+                                         (tol["g"][0], tol["g"][1] * scale),
+                                         quiet=True))
+                n_cmp += len(got)
+                if cd is not None:
+                    shares = [_flipped_share(f"{nm} {dr} {tag}", a, b,
+                                             FLIP_SHARE)
+                              for nm, a, b in (("y", got[0], y_p),
+                                               ("ld", got[1], ld_p),
+                                               ("gx", got[2] * n, gx_p * n))]
+                    flips = max(flips, max(shares))
+                    leaf_ratio = max(leaf_ratio, _leaf_check(
+                        cc, fb, x, gy, gld, sels, inverse, got[3:], wants,
+                        f"{dr} {tag}"))
+                for k, e in (("coupling_fwd", e4), ("coupling_bwd", e5)):
+                    r = results[f"{k}_{variant}"]
+                    r["err"] = max(r["err"], e)
+    torch.cuda.synchronize()
+    say(47, f"K4/K5 bfloat16: {n_cmp} comparisons with the plain versions "
+            f"within tolerance (policy and bfloat16 storage, forward and "
+            f"inverse, N {CPL_BF16_N}); under the policy at most "
+            f"{100 * flips:.4f} % of y, ld and gx outside {FLIP_TOL}, and "
+            f"its weight gradients at most {leaf_ratio:.1f} times float32's "
+            f"error (LEAF_FACTOR {LEAF_FACTOR}); K4 and "
+            f"K5 identical bits on two runs, K4's lane and row tiles "
+            f"identical bits; {redrawn} rows drawn again off the kink")
+
+    for model, n in CPL_TIMED:
+        cfg = CPL_CFG[model]
+        d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+        f32 = _bf16_fused(cfg, "f32_cbf16")
+        for variant, (dtype, cd) in CPL_BF16_VARIANTS.items():
+            fb = _bf16_fused(cfg, variant)
+            sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+            leaves = cc._leaves(fb.groups)
+            x = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
+            gy = (torch.randn((n, d), generator=gen, device=DEVICE)
+                  / n).to(dtype)
+            gld = (torch.randn((n,), generator=gen, device=DEVICE)
+                   / n).to(dtype)
+            fl = cc._leaves(f32.groups)
+            xf, gyf, gldf = x.float(), gy.float(), gld.float()
+            t = {"coupling_fwd": (
+                     device_ms(lambda: cc._launch_fwd(
+                         x, leaves, sels, depth, False, compute_dtype=cd)),
+                     device_ms(lambda: cc.tile_flow(x, fb.groups, sels,
+                                                    False, cd)),
+                     device_ms(lambda: cc._launch_fwd(xf, fl, sels, depth,
+                                                      False))),
+                 "coupling_bwd": (
+                     device_ms(lambda: cc._launch_bwd(
+                         x, leaves, gy, gld, sels, depth, False, cd)),
+                     device_ms(lambda: cc.tile_flow_bwd(
+                         x, fb.groups, gy, gld, sels, False, cd)),
+                     device_ms(lambda: cc._launch_bwd(xf, fl, gyf, gldf,
+                                                      sels, depth, False)))}
+            word = 2 if dtype == torch.bfloat16 else 4
+            for k, (ms, plain_ms, f32_ms) in t.items():
+                r = results[f"{k}_{variant}"]
+                bms, by = coupling_bound_ms(k, cfg, n, word,
+                                            policy=cd is not None)
+                key = str(n)
+                r["ms_by_n"][key], r["plain_ms_by_n"][key] = ms, plain_ms
+                r["bound_ms_by_n"][key], r["f32_ms_by_n"][key] = bms, f32_ms
+                r.setdefault("bound_by_n", {})[key] = by
+                say(47, f"{k}_{variant} {model} N={n}: kernel {ms:.5f} ms, "
+                        f"plain {plain_ms:.5f} ms, float32 kernel {f32_ms:.5f}"
+                        f" ms, bound {bms:.5f} ms ({by}) (device time a "
+                        f"call: median of 7 CUDA-graph replays of 20 calls, "
+                        f"CUDA events)")
+    for r in results.values():
+        main = str(RNVP_BATCH)
+        r.update(ms=r["ms_by_n"][main], plain_ms=r["plain_ms_by_n"][main],
+                 bound_ms=r["bound_ms_by_n"][main],
+                 bound_by=r["bound_by_n"][main])
+    return results
+
+
+def _mm_flag_check(name):
+    """The policy's product on the card, `torch.mm(a, b,
+    out_dtype=float32)` on bfloat16 operands, at the wide RealNVP's
+    shapes: its bits with `allow_bf16_reduced_precision_reduction` on and
+    off (restored after), and its distance from the float64 product."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device=DEVICE).manual_seed(48)
+    out = {"allow_bf16_reduced_precision_reduction": flag}
+    same = True
+    for m, k, n in ((4096, 64, 256), (4096, 256, 256), (256, 4096, 256)):
+        a = torch.randn((m, k), generator=g, device=DEVICE).bfloat16()
+        b = torch.randn((k, n), generator=g, device=DEVICE).bfloat16()
+        try:
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = True
+            p1 = torch.mm(a, b, out_dtype=torch.float32)
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = False
+            p0 = torch.mm(a, b, out_dtype=torch.float32)
+        finally:
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = flag
+        same &= bool(torch.equal(p0, p1))
+        err = float((p1.double() - a.double() @ b.double()).abs().max())
+        out[f"{m}x{k}x{n}_max_abs_err_f64"] = err
+    out["bits_independent_of_flag"] = same
+    say(48, f"the policy's product torch.mm(bf16, bf16, out_dtype=float32): "
+            f"allow_bf16_reduced_precision_reduction is {flag} (left so); "
+            f"bits with it on and off identical: {same}; {out}, on {name}")
+    if not same:
+        raise AssertionError("phase 48: the policy's product depends on "
+                             "allow_bf16_reduced_precision_reduction")
+    return out
+
+
+def _rnvp_wide(cd, seed=48):
+    import normalizingflows_torch as nft
+
+    return nft.realnvp(torch.Generator().manual_seed(seed), compute_dtype=cd,
+                       **RNVP_WIDE)
+
+
+def _rates_in_turns(phase, label, make, train_rate, per_step, name):
+    """Steps/s of the default graphed run (`elbo_batch`, the generator's
+    draws) of the policy and float32 flows in turns (policy, float32,
+    float32, policy), over chunks 2-3 of RATE_CHUNK steps, with the launch
+    counts ``per_step[cd]`` a step."""
+    rates = {"bf16": [], "f32": []}
+    for key in ("bf16", "f32", "f32", "bf16"):
+        cd = torch.bfloat16 if key == "bf16" else None
+        flow = make(cd)
+        reset_counts()
+        _, _, steady = _stamped(lambda cb: train_rate(flow, cb))
+        expect_counts(f"phase {phase}, {label} {key}, timed",
+                      **{k: v * 3 * RATE_CHUNK
+                         for k, v in per_step[key].items()})
+        rates[key].append(steady)
+    say(phase, f"{label}, graphed, steps/s over chunks 2-3 of {RATE_CHUNK} "
+               f"steps, in turns (policy, float32, float32, policy): policy "
+               f"{rates['bf16'][0]:.1f}, {rates['bf16'][1]:.1f}; float32 "
+               f"{rates['f32'][0]:.1f}, {rates['f32'][1]:.1f}, on {name}")
+    return rates
+
+
+def _policy_band(phase, label, runs):
+    """The policy run against the float32 run from the same init and
+    draws: the first step's loss within POLICY_BAND relative (JAX's bf16
+    policy bound against float32, tests/test_dtype_policy.py), and each
+    run's mean loss over its last POLICY_LAST steps below its first loss
+    (both train). Later steps are reported, not held to the band: on
+    these targets the loss falls by orders of magnitude in the first
+    steps, where the first step's difference compounds."""
+    first = float(abs(runs["bf16"][0] - runs["f32"][0])
+                  / abs(runs["f32"][0]))
+    last = {k: float(np.mean(v[-POLICY_LAST:])) for k, v in runs.items()}
+    ratio = last["bf16"] / last["f32"]
+    say(phase, f"{label}: the policy against float32 from the same init and "
+               f"draws: first loss {runs['bf16'][0]:.6g} against "
+               f"{runs['f32'][0]:.6g} (rel {first:.2e}, band {POLICY_BAND});"
+               f" mean loss of the last {POLICY_LAST} of "
+               f"{len(runs['f32'])} steps {last['bf16']:.6g} against "
+               f"{last['f32']:.6g} (ratio {ratio:.3f})")
+    if not first <= POLICY_BAND:
+        raise AssertionError(f"phase {phase}, {label}: the policy's first "
+                             f"loss is {first:.3f} from float32's")
+    for k, v in runs.items():
+        if not (np.isfinite(v).all() and last[k] < v[0]):
+            raise AssertionError(f"phase {phase}, {label}, {k}: the loss "
+                                 f"went {v[0]} -> {last[k]}")
+    return {"first_rel": first, "last_mean_bf16": last["bf16"],
+            "last_mean_f32": last["f32"], "last_ratio": ratio}
+
+
+def _f32_witness(phase, label, make, train, scan_inputs, f32_losses):
+    """A float32 run on the same draws as ``f32_losses``' run, each step's
+    rows in another order (``scan_inputs``): sum order alone. Its losses
+    against the float32 run's show how far two correct programs part on
+    this cell after the first steps (reported, not held)."""
+    res = train(make(), True, None, scan_inputs)
+    losses = res.stats["loss"]
+    first = float(abs(losses[0] - f32_losses[0]) / abs(f32_losses[0]))
+    last = float(np.mean(losses[-POLICY_LAST:])
+                 / np.mean(f32_losses[-POLICY_LAST:]))
+    say(phase, f"{label}, float32 against float32 with each step's rows "
+               f"permuted (sum order alone): first loss rel {first:.2e}, "
+               f"mean loss of the last {POLICY_LAST} of {len(losses)} steps "
+               f"{np.mean(losses[-POLICY_LAST:]):.6g} against "
+               f"{np.mean(f32_losses[-POLICY_LAST:]):.6g} (ratio {last:.3f})")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase {phase}, {label}: the permuted float32 "
+                             "run's loss is not finite")
+    return {"first_rel": first, "last_ratio": last}
+
+
+class _WitnessMatmul(torch.autograd.Function):
+    """The bf16 policy's product written apart from the port's
+    `nets._MixedMatmul`, the witness of `_first_step` and `_mixed_check`:
+    the same bfloat16 operands (x, W and the cotangent each rounded once)
+    multiplied and summed in float64, each result cast once to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, W, cd):
+        xc = x.reshape(-1, x.shape[-1]).to(cd).double()
+        Wc = W.to(cd).double()
+        ctx.save_for_backward(xc, Wc)
+        ctx.meta = x.shape, x.dtype, W.dtype, cd
+        return (xc @ Wc).to(W.dtype).reshape(x.shape[:-1] + (W.shape[1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, Wc = ctx.saved_tensors
+        shape, x_dtype, w_dtype, cd = ctx.meta
+        gc = g.reshape(-1, g.shape[-1]).to(cd).double()
+        return ((gc @ Wc.T).to(x_dtype).reshape(shape),
+                (xc.T @ gc).to(w_dtype), None)
+
+
+def _elbo_grads(flow, logp, draws):
+    """The gradient of −`elbo_from_samples(draws, flow, logp)` with
+    respect to the bijector's parameters (train_base=False), as
+    `train_flow`'s step takes it."""
+    import normalizingflows_torch as nft
+
+    loss = -nft.elbo_from_samples(draws, flow, logp)
+    return torch.autograd.grad(loss, list(flow.bijector.parameters()))
+
+
+def _with_witness(fn):
+    """``fn()`` with the port's policy product replaced by
+    `_WitnessMatmul`."""
+    from normalizingflows_torch.models import nets
+
+    real = nets._MixedMatmul
+    nets._MixedMatmul = _WitnessMatmul
+    try:
+        return fn()
+    finally:
+        nets._MixedMatmul = real
+
+
+def _first_step(phase, label, make, target, draws, graphed_norm):
+    """The main path's first step held to a number a wrong gradient moves.
+    The policy flow ``make(bf16)``'s gradient on the first step's
+    ``draws``: its global norm against the graphed run's first
+    `gradient_norm` within 1e-6 relative (the program checked is the one
+    the graphed step ran); then, on the draws times FIRST_STEP_SCALE,
+    where the flow is well conditioned, against the same flow's gradient
+    through `_WitnessMatmul` (the policy written apart, float64 sums) and
+    the float32 flow's (``make(None)``): relative L2 from float32 within
+    POLICY_BAND (JAX's bf16 policy bound), and from the witness within
+    WITNESS_SHARE of that (the card's bf16 sums are not float32's to the
+    ulp, so a few later roundings flip, but a policy program is nearer
+    the policy than float32 is: a wrong scale, a missing term or a
+    rounding left out moves it to float32's distance or past). On the
+    draws themselves both are reported: at init a few rows there reach
+    huge outputs, and one flipped rounding moves the whole gradient."""
+    from normalizingflows_torch.utils.pytree import global_norm
+
+    flow, f32_flow = make(torch.bfloat16), make(None)
+    logp = target.log_prob
+    pol = _elbo_grads(flow, logp, draws)
+    out = {"graphed_rel": float(abs(global_norm(pol) - graphed_norm)
+                                / graphed_norm),
+           "norm": float(global_norm(pol)), "graphed_norm": graphed_norm,
+           "raw_witness_rel": _rel(pol, _with_witness(
+               lambda: _elbo_grads(flow, logp, draws))),
+           "raw_f32_rel": _rel(pol, _elbo_grads(f32_flow, logp, draws))}
+    small = draws * FIRST_STEP_SCALE
+    pol = _elbo_grads(flow, logp, small)
+    wit = _with_witness(lambda: _elbo_grads(flow, logp, small))
+    out.update(witness_rel=_rel(pol, wit),
+               witness_rel_max_tensor=max(_rel([a], [b])
+                                          for a, b in zip(pol, wit)),
+               f32_rel=_rel(pol, _elbo_grads(f32_flow, logp, small)))
+    say(phase, f"{label}, the first step's gradient under the policy: norm"
+               f" {out['norm']:.8g} against the graphed step's "
+               f"{graphed_norm:.8g} (rel {out['graphed_rel']:.2e}); on the "
+               f"draws times {FIRST_STEP_SCALE}, rel L2 against the float64"
+               f"-summed witness {out['witness_rel']:.3e} (at most "
+               f"{WITNESS_SHARE} of float32's; worst tensor "
+               f"{out['witness_rel_max_tensor']:.3e}), against float32 "
+               f"{out['f32_rel']:.3e} (band {POLICY_BAND}); on the draws "
+               f"themselves {out['raw_witness_rel']:.3e} and "
+               f"{out['raw_f32_rel']:.3e} (reported)")
+    if not (out["graphed_rel"] <= 1e-6 and out["f32_rel"] <= POLICY_BAND
+            and out["witness_rel"] <= WITNESS_SHARE * out["f32_rel"]):
+        raise AssertionError(f"phase {phase}, {label}: the policy's first "
+                             f"step is outside its bands: {out}")
+    return out
+
+
+def _mixed_check(phase, shapes, name):
+    """`nets._MixedMatmul` on the card at the main path's product shapes,
+    (rows, in, out), against `_WitnessMatmul` on the same float32 x, W
+    and cotangent: the value, gx and gW relative L2 within MIXED_BAND. One
+    product rounds the same operands on both sides, so only the float32
+    sums differ (`_mm_flag_check` reads them against float64)."""
+    from normalizingflows_torch.models import nets
+
+    g = torch.Generator(device=DEVICE).manual_seed(phase)
+    worst = 0.0
+    for m, k, n in shapes:
+        x, W, gy = (torch.randn(s, generator=g, device=DEVICE)
+                    for s in ((m, k), (k, n), (m, n)))
+        outs = []
+        for fn in (nets._MixedMatmul, _WitnessMatmul):
+            xg, Wg = x.clone().requires_grad_(), W.clone().requires_grad_()
+            y = fn.apply(xg, Wg, torch.bfloat16)
+            outs.append([y, *torch.autograd.grad(y, (xg, Wg), gy)])
+        errs = [_rel([a], [b]) for a, b in zip(*outs)]
+        worst = max(worst, *errs)
+        if max(errs) > MIXED_BAND:
+            raise AssertionError(f"phase {phase}: _MixedMatmul {m}x{k}x{n} "
+                                 f"(value, gx, gW) rel L2 {errs} against the"
+                                 f" float64-summed witness, band {MIXED_BAND}")
+    say(phase, f"_MixedMatmul at {shapes}: value, gx and gW within "
+               f"{worst:.3e} relative L2 of the float64-summed witness "
+               f"(band {MIXED_BAND}), on {name}")
+    return worst
+
+
+def _permuted(batch, seed):
+    """`presample_base(batch)` with each step's rows in a fixed permuted
+    order: the same draws, summed in another order."""
+    import normalizingflows_torch as nft
+
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(
+        seed)).to(DEVICE)
+    base = nft.presample_base(batch)
+    return lambda gen, flow, chunk: base(gen, flow, chunk)[:, perm]
+
+
+def phase_rnvp_wide_policy(name):
+    """Phase 48, the slice's main path: wide RealNVP (d=128, [256,256]x10,
+    remat, batch 4096, Adam(1e-3) on Banana(128, 1, 100);
+    benchmarks/roofline.py:178-191) under the bf16 policy through the
+    graphed `train_flow`, at full width: graphed then eagerly
+    (POLICY_STEPS steps each on the same draws, identical bits strict, no
+    K1-K6 launch), the policy's loss against the float32 run's from the
+    same init and draws (`_policy_band`), steps/s in turns against float32,
+    peak memory; the profile after every other phase."""
+    import normalizingflows_torch as nft
+
+    flag = _mm_flag_check(name)
+    d, (h1, h2) = RNVP_WIDE["q0"], RNVP_WIDE["hdims"]
+    flag["mixed_matmul_rel"] = _mixed_check(
+        48, ((RNVP_WIDE_BATCH, d - d // 2, h1), (RNVP_WIDE_BATCH, h1, h2),
+             (RNVP_WIDE_BATCH, h2, d // 2)), name)
+    target = nft.Banana(RNVP_WIDE["q0"], 1.0, 100.0)
+
+    def train(flow, graph, callback, scan_inputs=None):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(48),
+            nft.elbo_from_samples, flow, target.log_prob,
+            max_iters=POLICY_STEPS, check_every=POLICY_STEPS // 2,
+            callback=callback, scan_inputs=scan_inputs or nft.presample_base(
+                RNVP_WIDE_BATCH),
+            optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_WIDE_LR,
+                                                 capturable=True),
+            graph=graph)
+
+    out = {"rnvp_wide_bf16": _graph_and_eager(
+        48, "wide RealNVP, bf16 policy", lambda: _rnvp_wide(torch.bfloat16),
+        train, POLICY_STEPS, {}, name)}
+    runs = {p: _outcome(r["res"], r["flow"])
+            for p, r in out["rnvp_wide_bf16"].items()}
+    _agree(48, "wide RealNVP, bf16 policy", runs["graph"], runs["eager"],
+           strict=True)
+    out["identical"] = True
+    f32 = _graph_and_eager(48, "wide RealNVP, float32",
+                           lambda: _rnvp_wide(None), train, POLICY_STEPS, {},
+                           name, eager_steps=POLICY_STEPS)
+    band = _policy_band(48, "wide RealNVP", {
+        "bf16": out["rnvp_wide_bf16"]["graph"]["res"].stats["loss"],
+        "f32": f32["graph"]["res"].stats["loss"]})
+    draws = nft.presample_base(RNVP_WIDE_BATCH)(
+        torch.Generator(device=DEVICE).manual_seed(48), f32["graph"]["flow"],
+        POLICY_STEPS // 2)[0]
+    band["first_step"] = _first_step(
+        48, "wide RealNVP", _rnvp_wide, target, draws, float(
+            out["rnvp_wide_bf16"]["graph"]["res"].stats["gradient_norm"][0]))
+    del draws
+    band["f32_witness"] = _f32_witness(
+        48, "wide RealNVP", lambda: _rnvp_wide(None), train,
+        _permuted(RNVP_WIDE_BATCH, 48), f32["graph"]["res"].stats["loss"])
+
+    def rate(flow, cb):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(49), nft.elbo_batch,
+            flow, target.log_prob, RNVP_WIDE_BATCH,
+            max_iters=3 * RATE_CHUNK, check_every=RATE_CHUNK, callback=cb,
+            optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_WIDE_LR))
+
+    rates = _rates_in_turns(48, "wide RealNVP", _rnvp_wide, rate,
+                            {"bf16": {}, "f32": {}}, name)
+    peak = {k: r["graph"]["peak_mib"]
+            for k, r in (("bf16", out["rnvp_wide_bf16"]), ("f32", f32))}
+
+    def profiled(cd):
+        return lambda p, cb: nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(50), nft.elbo_batch,
+            _rnvp_wide(cd), target.log_prob, RNVP_WIDE_BATCH,
+            max_iters=2 * p, check_every=p, callback=cb,
+            optimizer=lambda q: torch.optim.Adam(q, lr=RNVP_WIDE_LR))
+
+    return out, {"cell": "rnvp_wide_bf16", "numbers": {
+        "mm": flag, "band": band, "graph_steady_in_turns": rates,
+        "peak_mib_graph": peak},
+        "profile": lambda: {
+            "bf16": profile_cell(48, "wide RealNVP, bf16 policy", 10,
+                                 profiled(torch.bfloat16), name),
+            "f32": profile_cell(48, "wide RealNVP, float32", 10,
+                                profiled(None), name)}}
+
+
+def phase_nsf_wide_policy(gen, name):
+    """Phase 49: NSF wide (d=64, [128,128]x10, K=10, identity init, batch
+    4096; benchmarks/roofline.py:244-258) under the bf16 policy, with and
+    without remat, graphed then eagerly on the same draws: K1 and K2 on
+    bfloat16 raw (`_f32_rbf16`) 20 a step in every run, graphed against
+    eager identical bits (strict), remat against no remat (reported), the
+    loss against float32's from the same init and draws; steps/s of the
+    remat flow in turns against float32; the MLE demo under the policy
+    (K1 inverse and K3 on bfloat16 raw, 20 a step)."""
+    import normalizingflows_torch as nft
+
+    bf = torch.bfloat16
+    target = nft.Banana(WIDE["q0"], 1.0, 100.0)
+    per_step = {"bf16": dict.fromkeys(
+        ("rqs_fwd_f32_rbf16", "rqs_bwd_fwddir_f32_rbf16"),
+        2 * WIDE["nlayers"]),
+        "f32": dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"),
+                             2 * WIDE["nlayers"])}
+
+    def make(cd, remat=True):
+        return nft.nsf(torch.Generator().manual_seed(3), remat=remat,
+                       compute_dtype=cd, **WIDE)
+
+    def train(flow, graph, callback):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(49),
+            nft.elbo_from_samples, flow, target.log_prob,
+            max_iters=WIDE_STEPS, check_every=WIDE_STEPS // 2,
+            callback=callback, scan_inputs=nft.presample_base(WIDE_BATCH),
+            optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR,
+                                                 capturable=True),
+            graph=graph)
+
+    out, runs = {}, {}
+    for remat in (False, True):
+        cell = "nsf_wide_bf16_remat" if remat else "nsf_wide_bf16"
+        out[cell] = _graph_and_eager(
+            49, f"NSF wide, bf16 policy, remat={remat}",
+            lambda: make(bf, remat), train, WIDE_STEPS, per_step["bf16"],
+            name)
+        runs[cell] = {p: _outcome(r["res"], r["flow"])
+                      for p, r in out[cell].items()}
+        _agree(49, f"NSF wide, bf16 policy, remat={remat}",
+               runs[cell]["graph"], runs[cell]["eager"], strict=True)
+    out["identical"] = True
+    remat_same = _agree(49, "NSF wide, bf16 policy",
+                        runs["nsf_wide_bf16_remat"]["graph"],
+                        runs["nsf_wide_bf16"]["graph"],
+                        what="remat against no remat, graphed")
+    f32 = _graph_and_eager(49, "NSF wide, float32, remat=True",
+                           lambda: make(None), train, WIDE_STEPS,
+                           per_step["f32"], name)
+    band = _policy_band(49, "NSF wide", {
+        "bf16": out["nsf_wide_bf16_remat"]["graph"]["res"].stats["loss"],
+        "f32": f32["graph"]["res"].stats["loss"]})
+    draws = nft.presample_base(WIDE_BATCH)(
+        torch.Generator(device=DEVICE).manual_seed(49), f32["graph"]["flow"],
+        WIDE_STEPS // 2)[0]
+    band["first_step"] = _first_step(
+        49, "NSF wide", make, target, draws, float(
+            out["nsf_wide_bf16_remat"]["graph"]["res"].stats[
+                "gradient_norm"][0]))
+    del draws
+
+    def rate(flow, cb):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(35), nft.elbo_batch,
+            flow, target.log_prob, WIDE_BATCH, max_iters=3 * RATE_CHUNK,
+            check_every=RATE_CHUNK, callback=cb,
+            optimizer=lambda p: torch.optim.Adam(p, lr=WIDE_LR))
+
+    rates = _rates_in_turns(49, "NSF wide (remat)", make, rate, per_step,
+                            name)
+    # the density path under the policy: K1 inverse and K3 on bf16 raw
+    mle_target = nft.Banana(2, 1.0, 10.0)
+    data = mle_target.sample(gen, (MLE_ROWS,)).cpu().numpy()
+    flow = nft.nsf(torch.Generator().manual_seed(4), compute_dtype=bf,
+                   **DEMO)
+    reset_counts()
+    res = nft.train_flow_mle(
+        flow, nft.utils.data.make_loader(data, MLE_BATCH, dim=2, seed=4),
+        max_iters=POLICY_MLE_STEPS, check_every=POLICY_MLE_STEPS // 2,
+        optimizer=lambda p: torch.optim.Adam(p, lr=MLE_LR, capturable=True))
+    mle_counts = expect_counts(
+        "phase 49, MLE demo, bf16 policy",
+        rqs_fwd_f32_rbf16=2 * DEMO["nlayers"] * POLICY_MLE_STEPS,
+        rqs_bwd_invdir_f32_rbf16=2 * DEMO["nlayers"] * POLICY_MLE_STEPS)
+    losses = res.stats["loss"]
+    if not np.isfinite(losses).all():
+        raise AssertionError("phase 49: the MLE demo's loss is not finite")
+    say(49, f"MLE demo under the bf16 policy, {POLICY_MLE_STEPS} graphed "
+            f"steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches "
+            f"{ {k: v for k, v in mle_counts.items() if v} }, on {name}")
+    return out, {"cell": "nsf_wide_bf16_remat", "numbers": {
+        "remat_identical_bits": remat_same, "band": band,
+        "graph_steady_in_turns": rates,
+        "peak_mib_graph": {
+            "bf16_remat": out["nsf_wide_bf16_remat"]["graph"]["peak_mib"],
+            "bf16": out["nsf_wide_bf16"]["graph"]["peak_mib"],
+            "f32_remat": f32["graph"]["peak_mib"]},
+        "mle_counts": mle_counts},
+        "profile": lambda: {
+            "bf16": profile_cell(49, "NSF wide, remat, bf16 policy", 10,
+                                 lambda p, cb: nft.train_flow(
+                                     torch.Generator(device=DEVICE)
+                                     .manual_seed(36), nft.elbo_batch,
+                                     make(bf), target.log_prob, WIDE_BATCH,
+                                     max_iters=2 * p, check_every=p,
+                                     callback=cb,
+                                     optimizer=lambda q: torch.optim.Adam(
+                                         q, lr=WIDE_LR)), name)}}
+
+
+def phase_bf16_params(gen, name):
+    """Phase 50: bfloat16 parameters. `FlowConfig(dtype="bfloat16")` from
+    JSON for each of BF16_FAMILIES through `TrainConfig.run`, BF16_STEPS
+    graphed steps each: the launches (nsf: K1/K2 `_bf16`, and K1 inverse
+    and K3 `_bf16` on the MLE path; fused realnvp: K4/K5 `_bf16`, one a
+    step; none for the others), finite losses that fall (the mean of the
+    last BF16_MEAN against the first), bfloat16 parameters after Adam, and
+    a `save_pytree`/`load_pytree` round trip with identical bits."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch.utils import checkpoint
+
+    L = BF16_NLAYERS
+    want = {"nsf": dict(rqs_fwd_bf16=2 * L, rqs_bwd_fwddir_bf16=2 * L),
+            "nsf_mle": dict(rqs_fwd_bf16=2 * L, rqs_bwd_invdir_bf16=2 * L),
+            "realnvp_fused": dict(coupling_fwd_bf16=1, coupling_bwd_bf16=1)}
+    target = nft.Banana(2, 1.0, 10.0)
+    data = target.sample(gen, (MLE_ROWS,)).cpu().numpy()
+    out, counts = {}, {}
+    for label, family, fused, objective in BF16_FAMILIES:
+        cfg = nft.config_from_json(nft.config_to_json(nft.TrainConfig(
+            flow=nft.FlowConfig(family=family, dim=2, nlayers=L,
+                                fused=fused, dtype="bfloat16", B=8.0),
+            optimizer=nft.OptimizerConfig(learning_rate=1e-3),
+            max_iters=BF16_STEPS, n_samples=64, batch_size=MLE_BATCH,
+            objective=objective, check_every=BF16_STEPS // 4, seed=50)))
+        reset_counts()
+        res, dt, steady = _stamped(lambda cb: cfg.run(
+            target.log_prob, data=data if objective == "mle" else None,
+            callback=cb))
+        counts[label] = expect_counts(
+            f"phase 50, {label}",
+            **{k: v * BF16_STEPS for k, v in want.get(label, {}).items()})
+        losses = res.stats["loss"]
+        first = float(losses[:BF16_MEAN].mean())
+        last = float(losses[-BF16_MEAN:].mean())
+        dtypes = {p.dtype for p in res.flow.parameters()}
+        path = _exp_dir() / f"bf16_{label}.pt"
+        checkpoint.save_pytree(str(path), res.flow)
+        back = checkpoint.load_pytree(str(path), cfg.flow.build(
+            torch.Generator().manual_seed(1)))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(res.flow.state_dict().values(),
+                                   back.state_dict().values()))
+        say(50, f"{label} bfloat16 from JSON, {BF16_STEPS} graphed steps: "
+                f"{steady:.1f} steps/s after the first chunk, loss {first:.4f}"
+                f" -> {last:.4f} (means of {BF16_MEAN}), parameters {dtypes},"
+                f" launches {({k: v for k, v in counts[label].items() if v})}"
+                f", checkpoint round trip identical bits {same}, on {name}")
+        if not (np.isfinite(losses).all() and last < first
+                and dtypes == {torch.bfloat16} and same):
+            raise AssertionError(f"phase 50, {label}: losses finite "
+                                 f"{np.isfinite(losses).all()}, {first} -> "
+                                 f"{last}, {dtypes}, round trip {same}")
+        out[label] = dict(steady=steady, steps_per_s=BF16_STEPS / dt,
+                          loss_first=first, loss_last=last,
+                          identical_bits=same)
+    return out, counts
+
+
+def phase_fused_policy(name):
+    """Phase 51: the fused RealNVP demo under the bf16 policy
+    (`realnvp(2, (16, 16), nlayers=3, fused=True,
+    compute_dtype=bfloat16)`, Banana(2, 1, 100), 16 samples, Adam(5e-4)),
+    RNVP_STEPS graphed steps and POLICY_FUSED_EAGER eager, one K4 and one
+    K5 `_f32_cbf16` a step; graphed against eager on the same draws,
+    identical bits (strict)."""
+    import normalizingflows_torch as nft
+
+    target = nft.Banana(2, 1.0, 100.0)
+    make = lambda: nft.realnvp(  # noqa: E731
+        torch.Generator().manual_seed(51), fused=True,
+        compute_dtype=torch.bfloat16, **RNVP_DEMO)
+
+    def train(flow, graph, callback):
+        steps = RNVP_STEPS if graph else POLICY_FUSED_EAGER
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(51), nft.elbo_batch,
+            flow, target.log_prob, RNVP_BATCH, max_iters=steps,
+            check_every=100 if graph else steps // 2, callback=callback,
+            optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_LR), graph=graph)
+
+    out = {"realnvp_demo_bf16": _graph_and_eager(
+        51, "fused RealNVP demo, bf16 policy", make, train, RNVP_STEPS,
+        dict(coupling_fwd_f32_cbf16=1, coupling_bwd_f32_cbf16=1), name,
+        eager_steps=POLICY_FUSED_EAGER)}
+
+    def same_inputs(flow, graph):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE), nft.elbo_from_samples, flow,
+            target.log_prob, max_iters=SAME_STEPS, check_every=SAME_CHECK,
+            scan_inputs=nft.presample_base(RNVP_BATCH),
+            optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_LR,
+                                                 capturable=True),
+            graph=graph)
+
+    out["identical"] = _same_inputs(51, "fused RealNVP demo, bf16 policy",
+                                    make, same_inputs, SAME_STEPS,
+                                    strict=True)
+    losses = out["realnvp_demo_bf16"]["graph"]["res"].stats["loss"]
+    if not losses[-100:].mean() < losses[:100].mean():
+        raise AssertionError("phase 51: the loss did not fall")
+    return out
+
+
 def graph_cells(phase: int, out: dict) -> dict:
     """A graphed phase's cells as numbers: steps/s graphed and eager,
     after the first chunk and overall, peak MiB, and whether graphed and
@@ -3894,6 +4978,19 @@ def main(argv=None) -> int:
         demos = phase_demos(name)
     if 45 in phases:
         parity_rows, parity_seconds = phase_parity_quick(name)
+    bf16 = {}  # phases 48-49's cells and their numbers
+    if 46 in phases:
+        rqs16 = phase_rqs_bf16(gen)
+    if 47 in phases:
+        cpl16 = phase_coupling_bf16(gen)
+    if 48 in phases:
+        bf16[48] = phase_rnvp_wide_policy(name)
+    if 49 in phases:
+        bf16[49] = phase_nsf_wide_policy(gen, name)
+    if 50 in phases:
+        params16, params16_counts = phase_bf16_params(gen, name)
+    if 51 in phases:
+        fused16 = phase_fused_policy(name)
     if 41 in phases:  # its trace is a profiler run: after the rates
         experiment["profiling_41"] = phase_exp_profiling(
             gen, name, graphed[22]["demo"]["graph"]["steady"]
@@ -3911,6 +5008,11 @@ def main(argv=None) -> int:
     if 43 in phases:
         schedule["profiled"] = {k: v for k, v in sched_profile().items()
                                 if k in PROFILE_KEYS}
+    for phase, (_, info) in bf16.items():
+        info["profiled"] = {
+            k: {key: r[key] for key in PROFILE_KEYS + (
+                "kernels_per_step_by_category", "top_kernels")}
+            for k, r in info.pop("profile")().items()}
     cells = {}
     for phase, out in graphed.items():
         cells.update(graph_cells(phase, out))
@@ -3953,6 +5055,17 @@ def main(argv=None) -> int:
         print(json.dumps({"parity": {"quick_rows": parity_rows,
                                      "seconds": parity_seconds}}),
               flush=True)
+    bf16_line = {}
+    for phase, (out, info) in bf16.items():
+        bf16_line.update(graph_cells(phase, out))
+        bf16_line[f"{info['cell']}_{phase}"].update(
+            info["numbers"], profiled=info["profiled"])
+    if 50 in phases:
+        bf16_line["bf16_parameters_50"] = params16
+    if 51 in phases:
+        bf16_line.update(graph_cells(51, fused16))
+    if bf16_line:
+        print(json.dumps({"bf16": bf16_line}), flush=True)
     torch.cuda.synchronize()
     device_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3991,12 +5104,32 @@ def main(argv=None) -> int:
              **{f"{label}_main": d["counts"] for label, d in demos.items()},
              **{f"parity_{k}_quick": {c: r["counts"].get(c, 0)
                                       for c in sched_counts}
-                for k, r in parity_rows.items()}}
+                for k, r in parity_rows.items()},
+             "nsf_wide_bf16_remat_graph":
+                 bf16[49][0]["nsf_wide_bf16_remat"]["graph"]["counts"],
+             "mle_demo_bf16_graph": bf16[49][1]["numbers"]["mle_counts"],
+             "realnvp_demo_bf16_graph":
+                 fused16["realnvp_demo_bf16"]["graph"]["counts"],
+             **{f"{label}_bf16_config_graph": c
+                for label, c in params16_counts.items()}}
     own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
            "rqs_bwd_invdir": "mle_demo_graph",
            "coupling_fwd": "realnvp_demo_graph",
            "coupling_bwd": "realnvp_demo_graph",
-           "realnvp_train": "realnvp_train_demo"}
+           "realnvp_train": "realnvp_train_demo",
+           # the bfloat16 instantiations: the policy's NSF wide (K1/K2) and
+           # MLE demo (K3) and fused demo (K4/K5); bfloat16 parameters'
+           # configs
+           "rqs_fwd_f32_rbf16": "nsf_wide_bf16_remat_graph",
+           "rqs_bwd_fwddir_f32_rbf16": "nsf_wide_bf16_remat_graph",
+           "rqs_bwd_invdir_f32_rbf16": "mle_demo_bf16_graph",
+           "rqs_fwd_bf16": "nsf_bf16_config_graph",
+           "rqs_bwd_fwddir_bf16": "nsf_bf16_config_graph",
+           "rqs_bwd_invdir_bf16": "nsf_mle_bf16_config_graph",
+           "coupling_fwd_f32_cbf16": "realnvp_demo_bf16_graph",
+           "coupling_bwd_f32_cbf16": "realnvp_demo_bf16_graph",
+           "coupling_fwd_bf16": "realnvp_fused_bf16_config_graph",
+           "coupling_bwd_bf16": "realnvp_fused_bf16_config_graph"}
 
     # K1's registers, from ptxas's report, and its static issue estimate
     # (phase 2)
@@ -4032,7 +5165,13 @@ def main(argv=None) -> int:
         entry("realnvp_train", "train.cu", train,
               ("ms_per_launch", "steps_per_s", "graph_step_ms",
                "graph_steps_per_s", "eager_step_ms", "ref_ms",
-               "ref_steps_per_s", "ref_bound_ms", "ref_bound_by"))]}),
+               "ref_steps_per_s", "ref_bound_ms", "ref_bound_by"))] + [
+        entry(k, "rqs_bf16.cu", r, ("ms_by_n", "plain_ms_by_n",
+                                    "bound_ms_by_n", "cold_ms"))
+        for k, r in rqs16.items()] + [
+        entry(k, "coupling_bf16.cu", r, ("ms_by_n", "plain_ms_by_n",
+                                         "bound_ms_by_n", "f32_ms_by_n"))
+        for k, r in cpl16.items()]}),
           flush=True)
     print(device_line, flush=True)
     return 0

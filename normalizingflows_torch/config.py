@@ -65,19 +65,12 @@ class FlowConfig:
     def build(self, generator: torch.Generator,
               score_fn: Callable | None = None, device=None):
         """The flow, its weights drawn from ``generator`` (a CPU
-        generator), on ``device`` (None: the card). The spline and fused
-        coupling kernels take float32 and float64 only: ``bfloat16`` raises
-        for 'nsf' and fused 'realnvp' (the bf16 policy is `ROADMAP.md` §1
-        item 3)."""
+        generator), on ``device`` (None: the card), its parameters in
+        ``dtype`` (``bfloat16`` for every family: 'nsf' and fused
+        'realnvp' then run the kernels' bfloat16 instantiations)."""
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r}")
         dt = _DTYPES[self.dtype]
-        if dt == torch.bfloat16 and (self.family == "nsf" or (
-                self.family == "realnvp" and self.fused)):
-            raise NotImplementedError(
-                f"family={self.family!r} runs kernels built for float32 and "
-                "float64 only; bfloat16 waits for the bf16 policy, "
-                "ROADMAP.md §1 item 3")
         kw = dict(dtype=dt, device=device)
         hdims = tuple(self.hdims)
         if self.family == "planar":

@@ -14,6 +14,7 @@
 // each source that includes this file gets its own copy.
 
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +107,62 @@ __device__ __forceinline__ double ex(double v) { return exp(v); }
 __device__ __forceinline__ float th(float v) { return tanhf(v); }
 __device__ __forceinline__ double th(double v) { return tanh(v); }
 
+// How a kernel stores and rounds, its template parameter P (csrc/coupling.cu
+// instantiates Exact<float> and Exact<double>, csrc/coupling_bf16.cu the
+// other two): P::S stores x, the weights and every output in device memory,
+// T (the kernel's type) is the arithmetic and what shared memory holds;
+// with P::kRound every conditioner product rounds both operands to
+// bfloat16 before it multiplies (the bf16 compute_dtype policy, the
+// Pallas kernels' `_dot(a, b, cd)`: bfloat16 operands, float32 sums). The
+// bias adds, activations, selections and the coupling's own arithmetic
+// are not rounded. Bf16Storage (bfloat16 parameters) widens what it reads
+// and rounds each output once; its partial weight gradients stay float32
+// until the reduce writes them.
+template <typename T>
+struct Exact {
+  using S = T;
+  static constexpr bool kRound = false;
+};
+struct Bf16Operands {
+  using S = float;
+  static constexpr bool kRound = true;
+};
+struct Bf16Storage {
+  using S = __nv_bfloat16;
+  static constexpr bool kRound = false;
+};
+
+// a conditioner product's operand under P. The weights are rounded once,
+// as they are staged (`stage`, `lane_staged_word`, `stage_layer`: W, not
+// b), a layer's input and cotangent once a layer in registers; only the
+// weight gradient's batch sum rounds both operands at each use, since the
+// caches hold the unrounded values the slopes and bias gradients need.
+template <typename P, typename T>
+__device__ __forceinline__ T opnd(T v) {
+  if constexpr (P::kRound) return __bfloat162float(__float2bfloat16_rn(v));
+  else return v;
+}
+// a stored word widened to the arithmetic's T, and T rounded (to nearest
+// even) to the stored type
+template <typename T, typename S>
+__device__ __forceinline__ T widen(S v) {
+  return T(v);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T v) {
+  return S(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // 16 bytes of shared memory into registers
 __device__ __forceinline__ void ld16(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -147,8 +204,9 @@ __host__ __device__ inline int level_off(int H, int m, int rows) {
 
 // Block blk's s and t weights of group g into w, zero-padded, W's rows ob
 // words apart (K4 and K5's row tile: one thread a row, a few warps).
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ void stage(const Stack& st, int g, int blk, T* w) {
+  using S = typename P::S;
   __syncthreads();  // every thread is done with the previous coupling
   const int depth = st.depth;
   int off = 0;
@@ -158,16 +216,16 @@ __device__ void stage(const Stack& st, int g, int blk, T* w) {
     for (int l = 0; l < depth; ++l) {
       const int ib = in_bound(H, l), ob = out_bound(H, l, depth);
       const int in = st.width[g][l], o = st.width[g][l + 1];
-      const T* W = static_cast<const T*>(st.W[g][net][l]) +
+      const S* W = static_cast<const S*>(st.W[g][net][l]) +
                    (int64_t)blk * in * o;
-      const T* b = static_cast<const T*>(st.b[g][net][l]) + (int64_t)blk * o;
+      const S* b = static_cast<const S*>(st.b[g][net][l]) + (int64_t)blk * o;
       for (int e = threadIdx.x; e < ib * ob + ob; e += blockDim.x) {
         T v = T(0);
         if (e < ib * ob) {
           const int k = e / ob, j = e - (e / ob) * ob;
-          if (k < in && j < o) v = W[k * o + j];
+          if (k < in && j < o) v = opnd<P>(widen<T>(W[k * o + j]));
         } else if (e - ib * ob < o) {
-          v = b[e - ib * ob];
+          v = widen<T>(b[e - ib * ob]);
         }
         w[off + e] = v;
       }
@@ -180,9 +238,10 @@ __device__ void stage(const Stack& st, int g, int blk, T* w) {
 // Word e of one coupling's weights in the lane tile's layout (block blk of
 // group g: both nets, each layer's W zero-padded with its rows ob + 1 words
 // apart, then b), read from the stacked weights.
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ T lane_staged_word(const Stack& st, int g,
                                               int blk, int e) {
+  using S = typename P::S;
   const int depth = st.depth, per_net = net_words(H, depth, 1);
   const int net = e >= per_net ? 1 : 0;
   e -= net * per_net;
@@ -195,12 +254,14 @@ __device__ __forceinline__ T lane_staged_word(const Stack& st, int g,
   const int in = st.width[g][l], o = st.width[g][l + 1];
   if (e < ib * os) {
     const int k = e / os, j = e - (e / os) * os;
-    return (k < in && j < o) ? static_cast<const T*>(st.W[g][net][l])
-                                   [(int64_t)blk * in * o + k * o + j]
-                             : T(0);
+    return (k < in && j < o)
+               ? opnd<P>(widen<T>(static_cast<const S*>(
+                     st.W[g][net][l])[(int64_t)blk * in * o + k * o + j]))
+               : T(0);
   }
   e -= ib * os;
-  return e < o ? static_cast<const T*>(st.b[g][net][l])[(int64_t)blk * o + e]
+  return e < o ? widen<T>(static_cast<const S*>(
+                     st.b[g][net][l])[(int64_t)blk * o + e])
                : T(0);
 }
 
@@ -208,7 +269,7 @@ __device__ __forceinline__ T lane_staged_word(const Stack& st, int g,
 // One loop over both nets' words, each thread with kInFlight loads from
 // device memory outstanding before it stores them: about one round trip a
 // coupling, where a loop per layer makes one a layer.
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
   constexpr int kInFlight = 4;
   __syncthreads();  // every thread is done with the previous coupling
@@ -218,7 +279,7 @@ __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
 #pragma unroll
     for (int i = 0; i < kInFlight; ++i) {
       const int e = e0 + i * blockDim.x;
-      v[i] = e < n ? lane_staged_word<T, H>(st, g, blk, e) : T(0);
+      v[i] = e < n ? lane_staged_word<T, H, P>(st, g, blk, e) : T(0);
     }
 #pragma unroll
     for (int i = 0; i < kInFlight; ++i) {
@@ -232,17 +293,26 @@ __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
 // K4: one layer's padded W (ib rows of OS words, in × o of them stored)
 // then b (o of OS − PAD words) into w by cp.async, the padding zero-filled.
 // Thread t copies words t, t + T, ... walking the padded (row, column) by
-// running counters; OS is a constant, so the divisions are cheap.
-template <typename T, int OS, int PAD>
-__device__ __forceinline__ void stage_layer(T* w, const T* W, const T* b,
-                                            int ib, int in, int o) {
+// running counters; OS is a constant, so the divisions are cheap. Stored
+// bfloat16 words (widened) and the policy's rounded W go by a load and a
+// store instead: cp.async copies bytes as they are.
+template <typename T, int OS, int PAD, typename P = Exact<T>>
+__device__ __forceinline__ void stage_layer(T* w, const typename P::S* W,
+                                            const typename P::S* b, int ib,
+                                            int in, int o) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const int size = ib * OS + OS - PAD;
   const int dk = nt / OS, dj = nt - dk * OS;
   int k = tid / OS, j = tid - k * OS;
   for (int e = tid; e < size; e += nt) {
     const bool valid = j < o && (k < in || k == ib);
-    cp_word(w + e, valid ? (k < ib ? W + k * o + j : b + j) : W, valid);
+    if constexpr (sizeof(typename P::S) == sizeof(T) && !P::kRound) {
+      cp_word(w + e, valid ? (k < ib ? W + k * o + j : b + j) : W, valid);
+    } else {
+      T v = T(0);
+      if (valid) v = k < ib ? opnd<P>(widen<T>(W[k * o + j])) : widen<T>(b[j]);
+      w[e] = v;
+    }
     j += dj;
     k += dk;
     if (j >= OS) j -= OS, ++k;
@@ -252,9 +322,10 @@ __device__ __forceinline__ void stage_layer(T* w, const T* W, const T* b,
 // K4: block blk's s and t weights of group g into w by cp.async, without
 // waiting, W's rows ob + PAD words apart (PAD 0: the row tile's 16-byte
 // row loads; 1: the lane tile).
-template <typename T, int H, int PAD>
+template <typename T, int H, int PAD, typename P = Exact<T>>
 __device__ __forceinline__ void stage_async(const Stack& st, int g, int blk,
                                             T* w) {
+  using S = typename P::S;
   const int depth = st.depth;
   int off = 0;
   // unrolled, so that the stack's parameter loads of every layer overlap
@@ -265,14 +336,14 @@ __device__ __forceinline__ void stage_async(const Stack& st, int g, int blk,
       if (l >= depth) continue;
       const int ib = l == 0 ? kHalf : H;
       const int in = st.width[g][l], o = st.width[g][l + 1];
-      const T* W = static_cast<const T*>(st.W[g][net][l]) +
+      const S* W = static_cast<const S*>(st.W[g][net][l]) +
                    (int64_t)blk * in * o;
-      const T* b = static_cast<const T*>(st.b[g][net][l]) + (int64_t)blk * o;
+      const S* b = static_cast<const S*>(st.b[g][net][l]) + (int64_t)blk * o;
       if (l == depth - 1) {
-        stage_layer<T, kHalf + PAD, PAD>(w + off, W, b, ib, in, o);
+        stage_layer<T, kHalf + PAD, PAD, P>(w + off, W, b, ib, in, o);
         off += ib * (kHalf + PAD) + kHalf;
       } else {
-        stage_layer<T, H + PAD, PAD>(w + off, W, b, ib, in, o);
+        stage_layer<T, H + PAD, PAD, P>(w + off, W, b, ib, in, o);
         off += ib * (H + PAD) + H;
       }
     }
@@ -313,10 +384,15 @@ __device__ __forceinline__ void scatter(const T (&src)[kHalf],
 
 // z = h @ W + b on one row; W (IB, OB) row-major then b (OB) in shared
 // memory. The product is summed over k in order, then the bias added.
-template <typename T, int H, int IB, int OB>
-__device__ __forceinline__ void dense(const T* W, const T (&h)[H],
-                                      T (&z)[H]) {
+// Under P's rounding h is rounded in place first (the caller has cached
+// it and overwrites it with the next activation) and W was at staging.
+template <typename T, int H, int IB, int OB, typename P = Exact<T>>
+__device__ __forceinline__ void dense(const T* W, T (&h)[H], T (&z)[H]) {
   constexpr int V = 16 / sizeof(T);
+  if constexpr (P::kRound) {
+#pragma unroll
+    for (int k = 0; k < IB; ++k) h[k] = opnd<P>(h[k]);
+  }
 #pragma unroll
   for (int j = 0; j < OB; ++j) z[j] = T(0);
 #pragma unroll
@@ -364,7 +440,7 @@ __device__ __forceinline__ void keep(T* cache, int m, int row,
 
 // One conditioner MLP (net 0: s, tanh head; net 1: t) on one row. With
 // cache != nullptr every level's post-activations go to shared memory.
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ void mlp_row(const Stack& st, int net, const T* w,
                                         const T (&xb)[kHalf],
                                         T (&out)[kHalf], T* cache, int row) {
@@ -373,16 +449,16 @@ __device__ __forceinline__ void mlp_row(const Stack& st, int net, const T* w,
   for (int j = 0; j < H; ++j) h[j] = j < kHalf ? xb[j < kHalf ? j : 0] : T(0);
   keep<T, H, kHalf>(cache, 0, row, h);
   const int depth = st.depth;
-  dense<T, H, kHalf, H>(w, h, z);
+  dense<T, H, kHalf, H, P>(w, h, z);
   activate<T, H, H>(kLeaky, z, h);
   keep<T, H, H>(cache, 1, row, h);
 #pragma unroll 1
   for (int l = 1; l < depth - 1; ++l) {
-    dense<T, H, H, H>(w + layer_off(H, l), h, z);
+    dense<T, H, H, H, P>(w + layer_off(H, l), h, z);
     activate<T, H, H>(kLeaky, z, h);
     keep<T, H, H>(cache, l + 1, row, h);
   }
-  dense<T, H, H, kHalf>(w + layer_off(H, depth - 1), h, z);
+  dense<T, H, H, kHalf, P>(w + layer_off(H, depth - 1), h, z);
   activate<T, H, kHalf>(net == 0 ? kTanh : kLinear, z, h);
   keep<T, H, kHalf>(cache, depth, row, h);
 #pragma unroll
@@ -390,7 +466,7 @@ __device__ __forceinline__ void mlp_row(const Stack& st, int net, const T* w,
 }
 
 // x_A, x_B, s and t of coupling g on one row's input x.
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ void coupling_parts(
     const Stack& st, int g, const T* w, const T (&x)[kMaxD], T (&xa)[kHalf],
     T (&xb)[kHalf], T (&s)[kHalf], T (&t)[kHalf], T* cache, int row) {
@@ -399,7 +475,7 @@ __device__ __forceinline__ void coupling_parts(
 #pragma unroll 1
   for (int net = 0; net < 2; ++net) {
     T o[kHalf];
-    mlp_row<T, H>(st, net, w + net * st.wnet, xb, o,
+    mlp_row<T, H, P>(st, net, w + net * st.wnet, xb, o,
                   cache ? cache + net * st.sm_acts_net : nullptr, row);
 #pragma unroll
     for (int k = 0; k < kHalf; ++k) {
@@ -443,14 +519,14 @@ __device__ __forceinline__ void coupling_at(const Stack& st, int c, int& g,
 // `more`) into the other slot by cp.async, waited for after coupling c at
 // the CTA's one barrier a coupling, which also frees the slot just read.
 // stage_first: what the walk starts from, landed and visible on return.
-template <typename T, bool INVERSE, int H, int PAD>
+template <typename T, bool INVERSE, int H, int PAD, typename P = Exact<T>>
 __device__ __forceinline__ void stage_first(const Stack& st, T* buf) {
   const int words = 2 * st.wnet;
 #pragma unroll 1
   for (int c = 0; c < (st.resident ? 2 * st.n_blocks : 1); ++c) {
     int g, blk;
     coupling_at<INVERSE>(st, c, g, blk);
-    stage_async<T, H, PAD>(st, g, blk, buf + c * words);
+    stage_async<T, H, PAD, P>(st, g, blk, buf + c * words);
   }
   cp_commit();
   cp_wait_all();
@@ -459,7 +535,7 @@ __device__ __forceinline__ void stage_first(const Stack& st, T* buf) {
 
 // stage_next: coupling c's weights; with two slots (cur the one holding
 // c) the next coupling's copies started into the other.
-template <typename T, bool INVERSE, int H, int PAD>
+template <typename T, bool INVERSE, int H, int PAD, typename P = Exact<T>>
 __device__ __forceinline__ const T* stage_next(const Stack& st, int c,
                                                bool more, T* buf, int cur) {
   const int n_c = 2 * st.n_blocks, words = 2 * st.wnet;
@@ -467,7 +543,7 @@ __device__ __forceinline__ const T* stage_next(const Stack& st, int c,
   if (c + 1 < n_c || more) {
     int g, blk;
     coupling_at<INVERSE>(st, c + 1 < n_c ? c + 1 : 0, g, blk);
-    stage_async<T, H, PAD>(st, g, blk, buf + (cur ^ 1) * words);
+    stage_async<T, H, PAD, P>(st, g, blk, buf + (cur ^ 1) * words);
   }
   cp_commit();
   return buf + cur * words;
@@ -487,7 +563,7 @@ __device__ __forceinline__ void stage_done(const Stack& st, int& cur) {
 // post-activation: leaky-relu 1 where h ≥ 0, else 0.01; tanh' = 1 − h²),
 // the CTA's partial gW = Hᵀ·G and gb = Σ_rows G go to part (first tile:
 // written, later tiles: added), and gc becomes G·Wᵀ.
-template <typename T, int H, int IB, int OB>
+template <typename T, int H, int IB, int OB, typename P = Exact<T>>
 __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
                                           int blk, int l, Act act,
                                           const T* W, const T* cache,
@@ -518,7 +594,8 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
       const int k = e / o, j = e - (e / o) * o;
       const T* hk = h_in + k * kRowStride;
       const T* gj = gbuf + j * kRowStride;
-      for (int r = 0; r < kRowTileRows; ++r) acc = acc + hk[r] * gj[r];
+      for (int r = 0; r < kRowTileRows; ++r)
+        acc = acc + opnd<P>(hk[r]) * opnd<P>(gj[r]);
       dst = offW + e;
     } else {
       const T* gj = gbuf + (e - n_w) * kRowStride;
@@ -527,7 +604,12 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
     }
     part[dst] = first ? acc : part[dst] + acc;
   }
-  // the row's input cotangent G·Wᵀ, a row of W in 16-byte loads
+  // the row's input cotangent G·Wᵀ, a row of W in 16-byte loads (under
+  // P's rounding G rounded here, W at staging; gbuf keeps G unrounded)
+  if constexpr (P::kRound) {
+#pragma unroll
+    for (int j = 0; j < OB; ++j) gc[j] = opnd<P>(gc[j]);
+  }
   T gn[H];
 #pragma unroll
   for (int k = 0; k < H; ++k) gn[k] = T(0);
@@ -547,7 +629,7 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
 }
 
 // `_mlp_bwd` of one net of coupling (g, blk): gout → gin for this row.
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ void mlp_bwd(const Stack& st, int g, int net,
                                         int blk, const T* w, const T* cache,
                                         T* gbuf, const T (&gout)[kHalf],
@@ -558,15 +640,15 @@ __device__ __forceinline__ void mlp_bwd(const Stack& st, int g, int net,
 #pragma unroll
   for (int j = 0; j < H; ++j)
     gc[j] = j < kHalf ? gout[j < kHalf ? j : 0] : T(0);
-  layer_bwd<T, H, H, kHalf>(st, g, net, blk, depth - 1,
+  layer_bwd<T, H, H, kHalf, P>(st, g, net, blk, depth - 1,
                             net == 0 ? kTanh : kLinear,
                             w + layer_off(H, depth - 1), cache, gbuf, gc,
                             part, first);
 #pragma unroll 1
   for (int l = depth - 2; l >= 1; --l)
-    layer_bwd<T, H, H, H>(st, g, net, blk, l, kLeaky, w + layer_off(H, l),
+    layer_bwd<T, H, H, H, P>(st, g, net, blk, l, kLeaky, w + layer_off(H, l),
                           cache, gbuf, gc, part, first);
-  layer_bwd<T, H, kHalf, H>(st, g, net, blk, 0, kLeaky, w, cache, gbuf, gc,
+  layer_bwd<T, H, kHalf, H, P>(st, g, net, blk, 0, kLeaky, w, cache, gbuf, gc,
                             part, first);
 #pragma unroll
   for (int k = 0; k < kHalf; ++k) gin[k] = gc[k];
@@ -580,7 +662,7 @@ __device__ __forceinline__ void mlp_bwd(const Stack& st, int g, int net,
 // caches at a time (one call site for both, so the MLP code is
 // instantiated once), and add the CTA's weight gradients to part (first
 // tile: written). On return gr holds the row's gx.
-template <typename T, bool INVERSE, int H>
+template <typename T, bool INVERSE, int H, typename P = Exact<T>>
 __device__ __forceinline__ void row_tile_vjp(const Stack& st, T* w,
                                              T* part, bool first,
                                              T (&xr)[kMaxD], T (&gr)[kMaxD],
@@ -598,7 +680,7 @@ __device__ __forceinline__ void row_tile_vjp(const Stack& st, T* w,
     const int c = rev ? 2 * n_c - 1 - step : step;
     int g, blk;
     coupling_at<INVERSE>(st, c, g, blk);
-    stage<T, H>(st, g, blk, w);
+    stage<T, H, P>(st, g, blk, w);
     T* sv = saved + ((int64_t)c * kRowTileRows + tid) * d;
     T xin[kMaxD];
 #pragma unroll
@@ -611,8 +693,8 @@ __device__ __forceinline__ void row_tile_vjp(const Stack& st, T* w,
       }
     }
     T xa[kHalf], xb[kHalf], s[kHalf], t[kHalf];
-    coupling_parts<T, H>(st, g, w, xin, xa, xb, s, t,
-                         rev ? cache : nullptr, tid);
+    coupling_parts<T, H, P>(st, g, w, xin, xa, xb, s, t,
+                            rev ? cache : nullptr, tid);
     if (!rev) {
       apply_coupling<T, INVERSE>(st, g, xa, s, t, xr);
       continue;
@@ -644,7 +726,7 @@ __device__ __forceinline__ void row_tile_vjp(const Stack& st, T* w,
       T go[kHalf], gi[kHalf];
 #pragma unroll
       for (int k = 0; k < kHalf; ++k) go[k] = net == 0 ? g_s[k] : g_t[k];
-      mlp_bwd<T, H>(st, g, net, blk, w + net * st.wnet,
+      mlp_bwd<T, H, P>(st, g, net, blk, w + net * st.wnet,
                     cache + net * st.sm_acts_net, gbuf, go, gi, part, first);
 #pragma unroll
       for (int k = 0; k < kHalf; ++k) g_xb[k] = g_xb[k] + gi[k];
@@ -694,13 +776,14 @@ __device__ __forceinline__ int slot(const int (&idx)[kHalf], int j) {
 // z_u = Σ_k h_k·W[k][u], summed over k in order, then + b_u, on lane u
 // (0 on lanes u ≥ OB); h_k is lane k's h. W (IB, OB), rows OB + 1 apart,
 // then b, in shared memory: the row order of `dense`.
-template <typename T, int H, int IB, int OB>
+template <typename T, int H, int IB, int OB, typename P = Exact<T>>
 __device__ __forceinline__ T lane_dense(const T* W, T h, int u) {
   constexpr int S = OB + 1;
   const int j = u < OB ? u : 0;
+  const T hr = opnd<P>(h);  // W was rounded at staging
   T z = T(0);
 #pragma unroll
-  for (int k = 0; k < IB; ++k) z = z + lane<H>(h, k) * W[k * S + j];
+  for (int k = 0; k < IB; ++k) z = z + lane<H>(hr, k) * W[k * S + j];
   z = z + W[IB * S + j];
   return u < OB ? z : T(0);
 }
@@ -708,20 +791,22 @@ __device__ __forceinline__ T lane_dense(const T* W, T h, int u) {
 // One conditioner MLP on one row, lane u's h the input x_B[u] (0 past n_B).
 // With cache != nullptr every level's post-activations go to the net's
 // cache at this row. Returns lane u's output (u < kHalf; 0 elsewhere).
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ T lane_mlp(const Stack& st, int net, const T* w,
                                       T h, T* cache, int row, int u) {
   const int depth = st.depth, rows = st.rows;
   if (cache && u < kHalf) cache[row * kHalf + u] = h;
-  h = act(kLeaky, lane_dense<T, H, kHalf, H>(w, h, u));
+  h = act(kLeaky, lane_dense<T, H, kHalf, H, P>(w, h, u));
   if (cache) cache[level_off(H, 1, rows) + row * H + u] = h;
 #pragma unroll 1
   for (int l = 1; l < depth - 1; ++l) {
-    h = act(kLeaky, lane_dense<T, H, H, H>(w + layer_off(H, l, 1), h, u));
+    h = act(kLeaky,
+            lane_dense<T, H, H, H, P>(w + layer_off(H, l, 1), h, u));
     if (cache) cache[level_off(H, l + 1, rows) + row * H + u] = h;
   }
   h = act(net == 0 ? kTanh : kLinear,
-          lane_dense<T, H, H, kHalf>(w + layer_off(H, depth - 1, 1), h, u));
+          lane_dense<T, H, H, kHalf, P>(w + layer_off(H, depth - 1, 1), h,
+                                        u));
   if (cache && u < kHalf)
     cache[level_off(H, depth, rows) + row * kHalf + u] = h;
   return h;
@@ -732,7 +817,7 @@ __device__ __forceinline__ T lane_mlp(const Stack& st, int net, const T* w,
 // kHalf gets x_A[k], s_k and t_k; x_B reaches every lane by shuffles and
 // goes through both nets (`lane_mlp`; with keep, each net's
 // post-activations are kept in cache).
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ void lane_parts(const Stack& st, const T* w,
                                            T xin, int ia, int ib, bool keep,
                                            T* cache, int row, int u, T& xa,
@@ -741,7 +826,7 @@ __device__ __forceinline__ void lane_parts(const Stack& st, const T* w,
   const T xb = lane_or_0<H>(xin, ib);
 #pragma unroll 1
   for (int net = 0; net < 2; ++net) {
-    const T o = lane_mlp<T, H>(st, net, w + net * st.wnet, xb,
+    const T o = lane_mlp<T, H, P>(st, net, w + net * st.wnet, xb,
                                keep ? cache + net * st.sm_acts_net : nullptr,
                                row, u);
     if (net == 0) s = o;
@@ -774,7 +859,7 @@ __device__ __forceinline__ void lane_apply(T xa, T s, T t, int na, int pa,
 // written, later tiles: added), one thread an entry summing the rows in
 // order, and lane k gets the input cotangent Σ_j gc_j·W[k][j], summed over
 // j in order (0 on lanes k ≥ IB).
-template <typename T, int H, int IB, int OB>
+template <typename T, int H, int IB, int OB, typename P = Exact<T>>
 __device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
                                             int blk, int l, Act a, const T* W,
                                             const T* cache, T* gbuf, T gc,
@@ -801,7 +886,7 @@ __device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
       const int k = e / o, j = e - (e / o) * o;
 #pragma unroll 8
       for (int r = 0; r < rows; ++r)
-        acc = acc + h_in[r * IB + k] * gbuf[r * H + j];
+        acc = acc + opnd<P>(h_in[r * IB + k]) * opnd<P>(gbuf[r * H + j]);
       dst = offW + e;
     } else {
       const int j = e - n_w;
@@ -812,31 +897,32 @@ __device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
     part[dst] = first ? acc : part[dst] + acc;
   }
   const int k = u < IB ? u : 0;
+  const T gcr = opnd<P>(gc);  // W was rounded at staging
   T gn = T(0);
 #pragma unroll
-  for (int j = 0; j < OB; ++j) gn = gn + lane<H>(gc, j) * W[k * S + j];
+  for (int j = 0; j < OB; ++j) gn = gn + lane<H>(gcr, j) * W[k * S + j];
   __syncthreads();  // gbuf is the next layer's
   return u < IB ? gn : T(0);
 }
 
 // `_mlp_bwd` of one net of coupling (g, blk): lane u's output cotangent
 // (u < kHalf) → its input cotangent (u < kHalf).
-template <typename T, int H>
+template <typename T, int H, typename P = Exact<T>>
 __device__ __forceinline__ T lane_mlp_bwd(const Stack& st, int g, int net,
                                           int blk, const T* w, const T* cache,
                                           T* gbuf, T gc, T* __restrict__ part,
                                           bool first, int row, int u) {
   const int depth = st.depth;
-  gc = lane_layer_bwd<T, H, H, kHalf>(st, g, net, blk, depth - 1,
+  gc = lane_layer_bwd<T, H, H, kHalf, P>(st, g, net, blk, depth - 1,
                                       net == 0 ? kTanh : kLinear,
                                       w + layer_off(H, depth - 1, 1), cache,
                                       gbuf, gc, part, first, row, u);
 #pragma unroll 1
   for (int l = depth - 2; l >= 1; --l)
-    gc = lane_layer_bwd<T, H, H, H>(st, g, net, blk, l, kLeaky,
+    gc = lane_layer_bwd<T, H, H, H, P>(st, g, net, blk, l, kLeaky,
                                     w + layer_off(H, l, 1), cache, gbuf, gc,
                                     part, first, row, u);
-  return lane_layer_bwd<T, H, kHalf, H>(st, g, net, blk, 0, kLeaky, w, cache,
+  return lane_layer_bwd<T, H, kHalf, H, P>(st, g, net, blk, 0, kLeaky, w, cache,
                                         gbuf, gc, part, first, row, u);
 }
 
@@ -850,7 +936,8 @@ __device__ __forceinline__ T lane_mlp_bwd(const Stack& st, int g, int net,
 // the couplings back, rebuilding one coupling's caches at a time (one call
 // site for both, so the MLP code is instantiated once), and add the tile's
 // weight gradients to part (first tile: written). On return gv holds gx_u.
-template <typename T, bool INVERSE, int H, typename Cot>
+template <typename T, bool INVERSE, int H, typename P = Exact<T>,
+          typename Cot>
 __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
                                          bool first, T& xv, T& gv, T gl,
                                          Cot cot) {
@@ -869,7 +956,7 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     const int c = rev ? 2 * n_c - 1 - step : step;
     int g, blk;
     coupling_at<INVERSE>(st, c, g, blk);
-    lane_stage<T, H>(st, g, blk, w);
+    lane_stage<T, H, P>(st, g, blk, w);
     T* sv = saved + ((int64_t)c * st.rows + row) * d;
     T xin = T(0);
     if (!rev) {
@@ -880,7 +967,7 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     }
     const int ia = entry(st.idx_a[g], u), ib = entry(st.idx_b[g], u);
     T xa, s = T(0), t = T(0);
-    lane_parts<T, H>(st, w, xin, ia, ib, rev, cache, row, u, xa, s, t);
+    lane_parts<T, H, P>(st, w, xin, ia, ib, rev, cache, row, u, xa, s, t);
     const int na = st.width[g][st.depth];
     const int pa = slot(st.idx_a[g], u);
     if (!rev) {
@@ -907,7 +994,7 @@ __device__ __forceinline__ void tile_vjp(const Stack& st, T* w, T* part,
     // g_xb + (s net's input cotangent) + (t net's), in that order
 #pragma unroll 1
     for (int net = 0; net < 2; ++net)
-      g_xb = g_xb + lane_mlp_bwd<T, H>(st, g, net, blk, w + net * st.wnet,
+      g_xb = g_xb + lane_mlp_bwd<T, H, P>(st, g, net, blk, w + net * st.wnet,
                                        cache + net * st.sm_acts_net, gbuf,
                                        net == 0 ? g_s : g_t, part, first, row,
                                        u);

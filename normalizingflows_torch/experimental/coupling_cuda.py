@@ -44,6 +44,15 @@ blocks.
 Each K4 launch and each K5 call (two kernels) is counted in
 `ops/launches.py`.
 
+bfloat16 (``csrc/coupling_bf16.cu``): under the bf16 ``compute_dtype``
+policy (float32 x and weights) every conditioner product rounds its
+operands to bfloat16 and accumulates in float32, as the Pallas kernels'
+`_dot(a, b, cd)` does, forward and backward; the selections stay exact.
+With bfloat16 parameters (x and weights bfloat16, no policy) the kernels
+read bfloat16, compute in float32 and round each output once (y, ld, gx,
+the weight gradients), where the Pallas kernel computes in bfloat16. The
+plain versions do the same, in cuBLAS's summation order.
+
 The weights are the JAX ``groups`` pytree: ``groups['even'|'odd']['s'|'t']
 [layer]`` is ``(W (n_blocks, in, out), b (n_blocks, out))``, as dicts and
 lists or as the `ModuleDict`/`ModuleList`/`ParameterList` of
@@ -54,6 +63,7 @@ tables of device pointers in that pytree's leaf order.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -64,7 +74,7 @@ from ..ops.masks import cached_index
 
 __all__ = [
     "coupling_stack_fused", "tile_flow", "tile_flow_bwd", "fwd_plan",
-    "FwdPlan", "KERNEL_MAX_D",
+    "FwdPlan", "KERNEL_MAX_D", "KERNEL_TYPES", "word_of",
     "KERNEL_MAX_WIDTH", "KERNEL_MAX_DEPTH", "KERNEL_MAX_SMEM",
 ]
 
@@ -88,7 +98,14 @@ BWD_MAX_CTAS = 1024    # K5 CTAs at most: the partial slices to sum
 BACKENDS = ("auto", "plain", "cuda")
 _GROUPS = ("even", "odd")
 _NETS = ("s", "t")
-_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# (x and weights' dtype, compute_dtype) the kernels are instantiated for,
+# with the C entries' suffixes (csrc/coupling.cu, csrc/coupling_bf16.cu)
+KERNEL_TYPES = {
+    (torch.float32, None): "f32",
+    (torch.float64, None): "f64",
+    (torch.float32, torch.bfloat16): "f32_cbf16",
+    (torch.bfloat16, None): "bf16",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +151,39 @@ def _leaky_relu(x):
     return torch.where(x >= 0, x, 0.01 * x)
 
 
+def _dot(a, b, cd=None):
+    """a @ b; under the bf16 policy (``cd``) with both operands rounded to
+    ``cd`` and the sum taken in float32 (Pallas `_dot(a, b, cd)`), in a's
+    dtype."""
+    if cd is None:
+        return a @ b
+    return (a.to(cd).float() @ b.to(cd).float()).to(a.dtype)
+
+
+def _widened(fn):
+    """Run a plain version on bfloat16 x and weights in float32 and round
+    each output once to bfloat16 (the bfloat16-storage kernels'
+    arithmetic); other dtypes go through as they are."""
+    @functools.wraps(fn)
+    def run(x, groups, *rest, **kw):
+        if x.dtype != torch.bfloat16:
+            return fn(x, groups, *rest, **kw)
+        up = _unflatten([t.float() for t in _leaves(groups)], _depth(groups))
+        rest = [r.float() if isinstance(r, torch.Tensor) else r
+                for r in rest]
+        out = fn(x.float(), up, *rest, **kw)
+        return _map_tensors(out, lambda t: t.to(torch.bfloat16))
+    return run
+
+
+def _map_tensors(tree, f):
+    if isinstance(tree, torch.Tensor):
+        return f(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, f) for k, v in tree.items()}
+    return type(tree)(_map_tensors(v, f) for v in tree)
+
+
 # index tensors by (index tuple, device): made once, so that a call after
 # the first copies nothing from the host (and can be captured in a graph)
 _INDEX: dict = {}
@@ -155,12 +205,12 @@ def _combine(y_a, x_b, idx_a, idx_b):
         1, _index(tuple(order), y_a.device))
 
 
-def _mlp(xb, weights, out_tanh):
+def _mlp(xb, weights, out_tanh, cd=None):
     """A Dense chain [(W, b), ...] with leaky-relu hiddens."""
     h = xb
     depth = len(weights)
     for li, (W, b) in enumerate(weights):
-        h = h @ W + b
+        h = _dot(h, W, cd) + b
         if li < depth - 1:
             h = _leaky_relu(h)
         elif out_tanh:
@@ -168,11 +218,11 @@ def _mlp(xb, weights, out_tanh):
     return h
 
 
-def _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse):
+def _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse, cd=None):
     """One affine coupling on an (n, d) tile."""
     x_a, x_b = _pick(x, idx_a), _pick(x, idx_b)
-    s = _mlp(x_b, s_w, out_tanh=True)
-    t = _mlp(x_b, t_w, out_tanh=False)
+    s = _mlp(x_b, s_w, out_tanh=True, cd=cd)
+    t = _mlp(x_b, t_w, out_tanh=False, cd=cd)
     if inverse:
         y_a = (x_a - t) * torch.exp(-s)
         ld = ld - s.sum(dim=-1)
@@ -203,24 +253,27 @@ def _couplings(groups, sels, inverse):
     return out
 
 
-def tile_flow(x, groups, sels, inverse: bool = False):
+@_widened
+def tile_flow(x, groups, sels, inverse: bool = False, compute_dtype=None):
     """Plain version of K4 (Pallas `_tile_flow`): the whole stack on x
-    (n, d). ``sels`` = (idx_even, comp_even, idx_odd, comp_odd). Returns
-    (y (n, d), log_det (n,))."""
+    (n, d). ``sels`` = (idx_even, comp_even, idx_odd, comp_odd);
+    ``compute_dtype`` the conditioners' bf16 policy. Returns (y (n, d),
+    log_det (n,))."""
     ld = x.new_zeros(x.shape[0])
     for (_, _, idx_a, idx_b, s_w, t_w) in _couplings(groups, sels, inverse):
-        x, ld = _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse)
+        x, ld = _apply_coupling(x, ld, idx_a, idx_b, s_w, t_w, inverse,
+                                compute_dtype)
     return x, ld
 
 
-def _mlp_fwd_cache(xb, weights, out_tanh):
+def _mlp_fwd_cache(xb, weights, out_tanh, cd=None):
     """_mlp with residuals: (out, (layer_inputs, layer_outputs))."""
     h = xb
     depth = len(weights)
     inputs, outputs = [], []
     for li, (W, b) in enumerate(weights):
         inputs.append(h)
-        z = h @ W + b
+        z = _dot(h, W, cd) + b
         if li < depth - 1:
             h = _leaky_relu(z)
         elif out_tanh:
@@ -231,7 +284,7 @@ def _mlp_fwd_cache(xb, weights, out_tanh):
     return h, (inputs, outputs)
 
 
-def _mlp_bwd(weights, cache, gout, out_tanh):
+def _mlp_bwd(weights, cache, gout, out_tanh, cd=None):
     """Manual reverse sweep of `_mlp`: (g_input, [(gW, gb), ...]). Slopes
     from the cached post-activations: leaky-relu 1 where h ≥ 0, else 0.01;
     tanh' = 1 − h²."""
@@ -248,20 +301,20 @@ def _mlp_bwd(weights, cache, gout, out_tanh):
             g = g * torch.where(h >= 0, torch.ones_like(h),
                                   torch.full_like(h, 0.01))
         W, _ = weights[li]
-        gws[li] = (inputs[li].T @ g, g.sum(dim=0))
-        g = g @ W.T
+        gws[li] = (_dot(inputs[li].T, g, cd), g.sum(dim=0))
+        g = _dot(g, W.T, cd)
     return g, gws
 
 
-def _coupling_fwd_cache(x, idx_a, idx_b, s_w, t_w):
+def _coupling_fwd_cache(x, idx_a, idx_b, s_w, t_w, cd=None):
     """What the reverse sweep needs of one coupling on its input x."""
     x_a, x_b = _pick(x, idx_a), _pick(x, idx_b)
-    s, cs = _mlp_fwd_cache(x_b, s_w, out_tanh=True)
-    t, ct = _mlp_fwd_cache(x_b, t_w, out_tanh=False)
+    s, cs = _mlp_fwd_cache(x_b, s_w, out_tanh=True, cd=cd)
+    t, ct = _mlp_fwd_cache(x_b, t_w, out_tanh=False, cd=cd)
     return x_a, s, t, cs, ct
 
 
-def _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w, t_w, inverse):
+def _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w, t_w, inverse, cd=None):
     """Reverse sweep of one coupling. ``g`` is the cotangent of its output,
     ``gld`` (n,) that of the running log-det, which every coupling's s
     receives (ld is a plain sum over couplings)."""
@@ -278,25 +331,28 @@ def _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w, t_w, inverse):
         g_xa = g_ya * e
         g_t = g_ya
         g_s = g_ya * x_a * e + gld_b
-    gxb_s, gws_s = _mlp_bwd(s_w, cs, g_s, out_tanh=True)
-    gxb_t, gws_t = _mlp_bwd(t_w, ct, g_t, out_tanh=False)
+    gxb_s, gws_s = _mlp_bwd(s_w, cs, g_s, out_tanh=True, cd=cd)
+    gxb_t, gws_t = _mlp_bwd(t_w, ct, g_t, out_tanh=False, cd=cd)
     g_xb = g_xb + gxb_s + gxb_t
     return _combine(g_xa, g_xb, idx_a, idx_b), gws_s, gws_t
 
 
-def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False):
+@_widened
+def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False,
+                  compute_dtype=None):
     """Plain version of K5 (Pallas `_bwd_kernel`): the VJP of `tile_flow`
     at x (n, d) under cotangents gy (n, d) and gld (n,). Recomputes the
     forward keeping each coupling's input, then per coupling (last first)
     rebuilds its MLP caches and runs the manual reverse sweep. Returns
     (gx, grads) with grads shaped as ``groups`` (dicts of lists of
     (gW, gb), stacked over blocks)."""
+    cd = compute_dtype
     couplings = _couplings(groups, sels, inverse)
     inputs = []
     ld0 = x.new_zeros(x.shape[0])
     for (_, _, idx_a, idx_b, s_w, t_w) in couplings:
         inputs.append(x)
-        x, _ = _apply_coupling(x, ld0, idx_a, idx_b, s_w, t_w, inverse)
+        x, _ = _apply_coupling(x, ld0, idx_a, idx_b, s_w, t_w, inverse, cd)
 
     n_blocks = groups["even"]["s"][0][0].shape[0]
     per_block = {(grp, net): [None] * n_blocks
@@ -304,9 +360,9 @@ def tile_flow_bwd(x, groups, gy, gld, sels, inverse: bool = False):
     g = gy
     for (bi, grp, idx_a, idx_b, s_w, t_w), x_in in zip(couplings[::-1],
                                                          inputs[::-1]):
-        cache = _coupling_fwd_cache(x_in, idx_a, idx_b, s_w, t_w)
+        cache = _coupling_fwd_cache(x_in, idx_a, idx_b, s_w, t_w, cd)
         g, gws_s, gws_t = _coupling_bwd(g, gld, cache, idx_a, idx_b, s_w,
-                                        t_w, inverse)
+                                        t_w, inverse, cd)
         per_block[(grp, "s")][bi] = gws_s
         per_block[(grp, "t")][bi] = gws_t
     grads = {grp: {net: [tuple(torch.stack([blk[li][k] for blk in
@@ -422,7 +478,15 @@ def _hidden_of(widths, depth: int) -> int:
                for l in range(1, depth))
 
 
-def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
+def word_of(dtype) -> int:
+    """Bytes of the kernels' shared-memory words for x and weights of
+    ``dtype``: the arithmetic's, so 4 for bfloat16, whose staged weights
+    and caches are held widened."""
+    return 4 if dtype == torch.bfloat16 else torch.finfo(dtype).bits // 8
+
+
+def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None,
+                 compute_dtype=None):
     """Check what the kernels take (shapes first, then dtype and device):
     the shared memory of K4's tile for x's rows (without ``train_batch``);
     with ``backward`` also that of K5's tile for x's rows, or with
@@ -445,16 +509,17 @@ def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
             f"outside the coupling kernels' instantiated bounds (2 <= d <= "
             f"{KERNEL_MAX_D}, widths <= {KERNEL_MAX_WIDTH}, 2 <= depth <= "
             f"{KERNEL_MAX_DEPTH}): d={d}, widths={widths}, depth={depth}")
-    if train_batch is None and x.dtype in _DTYPE_SUFFIX:
+    typed = x.dtype in (torch.float32, torch.float64, torch.bfloat16)
+    if train_batch is None and typed:
         need = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
-                        x.element_size(), n).bytes
+                        word_of(x.dtype), n).bytes
         if need > KERNEL_MAX_SMEM:
             raise ValueError(
                 f"the forward's two staged couplings need {need} bytes of "
                 f"shared memory at depth {depth} in {x.dtype}, over the "
                 f"{KERNEL_MAX_SMEM} a block may use")
-    if backward and x.dtype in _DTYPE_SUFFIX:
-        word, n_blocks = x.element_size(), leaves[0].shape[0]
+    if backward and typed:
+        word, n_blocks = word_of(x.dtype), leaves[0].shape[0]
         rows, need = _bwd_tile(
             d, n_blocks, depth, _hidden_of(widths, depth), word,
             n if train_batch is None else train_batch, train_batch is not None)
@@ -470,17 +535,20 @@ def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None):
     if (widths[0], widths[depth]) != (len(comp_e), len(idx_e)) or (
             widths[depth + 1], widths[-1]) != (len(comp_o), len(idx_o)):
         raise ValueError("the conditioner widths do not match the index sets")
-    if x.dtype not in _DTYPE_SUFFIX or any(t.dtype != x.dtype
-                                           for t in leaves):
-        raise TypeError("the coupling kernels take float32 or float64 x "
-                        "and weights of one dtype")
+    if (x.dtype, compute_dtype) not in KERNEL_TYPES or any(
+            t.dtype != x.dtype for t in leaves):
+        raise TypeError(
+            "the coupling kernels take x and weights of one dtype with a "
+            f"compute_dtype in {[tuple(map(str, k)) for k in KERNEL_TYPES]}"
+            f", got {x.dtype} and {compute_dtype}")
     if not x.is_cuda or any(t.device != x.device for t in leaves):
         raise ValueError("the coupling kernels need x and every weight on "
                          "one CUDA device")
     if not all(t.is_contiguous() for t in leaves):
         raise ValueError("stacked weights must be contiguous")
     c_int = ctypes.c_int
-    return (_DTYPE_SUFFIX[x.dtype], (c_int * len(widths))(*widths),
+    return (KERNEL_TYPES[(x.dtype, compute_dtype)],
+            (c_int * len(widths))(*widths),
             (c_int * (2 * d))(*(idx_e + comp_e + idx_o + comp_o)))
 
 
@@ -495,19 +563,21 @@ def _raise_on(err: int, name: str):
                            "need outside what the kernel takes)")
 
 
-def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
+def _launch_fwd(x, leaves, sels, depth, inverse, backward=False,
+                compute_dtype=None):
     """K4 on x (n, d) contiguous, on the tile `fwd_plan` picks.
     ``backward``: K5 will follow, so its bounds are checked before K4
     runs."""
     from ..ops._build import library
 
-    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward)
+    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward,
+                                    compute_dtype=compute_dtype)
     n, d = x.shape
     y, ld = torch.empty_like(x), x.new_empty(n)
     if n == 0:
         return y, ld
     plan = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
-                    x.element_size(), n)
+                    word_of(x.dtype), n)
     with torch.cuda.device(x.device):
         err = getattr(library(), f"coupling_fwd_{sfx}")(
             x.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d,
@@ -515,15 +585,19 @@ def _launch_fwd(x, leaves, sels, depth, inverse, backward=False):
             int(plan.lanes), int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_fwd")
-    launches.count("coupling_fwd")
+    launches.count(launches.name_of("coupling_fwd", sfx))
     return y, ld
 
 
-def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
-    """K5 (both passes): gx and one gradient per stacked weight."""
+def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse,
+                compute_dtype=None):
+    """K5 (both passes): gx and one gradient per stacked weight. The
+    partial sums' scratch is in the arithmetic's dtype (float32 for
+    bfloat16 storage: each gradient is rounded once, by the reduce)."""
     from ..ops._build import library
 
-    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward=True)
+    sfx, widths, idx = _kernel_args(x, leaves, sels, depth, backward=True,
+                                    compute_dtype=compute_dtype)
     n, d = x.shape
     gy, gld = gy.contiguous(), gld.contiguous()
     gx = torch.empty_like(x)
@@ -531,9 +605,11 @@ def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
     if n == 0:
         return gx, [g.zero_() for g in grads]
     rows, _ = _bwd_tile(d, leaves[0].shape[0], depth,
-                        _hidden_of(widths, depth), x.element_size(), n)
+                        _hidden_of(widths, depth), word_of(x.dtype), n)
     n_ctas = min(-(-n // rows), BWD_MAX_CTAS)
-    scratch = x.new_empty(n_ctas * sum(t.numel() for t in leaves))
+    scratch = torch.empty(n_ctas * sum(t.numel() for t in leaves),
+                          dtype=torch.float32 if x.dtype == torch.bfloat16
+                          else x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = getattr(library(), f"coupling_bwd_{sfx}")(
             x.data_ptr(), gy.data_ptr(), gld.data_ptr(), gx.data_ptr(),
@@ -541,7 +617,7 @@ def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse):
             _pointers(leaves), _pointers(grads), n_ctas, int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_bwd")
-    launches.count("coupling_bwd")
+    launches.count(launches.name_of("coupling_bwd", sfx))
     return gx, grads
 
 
@@ -552,23 +628,24 @@ class _CouplingFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, meta, *leaves):
-        sels, depth, inverse, use_kernel, backward = meta
+        sels, depth, inverse, use_kernel, backward, cd = meta
         ctx.save_for_backward(x, *leaves)
         ctx.meta = meta
         if use_kernel:
-            return _launch_fwd(x, leaves, sels, depth, inverse, backward)
-        return tile_flow(x, _unflatten(leaves, depth), sels, inverse)
+            return _launch_fwd(x, leaves, sels, depth, inverse, backward, cd)
+        return tile_flow(x, _unflatten(leaves, depth), sels, inverse, cd)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gld):
         x, *leaves = ctx.saved_tensors
-        sels, depth, inverse, use_kernel, _ = ctx.meta
+        sels, depth, inverse, use_kernel, _, cd = ctx.meta
         if use_kernel:
-            gx, grads = _launch_bwd(x, leaves, gy, gld, sels, depth, inverse)
+            gx, grads = _launch_bwd(x, leaves, gy, gld, sels, depth, inverse,
+                                    cd)
         else:
             gx, tree = tile_flow_bwd(x, _unflatten(leaves, depth), gy, gld,
-                                     sels, inverse)
+                                     sels, inverse, cd)
             grads = _leaves(tree)
         return (gx, None, *grads)
 
@@ -586,13 +663,14 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
 
 
 def coupling_stack_fused(x, groups, idx_even, idx_odd, inverse: bool = False,
-                         backend: str = "auto"):
+                         backend: str = "auto", compute_dtype=None):
     """Fused RealNVP stack transform (JAX `coupling_stack_fused`).
 
     ``x``: (..., d). ``groups``: {'even'|'odd': {'s'|'t': [(W, b), ...]}}
     with the leading block axis stacked. ``idx_even``/``idx_odd``: the
-    transformed index sets of the two couplings of each block. Returns
-    (y, log_det) with log_det shaped (...,)."""
+    transformed index sets of the two couplings of each block.
+    ``compute_dtype``: None, or torch.bfloat16 for the conditioners' bf16
+    policy. Returns (y, log_det) with log_det shaped (...,)."""
     batch_shape, d = x.shape[:-1], x.shape[-1]
     depth = _depth(groups)
     use_kernel = _use_kernel(backend, x)
@@ -602,5 +680,5 @@ def coupling_stack_fused(x, groups, idx_even, idx_odd, inverse: bool = False,
         t.requires_grad for t in [x, *leaves])
     y, ld = _CouplingFused.apply(x.reshape(-1, d).contiguous(),
                                  (sels, depth, bool(inverse), use_kernel,
-                                  backward), *leaves)
+                                  backward, compute_dtype), *leaves)
     return y.reshape(x.shape), ld.reshape(batch_shape)

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..models.bijector import Bijector
 from ..models.distributions import DiagNormal
+from ..models.nets import _check_compute_dtype
 from ..train import TrainResult, TrainState
 from .coupling_cuda import BACKENDS, _leaves, coupling_stack_fused
 
@@ -38,21 +39,27 @@ class FusedRealNVP(Bijector):
     ``[W, b]`` stacked over blocks, the layout of the JAX ``groups``
     pytree, so the kernels read contiguous stacks and JAX parameters load
     by their own paths (`utils.bridge.load_jax_params`). Mathematically the
-    blocks of `realnvp(fused=False)`."""
+    blocks of `realnvp(fused=False)`. ``compute_dtype=torch.bfloat16``
+    runs the kernels' bf16-policy instantiations (the conditioner products'
+    operands rounded to bfloat16, float32 sums); bfloat16 weights run the
+    bfloat16-storage ones."""
 
     def __init__(self, groups: nn.ModuleDict, idx_even, idx_odd,
-                 backend: str = "auto"):
+                 backend: str = "auto", compute_dtype=None):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{backend!r}")
+        _check_compute_dtype(compute_dtype)
         self.groups = groups
         self.idx_even = tuple(int(i) for i in idx_even)
         self.idx_odd = tuple(int(i) for i in idx_odd)
         self.backend = backend
+        self.compute_dtype = compute_dtype
 
     @staticmethod
-    def from_blocks(blocks, backend: str = "auto") -> "FusedRealNVP":
+    def from_blocks(blocks, backend: str = "auto",
+                    compute_dtype=None) -> "FusedRealNVP":
         """Build from a list of ``[c_even, c_odd]`` `AffineCoupling` pairs
         (as `RealNVP_layer` makes them), stacking weights across blocks."""
         groups = nn.ModuleDict({
@@ -61,17 +68,19 @@ class FusedRealNVP(Bijector):
                 "t": _stacked([b[k].t for b in blocks]),
             }) for k, grp in enumerate(("even", "odd"))})
         return FusedRealNVP(groups, blocks[0][0].mask.idx_a,
-                            blocks[0][1].mask.idx_a, backend)
+                            blocks[0][1].mask.idx_a, backend, compute_dtype)
 
     def forward_and_log_det(self, x):
         return coupling_stack_fused(x, self.groups, self.idx_even,
                                     self.idx_odd, inverse=False,
-                                    backend=self.backend)
+                                    backend=self.backend,
+                                    compute_dtype=self.compute_dtype)
 
     def inverse_and_log_det(self, y):
         return coupling_stack_fused(y, self.groups, self.idx_even,
                                     self.idx_odd, inverse=True,
-                                    backend=self.backend)
+                                    backend=self.backend,
+                                    compute_dtype=self.compute_dtype)
 
 
 def train_realnvp_fused(generator, flow, target, n_samples: int,
@@ -94,7 +103,11 @@ def train_realnvp_fused(generator, flow, target, n_samples: int,
     and gradient itself. The flow's `FusedRealNVP` backend decides where the
     run goes ("auto": K6 for a flow on the card, the plain version for one
     on the CPU). The flow is trained in place: `TrainResult.flow` is the
-    module passed in; its state holds no optimizer.
+    module passed in; its state holds no optimizer. A flow under the bf16
+    ``compute_dtype`` policy trains in float32, as JAX's K6 does (its
+    trainer takes no compute dtype), and keeps its policy; bfloat16
+    weights raise `NotImplementedError` (K6 in bfloat16 is `ROADMAP.md` §1
+    item 5).
     """
     from .train_cuda import adam_train_realnvp_fused
 
@@ -106,6 +119,11 @@ def train_realnvp_fused(generator, flow, target, n_samples: int,
     if not isinstance(flow.base, DiagNormal):
         raise ValueError("train_realnvp_fused requires a DiagNormal base")
     fb = bijectors[0]
+    if fb.groups["even"]["s"][0][0].dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "train_realnvp_fused: K6 is built for float32 and float64; "
+            "bfloat16 parameters wait for ROADMAP.md §1 item 5 (K6's "
+            "slice)")
     with torch.no_grad():
         xs = flow.base.sample(generator, (max_iters, n_samples))
         groups, losses = adam_train_realnvp_fused(

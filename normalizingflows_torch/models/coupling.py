@@ -47,16 +47,18 @@ class AffineCoupling(Bijector):
 
     @staticmethod
     def make(generator, dim, hdims, mask_idx, dtype=torch.float32,
-             device=None) -> "AffineCoupling":
+             device=None, compute_dtype=None) -> "AffineCoupling":
         """The conditioners map the complement (size dim − |A|) to the
         transformed set (size |A|); ``s`` gets a tanh output activation.
-        ``s`` is drawn from the generator before ``t``."""
+        ``s`` is drawn from the generator before ``t``. ``compute_dtype``
+        sets the conditioners' bf16 policy (`nets.Dense`)."""
         device = resolve_device(device)
         mask = PartitionMask.make(dim, mask_idx)
         c = mask.n_transformed
         s = fnn(generator, dim - c, hdims, c, output_activation=torch.tanh,
-                dtype=dtype, device=device)
-        t = fnn(generator, dim - c, hdims, c, dtype=dtype, device=device)
+                dtype=dtype, device=device, compute_dtype=compute_dtype)
+        t = fnn(generator, dim - c, hdims, c, dtype=dtype, device=device,
+                compute_dtype=compute_dtype)
         return AffineCoupling(s, t, mask)
 
     def forward_and_log_det(self, x):
@@ -73,12 +75,13 @@ class AffineCoupling(Bijector):
 
 
 def RealNVP_layer(generator, dim, hdims, dtype=torch.float32,
-                  device=None) -> list[AffineCoupling]:
+                  device=None, compute_dtype=None) -> list[AffineCoupling]:
     """One RealNVP block: two couplings with complementary alternating masks
     (reference `realnvp.jl:132-145`, masks `1:2:d` and `2:2:d`)."""
     device = resolve_device(device)
     return [AffineCoupling.make(generator, dim, hdims, range(parity, dim, 2),
-                                dtype, device) for parity in (0, 1)]
+                                dtype, device, compute_dtype)
+            for parity in (0, 1)]
 
 
 class CouplingPairStack(Bijector):
@@ -180,17 +183,18 @@ def realnvp(
     the parameter tree (stacked ``groups`` or per-block conditioners), so
     a flow's `state_dict` and the JAX flow `load_jax_params` takes must
     not change with the device or the shape. ``remat=True`` recomputes
-    block activations in the backward pass. ``compute_dtype`` (the bf16
-    policy) is not ported yet and raises."""
-    if compute_dtype is not None:
-        raise NotImplementedError("realnvp(compute_dtype=) is not ported yet")
+    block activations in the backward pass. ``compute_dtype=torch.bfloat16``
+    is the bf16 policy of the conditioners' products (`nets.Dense`; with
+    ``fused=True`` the kernels' policy instantiations); ``dtype=
+    torch.bfloat16`` stores the parameters in bfloat16."""
     device = resolve_device(device)
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype, device)
-    pairs = [RealNVP_layer(generator, q0.event_dim, hdims, dtype, device)
-             for _ in range(nlayers)]
+    pairs = [RealNVP_layer(generator, q0.event_dim, hdims, dtype, device,
+                           compute_dtype) for _ in range(nlayers)]
     if fused:
         from ..experimental import FusedRealNVP
 
-        return create_flow([FusedRealNVP.from_blocks(pairs)], q0)
+        return create_flow([FusedRealNVP.from_blocks(
+            pairs, compute_dtype=compute_dtype)], q0)
     return create_flow([CouplingPairStack.from_pairs(pairs, remat=remat)], q0)

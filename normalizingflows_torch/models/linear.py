@@ -11,7 +11,9 @@ Dhariwal, "Glow", NeurIPS 2018):
   ``pmat`` and ``sign_s`` are buffers, which no optimizer sees (the JAX
   package masks them with ``__trainable__``). The three matmuls run in
   exact float32: the package turns TF32 off, as JAX asks for
-  ``Precision.HIGHEST``.
+  ``Precision.HIGHEST``. In bfloat16 the matmuls run in bfloat16; the
+  inverse's triangular solves, which torch refuses in bfloat16 on the CPU
+  and the card, run in float32 and round once.
 * `GlowBlock`: ActNorm → InvertibleLinear → a RealNVP coupling pair.
 * `glow`: ``nlayers`` blocks as one `Repeated` (JAX's ``scan=True``
   layout; a `Chain` of the blocks builds its ``scan=False`` one).
@@ -136,9 +138,12 @@ class InvertibleLinear(Bijector):
         z = torch.matmul(y, self.pmat)  # row convention: Pᵀ y
         d = z.shape[-1]
         cols = z.reshape(-1, d).T  # the whole batch in one (d, n) solve
+        if cols.dtype == torch.bfloat16:
+            # torch has no bfloat16 triangular solve: float32, one rounding
+            L, U, cols = L.float(), U.float(), cols.float()
         cols = torch.linalg.solve_triangular(L, cols, upper=False)
         cols = torch.linalg.solve_triangular(U, cols, upper=True)
-        x = cols.T.reshape(z.shape)
+        x = cols.T.reshape(z.shape).to(z.dtype)
         return x, _broadcast_log_det(-self.log_s.sum(), y)
 
 
@@ -188,19 +193,20 @@ def glow(
     `glow_init_actnorms` with a base batch for Glow's init. Block i's
     rotation is drawn from the int seed ``mix_seed·1000003 + i``, as in
     the JAX package. ``q0`` may be a base distribution or an int dim.
-    ``compute_dtype`` (the bf16 policy) is not ported yet and raises."""
+    ``compute_dtype`` (the bf16 policy, `nets.Dense`) reaches only the
+    couplings' conditioners, as in JAX; ActNorm and the mixing keep the
+    parameters' dtype."""
     from .coupling import RealNVP_layer
     from .flows import create_flow
 
-    if compute_dtype is not None:
-        raise NotImplementedError("glow(compute_dtype=) is not ported yet")
     device = resolve_device(device)
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype, device)
     dim = q0.event_dim
     blocks = []
     for i in range(nlayers):
-        c_even, c_odd = RealNVP_layer(generator, dim, hdims, dtype, device)
+        c_even, c_odd = RealNVP_layer(generator, dim, hdims, dtype, device,
+                                      compute_dtype)
         blocks.append(GlowBlock(
             ActNorm.identity(dim, dtype, device),
             InvertibleLinear.make(mix_seed * 1000003 + i, dim, dtype, device),

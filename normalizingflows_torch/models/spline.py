@@ -18,7 +18,10 @@ there is no CUDA device.
 version for CPU tensors), ``"plain"`` or ``"cuda"``, mirroring the JAX
 ``"auto" | "oracle" | "pallas"``. The kernel reads the conditioner's
 native (batch·n_t, 3K−1) output through its strides: no transpose and no
-copy between the last Dense and the kernel.
+copy between the last Dense and the kernel. Under the bf16
+``compute_dtype`` policy the conditioner's raw reaches the kernel in
+bfloat16 (`_feed`), as the JAX Pallas path feeds it; with bfloat16
+parameters x and raw are both bfloat16.
 """
 
 from __future__ import annotations
@@ -57,6 +60,14 @@ def _identity_init(net: MLP, n_t: int, K: int):
         b[:, 2 * K:] = c
 
 
+def _feed(net: MLP, raw: torch.Tensor) -> torch.Tensor:
+    """raw as the spline kernel reads it: rounded to bfloat16 when the
+    conditioner runs the bf16 policy (JAX `spline.py:124-131`, `:203-215`:
+    raw is most of the kernel's traffic), else as it is."""
+    cd = net.layers[-1].compute_dtype
+    return raw if cd is None else raw.to(cd)
+
+
 def _check_backend(backend: str):
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -75,13 +86,13 @@ class NeuralSplineCoupling(Bijector):
 
     @staticmethod
     def make(generator, dim, hdims, K, B, mask_idx, dtype=torch.float32,
-             device=None, backend="auto",
-             identity_init=False) -> "NeuralSplineCoupling":
+             device=None, backend="auto", identity_init=False,
+             compute_dtype=None) -> "NeuralSplineCoupling":
         device = resolve_device(device)
         mask = PartitionMask.make(dim, mask_idx)
         n_t = mask.n_transformed
         net = fnn(generator, dim - n_t, hdims, (3 * K - 1) * n_t,
-                  dtype=dtype, device=device)
+                  dtype=dtype, device=device, compute_dtype=compute_dtype)
         if identity_init:
             _identity_init(net, n_t, K)
         return NeuralSplineCoupling(net, K, B, mask, backend)
@@ -89,7 +100,7 @@ class NeuralSplineCoupling(Bijector):
     def _transform(self, v, cond, inverse):
         raw = self.nn(cond)
         raw = raw.reshape(raw.shape[:-1] + (v.shape[-1], 3 * self.K - 1))
-        return rqs_fused(v, raw, self.B, inverse=inverse,
+        return rqs_fused(v, _feed(self.nn, raw), self.B, inverse=inverse,
                          backend=self.backend)
 
     def forward_and_log_det(self, x):
@@ -180,7 +191,7 @@ class SplinePairStack(Bijector):
         n_t = v.shape[-1]
         raw = net(cond)
         raw = raw.reshape(raw.shape[:-1] + (n_t, 3 * self.K - 1))
-        y, ld = rqs_fused(v, raw, self.B, inverse=inverse,
+        y, ld = rqs_fused(v, _feed(net, raw), self.B, inverse=inverse,
                           backend=self.backend)
         return y, ld.sum(dim=-1)
 
@@ -207,11 +218,11 @@ class SplinePairStack(Bijector):
             raw = torch.func.functional_call(
                 net, dict(zip(names, leaves)), (cond,))
             raw = raw.reshape(raw.shape[:-1] + (x.shape[-1], 3 * self.K - 1))
-            gx, graw = rqs_fused_vjp(x, raw.detach(), gy,
+            gx, graw = rqs_fused_vjp(x, _feed(net, raw.detach()), gy,
                                      g_ld.unsqueeze(-1).expand(x.shape),
                                      self.B, inverse, self.backend)
             wrt = [cond] + [p for p in leaves if p.requires_grad]
-            grads = iter(torch.autograd.grad(raw, wrt, graw))
+            grads = iter(torch.autograd.grad(raw, wrt, graw.to(raw.dtype)))
         gcond = next(grads)
         return gx, gcond, [next(grads) if p.requires_grad else None
                            for p in leaves]
@@ -239,14 +250,14 @@ class SplinePairStack(Bijector):
 
 
 def NSF_layer(generator, dim, hdims, K, B, dtype=torch.float32, device=None,
-              backend="auto",
-              identity_init=False) -> list[NeuralSplineCoupling]:
+              backend="auto", identity_init=False,
+              compute_dtype=None) -> list[NeuralSplineCoupling]:
     """One NSF block: two spline couplings with complementary masks
     (reference `neuralspline.jl:169-184`)."""
     device = resolve_device(device)
     return [NeuralSplineCoupling.make(generator, dim, hdims, K, B,
                                       range(parity, dim, 2), dtype, device,
-                                      backend, identity_init)
+                                      backend, identity_init, compute_dtype)
             for parity in (0, 1)]
 
 
@@ -273,17 +284,17 @@ def nsf(
     of the stack, a trainable affine envelope: a bare spline is the
     identity outside [−B, B], so the outer ActNorm maps the box onto the
     target's support and the inner one spreads the base draws over the
-    knots. ``compute_dtype`` (the bf16 policy) is not ported yet and
-    raises."""
-    if compute_dtype is not None:
-        raise NotImplementedError("nsf(compute_dtype=) is not ported yet")
+    knots. ``compute_dtype=torch.bfloat16`` runs the conditioners under the
+    bf16 policy (`nets.Dense`) and feeds the kernels bfloat16 raw;
+    ``dtype=torch.bfloat16`` stores every parameter in bfloat16."""
     _check_backend(backend)
     device = resolve_device(device)
     if isinstance(q0, int):
         q0 = DiagNormal.standard(q0, dtype, device)
     dim = q0.event_dim
     pairs = [NSF_layer(generator, dim, hdims, K, B, dtype, device,
-                       backend, identity_init) for _ in range(nlayers)]
+                       backend, identity_init, compute_dtype)
+             for _ in range(nlayers)]
     layers = [SplinePairStack.from_pairs(pairs, remat=remat)]
     if affine_wrap:
         layers = ([ActNorm.identity(dim, dtype, device)] + layers

@@ -29,19 +29,21 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Per source. rqs.cu: --fmad=false, no a*b+c contraction, so the spline
+# Per source. rqs.cu and rqs_bf16.cu: --fmad=false, no a*b+c contraction, so the spline
 # kernels round exactly as their plain torch versions (one op per
 # elementwise kernel) do; near the 1e-3 derivative floor the spline
 # amplifies single roundings far past the f32 tolerances, and the
 # comparison on the card would measure that instead. coupling.cu and
 # train.cu keep nvcc's FMA contraction: they are held to tolerances, their
 # plain versions' matmuls summing in cuBLAS's order.
-SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",)}
+SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",),
+                "rqs_bf16.cu": ("--fmad=false",)}
 
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
 # entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu,
-# csrc/coupling.cu and csrc/train.cu); int and double arrays and pointer
+# csrc/rqs_bf16.cu, csrc/coupling.cu, csrc/coupling_bf16.cu and
+# csrc/train.cu); int and double arrays and pointer
 # tables go in as ctypes arrays
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _F64, _I32,
              _P]
@@ -60,10 +62,20 @@ ENTRIES = {
     "rqs_bwd_fwddir_f64": _BWD_ARGS,
     "rqs_bwd_invdir_f32": _BWD_ARGS,
     "rqs_bwd_invdir_f64": _BWD_ARGS,
+    "rqs_fwd_f32_rbf16": _FWD_ARGS,
+    "rqs_fwd_bf16": _FWD_ARGS,
+    "rqs_bwd_fwddir_f32_rbf16": _BWD_ARGS,
+    "rqs_bwd_fwddir_bf16": _BWD_ARGS,
+    "rqs_bwd_invdir_f32_rbf16": _BWD_ARGS,
+    "rqs_bwd_invdir_bf16": _BWD_ARGS,
     "coupling_fwd_f32": _CPL_FWD_ARGS,
     "coupling_fwd_f64": _CPL_FWD_ARGS,
     "coupling_bwd_f32": _CPL_BWD_ARGS,
     "coupling_bwd_f64": _CPL_BWD_ARGS,
+    "coupling_fwd_f32_cbf16": _CPL_FWD_ARGS,
+    "coupling_fwd_bf16": _CPL_FWD_ARGS,
+    "coupling_bwd_f32_cbf16": _CPL_BWD_ARGS,
+    "coupling_bwd_bf16": _CPL_BWD_ARGS,
     "realnvp_train_f32": _TRAIN_ARGS,
     "realnvp_train_f64": _TRAIN_ARGS,
 }

@@ -20,6 +20,16 @@ versions for CPU tensors; nothing falls back: on a CUDA tensor a build
 failure, a launch error, or a K or dtype the kernels do not take raises.
 Each launch of K1, K2 or K3 is counted in `ops/launches.py`.
 
+raw may be stored in another dtype than x: the kernels are instantiated
+for (x, raw) in (float32, float32), (float64, float64), (float32,
+bfloat16) — the conditioner's raw under the bf16 ``compute_dtype``
+policy, as the JAX Pallas path feeds it — and (bfloat16, bfloat16), for
+bfloat16 parameters (``csrc/rqs.cu``, ``csrc/rqs_bf16.cu``). raw is
+widened where it is read and graw written in raw's dtype. A bfloat16 x is
+computed in float32 and each output rounded once; the plain versions do
+the same, so kernel and plain version keep identical bits (the JAX kernel
+computes a bfloat16 x in bfloat16).
+
 Every kernel stages elem-major raw through shared memory, one tile a CTA,
 so that its device-memory loads coalesce: K1 copies its tile in by
 ``cp.async``; K2/K3 also copy their graw tile out of it. Param-major raw is
@@ -48,12 +58,18 @@ __all__ = [
     "rqs_fused", "rqs_fused_t", "rqs_fused_e", "rqs_fused_vjp",
     "rqs_fused_forward", "rqs_fused_inverse", "tile_transform",
     "tile_bwd_analytic", "tile_bwd_analytic_inverse", "fwd_plan", "FwdPlan",
-    "bwd_plan", "BwdPlan", "KERNEL_K",
+    "bwd_plan", "BwdPlan", "KERNEL_K", "KERNEL_TYPES", "raw_dtype_for",
 ]
 
-# K values and dtypes the kernels are instantiated for (csrc/rqs.cu)
+# K values and (x, raw) dtypes the kernels are instantiated for, with the
+# C entries' suffixes (csrc/rqs.cu, csrc/rqs_bf16.cu)
 KERNEL_K = (8, 10)
-_DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+KERNEL_TYPES = {
+    (torch.float32, torch.float32): "f32",
+    (torch.float64, torch.float64): "f64",
+    (torch.float32, torch.bfloat16): "f32_rbf16",
+    (torch.bfloat16, torch.bfloat16): "bf16",
+}
 BACKENDS = ("auto", "plain", "cuda")
 # K1, K2 and K3: the CTA's threads and a staged tile's rows, one thread an
 # element (kThreads in csrc/rqs.cu), and the dynamic shared memory a block
@@ -62,8 +78,21 @@ BWD_ROWS = 256
 KERNEL_MAX_SMEM = 227 * 1024
 
 
+def raw_dtype_for(x_dtype, raw_dtype):
+    """The dtype raw is read in beside an x of ``x_dtype``: its own where
+    the kernels take the pair, else x's."""
+    return raw_dtype if (x_dtype, raw_dtype) in KERNEL_TYPES else x_dtype
+
+
+def _arith(dtype):
+    """The arithmetic's dtype for an x of ``dtype``: float32 for bfloat16."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 # ---------------------------------------------------------------------------
-# Plain tiles: x (N,), raw (N, 3K−1) with any strides, tables (N, K).
+# Plain tiles: x (N,), raw (N, 3K−1) with any strides, tables (N, K). Each
+# computes in `_arith(x.dtype)`, raw widened, and rounds its outputs once
+# to x's dtype (graw to raw's).
 # ---------------------------------------------------------------------------
 
 def _rev_cumsum_cols(a):
@@ -116,9 +145,11 @@ def _pick_bin(v, grid_lo, tables, K):
 
 def tile_transform(x, raw, B: float, inverse: bool = False):
     """Plain version of K1 (Pallas `_tile_transform`): x (N,), raw
-    (N, 3K−1) → (out, elementwise log|d out/d x|), each (N,)."""
+    (N, 3K−1) → (out, elementwise log|d out/d x|), each (N,) in x's
+    dtype."""
     K = (raw.shape[1] + 1) // 3
     B = float(B)
+    x_dtype, x = x.dtype, x.to(_arith(x.dtype))
     (xs_lo, xs_hi, ys_lo, ys_hi, d_lo, d_hi, _, _, _) = _tile_tables(
         raw, B, K, x.dtype)
     inside = (x >= -B) & (x <= B)
@@ -155,7 +186,8 @@ def tile_transform(x, raw, B: float, inverse: bool = False):
         out = x_k + xi * w
         ld = -ld
     out = torch.where(inside, out, x)
-    return out, torch.where(inside, ld, torch.zeros_like(ld))
+    ld = torch.where(inside, ld, torch.zeros_like(ld))
+    return out.to(x_dtype), ld.to(x_dtype)
 
 
 def _bin_of(x, raw, B, K, inverse):
@@ -209,11 +241,14 @@ def _endpoints_to_raw(onehot, g_xk, g_xk1, g_yk, g_yk1, g_dk, g_dk1, norm,
 
 def tile_bwd_analytic(x, raw, gy, gld, B: float):
     """Plain version of K2 (Pallas `_tile_bwd_analytic`): the closed-form
-    VJP of the forward tile. Returns gx (N,) and graw (N, 3K−1) in raw's
-    dtype. Reverse of Durkan et al. eqs. 4–8 through the softmax, cumsum
-    and softplus normalisation; outside the box gx = gy and graw = 0."""
+    VJP of the forward tile. Returns gx (N,) in x's dtype and graw
+    (N, 3K−1) in raw's. Reverse of Durkan et al. eqs. 4–8 through the
+    softmax, cumsum and softplus normalisation; outside the box gx = gy and
+    graw = 0."""
     K = (raw.shape[1] + 1) // 3
     B = float(B)
+    x_dtype, cd = x.dtype, _arith(x.dtype)
+    x, gy, gld = x.to(cd), gy.to(cd), gld.to(cd)
     (inside, v, onehot, x_k, y_k, d_k, d_k1, w, h, w_gate, h_gate,
      norm) = _bin_of(x, raw, B, K, inverse=False)
     s = h / w
@@ -253,7 +288,7 @@ def tile_bwd_analytic(x, raw, gy, gld, B: float):
 
     graw = _endpoints_to_raw(onehot, g_xk, g_w, g_yk, g_h, g_dk, g_dk1, norm,
                              B, K, raw.dtype)
-    return torch.where(inside, g_v, gy), graw
+    return torch.where(inside, g_v, gy).to(x_dtype), graw
 
 
 def tile_bwd_analytic_inverse(x, raw, g_out, gld, B: float):
@@ -261,10 +296,13 @@ def tile_bwd_analytic_inverse(x, raw, g_out, gld, B: float):
     of the inverse tile by implicit differentiation. The inverse finds the
     root ξ* of Y(ξ; θ) = v and emits out = x_k + ξ*·w and the negated
     log-det; ∂ξ*/∂θ = −(∂Y/∂θ)/(∂Y/∂ξ) with ∂Y/∂ξ = w·P/D². ``g_out`` and
-    ``gld`` are the cotangents of those outputs. Returns gx (N,) and graw
-    (N, 3K−1) in raw's dtype; outside the box gx = g_out and graw = 0."""
+    ``gld`` are the cotangents of those outputs. Returns gx (N,) in x's
+    dtype and graw (N, 3K−1) in raw's; outside the box gx = g_out and graw
+    = 0."""
     K = (raw.shape[1] + 1) // 3
     B = float(B)
+    x_dtype, cd = x.dtype, _arith(x.dtype)
+    x, g_out, gld = x.to(cd), g_out.to(cd), gld.to(cd)
     (inside, v, onehot, x_k, y_k, d_k, d_k1, w, h, w_gate, h_gate,
      norm) = _bin_of(x, raw, B, K, inverse=True)
     s = h / w
@@ -328,7 +366,7 @@ def tile_bwd_analytic_inverse(x, raw, g_out, gld, B: float):
 
     graw = _endpoints_to_raw(onehot, g_xk, g_w, g_yk, g_h, g_dk, g_dk1, norm,
                              B, K, raw.dtype)
-    return torch.where(inside, g_v, g_out), graw
+    return torch.where(inside, g_v, g_out).to(x_dtype), graw
 
 
 # ---------------------------------------------------------------------------
@@ -339,14 +377,15 @@ def _kernel_args(x, raw, K):
     if K not in KERNEL_K:
         raise ValueError(f"the RQS kernels are built for K in {KERNEL_K}, "
                          f"got K={K}")
-    if x.dtype not in _DTYPE_SUFFIX or raw.dtype != x.dtype:
-        raise TypeError("the RQS kernels take float32 or float64 x and raw "
-                        f"of one dtype, got {x.dtype} and {raw.dtype}")
+    if (x.dtype, raw.dtype) not in KERNEL_TYPES:
+        raise TypeError("the RQS kernels take (x, raw) in "
+                        f"{[tuple(map(str, k)) for k in KERNEL_TYPES]}, got "
+                        f"{x.dtype} and {raw.dtype}")
     if not (x.is_cuda and raw.device == x.device):
         raise ValueError("the RQS kernels need x and raw on one CUDA device")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    return _DTYPE_SUFFIX[x.dtype]
+    return KERNEL_TYPES[(x.dtype, raw.dtype)]
 
 
 def _raise_on(err: int, name: str):
@@ -392,7 +431,7 @@ def _launch_fwd(x, raw, B, K, inverse):
     y, ld = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return y, ld
-    plan = fwd_plan(raw.stride(0), K, x.element_size())
+    plan = fwd_plan(raw.stride(0), K, raw.element_size())
     # the C entry launches on the current device: make it x's for the call
     # and restore the caller's after
     with torch.cuda.device(x.device):
@@ -402,7 +441,7 @@ def _launch_fwd(x, raw, B, K, inverse):
             plan.stride, K, B, int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "rqs_fwd")
-    launches.count("rqs_fwd")
+    launches.count(launches.name_of("rqs_fwd", sfx))
     return y, ld
 
 
@@ -449,7 +488,7 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
     gx, graw = torch.empty_like(x), torch.empty_like(raw)
     if x.numel() == 0:
         return gx, graw
-    plan = bwd_plan(raw.stride(0), graw.shape[1], K, x.element_size())
+    plan = bwd_plan(raw.stride(0), graw.shape[1], K, raw.element_size())
     name = "rqs_bwd_invdir" if inverse else "rqs_bwd_fwddir"
     with torch.cuda.device(x.device):
         err = getattr(library(), f"{name}_{sfx}")(
@@ -459,7 +498,7 @@ def _launch_bwd(x, raw, gy, gld, B, K, inverse):
             int(plan.staged), plan.rows, plan.stride, K, B,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
-    launches.count(name)
+    launches.count(launches.name_of(name, sfx))
     return gx, graw
 
 
@@ -517,8 +556,7 @@ def _use_kernel(backend: str, x: torch.Tensor) -> bool:
 def _apply(x, raw2, B, K, inverse, backend):
     """x (...,) and raw2 (x.numel(), P ≥ 3K−1) through the Function."""
     use_kernel = _use_kernel(backend, x)
-    if raw2.dtype != x.dtype:
-        raw2 = raw2.to(x.dtype)
+    raw2 = raw2.to(raw_dtype_for(x.dtype, raw2.dtype))
     y, ld = _RQSFused.apply(x.reshape(-1).contiguous(), raw2, float(B),
                             int(K), bool(inverse), use_kernel)
     return y.reshape(x.shape), ld.reshape(x.shape)
@@ -528,8 +566,10 @@ def rqs_fused(x, raw, B: float, inverse: bool = False, backend: str = "auto"):
     """Fused RQS transform of ``x`` (...,) by per-element raw parameters
     ``raw`` (..., 3K−1), read through its strides (a param-major
     ``raw_t`` (3K−1, N) goes in as the view ``raw_t.T``). Returns (out,
-    elementwise log|d out/d x|), both shaped like ``x``. ``raw`` in another
-    dtype than ``x`` is cast to x's (its gradient comes back in its own)."""
+    elementwise log|d out/d x|), both shaped like and in the dtype of ``x``.
+    ``raw`` keeps its dtype where the kernels take it beside x's
+    (`KERNEL_TYPES`: bfloat16 raw beside a float32 or bfloat16 x), else
+    it is cast to x's; its gradient comes back in its own."""
     P = raw.shape[-1]
     if (P + 1) % 3 or raw.shape[:-1] != x.shape:
         raise ValueError(f"raw must be x.shape + (3K−1,), got "
@@ -551,8 +591,7 @@ def rqs_fused_vjp(x, raw, gy, gld, B: float, inverse: bool = False,
         raise ValueError(f"raw must be x.shape + (3K−1,), got "
                          f"{tuple(raw.shape)} for x {tuple(x.shape)}")
     raw2 = raw.reshape(-1, P)
-    if raw2.dtype != x.dtype:
-        raw2 = raw2.to(x.dtype)
+    raw2 = raw2.to(raw_dtype_for(x.dtype, raw2.dtype))
     gx, graw = _vjp(x.reshape(-1).contiguous(), raw2, gy.reshape(-1),
                     gld.reshape(-1), float(B), (P + 1) // 3, bool(inverse),
                     _use_kernel(backend, x))

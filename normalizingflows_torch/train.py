@@ -330,6 +330,13 @@ class _HostChunks:
         return buf[:chunk]
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A chunk's per-step values on the host; bfloat16 (which numpy lacks)
+    widened exactly to float32."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
                   callback, hasconverged, show_progress, label) -> TrainResult:
     """Host-side chunk driver: ``run_chunk(chunk)`` runs ``chunk`` steps and
@@ -345,8 +352,8 @@ def _drive_chunks(run_chunk, flow, opt, start_iter, max_iters, check_every,
     while it < start_iter + max_iters and not converged:
         chunk = min(check_every, start_iter + max_iters - it)
         losses, gnorms = run_chunk(chunk)
-        losses = losses.cpu().numpy()   # one device→host fetch per chunk
-        gnorms = gnorms.cpu().numpy()
+        losses = _host(losses)   # one device→host fetch per chunk
+        gnorms = _host(gnorms)
         all_loss.append(losses)
         all_gnorm.append(gnorms)
         it += chunk

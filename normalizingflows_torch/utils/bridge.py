@@ -11,7 +11,9 @@ leaves along a leading axis, where the port keeps a list of per-block
 modules; when a path meets such a list with an attribute still to follow,
 the array's leading axis is split across the list. `Dense.W` is ``(in,
 out)`` on both sides, so no transpose is needed. This module imports no
-JAX: the caller flattens the JAX flow to numpy.
+JAX: the caller flattens the JAX flow to numpy. A bfloat16 leaf (numpy
+dtype ``bfloat16``, from ml_dtypes) is carried bit for bit: its 16-bit
+words are reinterpreted as `torch.bfloat16` without importing ml_dtypes.
 """
 
 from __future__ import annotations
@@ -70,8 +72,17 @@ def _assign(obj, tokens, value: np.ndarray, path: str, seen: set):
         raise ValueError(f"{path}: shape {value.shape} != "
                          f"{tuple(child.shape)}")
     with torch.no_grad():
-        child.copy_(torch.from_numpy(np.array(value)))
+        child.copy_(_tensor(value))
     seen.add(id(child))
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``value``'s values; a bfloat16 array (which numpy
+    knows only through ml_dtypes) by its bits."""
+    if value.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(value).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(value))
 
 
 def load_jax_params(module: nn.Module, arrays: dict[str, np.ndarray]):

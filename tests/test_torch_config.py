@@ -113,8 +113,8 @@ def test_jax_json_builds_the_equal_flow(family):
 
 def test_build_checks():
     """hamiltonian needs score_fn; an unknown family or dtype raises;
-    bfloat16 raises for the families whose kernels take float32/float64
-    only; device=None without a card raises."""
+    bfloat16 builds every family (nsf and fused realnvp on the kernels'
+    bfloat16 instantiations); device=None without a card raises."""
     with pytest.raises(ValueError, match="score"):
         tcfg.FlowConfig(family="hamiltonian").build(torch.Generator(),
                                                     device="cpu")
@@ -124,11 +124,24 @@ def test_build_checks():
     with pytest.raises(ValueError, match="dtype"):
         tcfg.FlowConfig(dtype="float16").build(torch.Generator(),
                                                device="cpu")
-    for cfg in (tcfg.FlowConfig(family="nsf", dtype="bfloat16"),
-                tcfg.FlowConfig(family="realnvp", fused=True,
-                                dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            cfg.build(torch.Generator(), device="cpu")
+    # bfloat16 nsf and fused realnvp, which raised until the kernels had
+    # bfloat16 instantiations, build in bfloat16 and give the log_prob of
+    # the same float32-widened flow within 2^-7 relative (a few bfloat16
+    # roundings)
+    x = torch.randn((16, 2), generator=torch.Generator().manual_seed(3))
+    for kw in (dict(family="nsf", B=4.0), dict(family="realnvp",
+                                                 fused=True)):
+        cfg = tcfg.FlowConfig(dtype="bfloat16", nlayers=2, hdims=(8, 8),
+                              **kw)
+        flow = cfg.build(torch.Generator().manual_seed(0), device="cpu")
+        assert {p.dtype for p in flow.parameters()} == {torch.bfloat16}
+        wide = dataclasses.replace(cfg, dtype="float32").build(
+            torch.Generator(), device="cpu")
+        wide.load_state_dict({k: v.float()
+                              for k, v in flow.state_dict().items()})
+        lp = flow.log_prob(x.to(torch.bfloat16)).float()
+        lp32 = wide.log_prob(x.to(torch.bfloat16).float())
+        assert float(((lp - lp32).abs() / (lp32.abs() + 1)).max()) < 2 ** -7
     flow = tcfg.FlowConfig(family="planar", dtype="bfloat16").build(
         torch.Generator(), device="cpu")
     assert {p.dtype for p in flow.parameters()} == {torch.bfloat16}

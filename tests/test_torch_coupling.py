@@ -409,12 +409,26 @@ def test_backward_shared_memory_cap(dt, nlayers, cap):
             cc._kernel_args(x, leaves, sels, 3, backward=True)
 
 
-# (i) options not ported yet
+# (i) the bf16 compute_dtype policy, which raised before it was ported
+# (tests/test_torch_bf16.py holds it in full)
 @pytest.mark.parametrize("fused", [False, True])
 def test_compute_dtype_raises(fused):
-    with pytest.raises(NotImplementedError):
-        nft.realnvp(torch.Generator().manual_seed(0), 2, fused=fused,
-                    compute_dtype=torch.bfloat16, device="cpu")
+    """``compute_dtype=torch.bfloat16`` builds, unfused and fused, keeps
+    float32 parameters and gives JAX's forward (JAX's fused kernel in
+    interpret mode) within the policy's 1e-4."""
+    jflow = _perturb(nf.realnvp(jax.random.key(0), 2, (16, 16), nlayers=3,
+                                fused=fused, interpret=True,
+                                compute_dtype=jnp.bfloat16), 1)
+    tflow = nft.realnvp(torch.Generator().manual_seed(0), 2, (16, 16),
+                        nlayers=3, fused=fused, compute_dtype=torch.bfloat16,
+                        device="cpu")
+    load_jax_params(tflow, jax_arrays(jflow))
+    assert {p.dtype for p in tflow.parameters()} == {torch.float32}
+    x = _draws("f32", 2, 64)
+    y_j, ld_j = jax.jit(jflow.bijector.forward_and_log_det)(jnp.asarray(x))
+    y_t, ld_t = tflow.bijector.forward_and_log_det(torch.from_numpy(x))
+    _close(y_t, y_j, (1e-4, 1e-4))
+    _close(ld_t, ld_j, (1e-4, 1e-4))
 
 
 def test_round_trip_and_sampling_within_the_port():
@@ -612,7 +626,7 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], set(range(1, 46))),
+    ([], set(range(1, 52))),
     (["--phases", "1,2,12,18-21"], {1, 2, 12, 18, 19, 20, 21}),
     (["--phases", "22-26"], {1, 22, 23, 24, 25, 26}),
     (["--phases", "27-31"], {1, 27, 28, 29, 30, 31}),
@@ -620,6 +634,7 @@ def _chip_smoke():
     (["--phases", "32-37"], {1, 32, 33, 34, 35, 36, 37}),
     (["--phases", "38-42"], {1, 38, 39, 40, 41, 42}),
     (["--phases", "43-45"], {1, 43, 44, 45}),
+    (["--phases", "46-51"], {1, 46, 47, 48, 49, 50, 51}),
     (["--phases", "12"], {1, 12}),
     (["--phases", "7,15"], {1, 5, 7, 14, 15}),
 ])
@@ -628,7 +643,7 @@ def test_chip_smoke_phase_selection(argv, want):
     assert cs.selected_phases(argv) == want
 
 
-@pytest.mark.parametrize("text", ["0", "46", "3-1", "x", "1,,2", "-3",
+@pytest.mark.parametrize("text", ["0", "52", "3-1", "x", "1,,2", "-3",
                                   "1-"])
 def test_chip_smoke_rejects_bad_phases(text):
     cs = _chip_smoke()

@@ -57,6 +57,32 @@ def test_imports_with_jax_blocked():
     assert int(out.stdout.strip()) > 0
 
 
+def test_imports_with_jax_and_ml_dtypes_blocked():
+    """The port reads JAX's bfloat16 arrays by their bits: with both
+    ``jax`` and ``ml_dtypes`` blocked every module imports, and no source
+    names ml_dtypes in an import (the card's machine has neither)."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'normalizingflows' not in sys.modules\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            assert not line.strip().startswith(
+                ("import ml_dtypes", "from ml_dtypes")), path
+
+
 def test_no_source_file_imports_jax():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:

@@ -300,8 +300,24 @@ def test_glow_constructor_options():
     want = nft.InvertibleLinear.make(5 * 1000003 + 1, 3, torch.float64,
                                      "cpu")
     assert torch.equal(rep.stacked[1].mix.upper, want.upper)
-    with pytest.raises(NotImplementedError):
-        nft.glow(g, 3, device="cpu", compute_dtype=torch.bfloat16)
+    # the bf16 policy (it raised before it was ported): it reaches the
+    # couplings' conditioners only, and gives JAX's forward within 1e-4
+    pol = nft.glow(torch.Generator().manual_seed(1), 4, (8, 8), 2,
+                   device="cpu", compute_dtype=torch.bfloat16)
+    assert pol.bijector.bijectors[0].stacked[0].c_even.s.layers[
+        0].compute_dtype == torch.bfloat16
+    assert {p.dtype for p in pol.parameters()} == {torch.float32}
+    jpol = nf.glow(jax.random.key(1), 4, (8, 8), 2,
+                   compute_dtype=jnp.bfloat16)
+    load_jax_params(pol, jax_arrays(jpol))
+    xb = np.random.default_rng(2).standard_normal((32, 4)).astype(
+        np.float32)
+    y_j, ld_j = jax.jit(jpol.bijector.forward_and_log_det)(jnp.asarray(xb))
+    y_t, ld_t = pol.bijector.forward_and_log_det(torch.from_numpy(xb))
+    np.testing.assert_allclose(y_t.detach().numpy(), np.asarray(y_j),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ld_t.detach().numpy(), np.asarray(ld_j),
+                               rtol=1e-4, atol=1e-4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             nft.glow(g, 3)

@@ -302,11 +302,25 @@ def test_bridge_rejects_what_does_not_fit():
 
 
 def test_unported_options_raise():
-    """Only the bf16 ``compute_dtype`` is left unported; ``remat`` and
-    ``affine_wrap`` build (their tests are below)."""
+    """Every option is ported: the bf16 ``compute_dtype`` (which raised
+    until it was) builds and gives JAX's forward (its Pallas kernel in
+    interpret mode, on the same bfloat16 raw) within 1e-4; ``remat`` and
+    ``affine_wrap`` build (their tests are below); an unknown backend
+    raises."""
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        nft.nsf(g, DIM, HDIMS, device="cpu", compute_dtype=torch.bfloat16)
+    jflow = _perturb(nf.nsf(jax.random.key(0), DIM, HDIMS, K=8, B=BOX,
+                            nlayers=NLAYERS, backend="pallas",
+                            interpret=True, identity_init=True,
+                            compute_dtype=jnp.bfloat16))
+    pol = nft.nsf(g, DIM, HDIMS, K=8, B=BOX, nlayers=NLAYERS,
+                  identity_init=True, device="cpu",
+                  compute_dtype=torch.bfloat16)
+    load_jax_params(pol, jax_arrays(jflow))
+    x = _draws("f32")
+    y_j, ld_j = jax.jit(jflow.bijector.forward_and_log_det)(jnp.asarray(x))
+    y_t, ld_t = pol.bijector.forward_and_log_det(torch.from_numpy(x))
+    _close(y_t, y_j, (1e-4, 1e-4))
+    _close(ld_t, ld_j, (1e-4, 1e-4))
     flow = nft.nsf(g, DIM, HDIMS, device="cpu", remat=True, affine_wrap=True)
     assert flow.bijector.bijectors[1].remat
     with pytest.raises(ValueError):

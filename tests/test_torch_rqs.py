@@ -277,9 +277,9 @@ def test_bad_raw_shape_raises():
 
 
 def test_ctypes_argtypes_match_the_c_entries():
-    """Each extern "C" entry of csrc/*.cu (rqs.cu, coupling.cu) is bound,
-    with one argtype per C parameter; rqs.cu is built without
-    contraction."""
+    """Each extern "C" entry of csrc/*.cu (rqs.cu, rqs_bf16.cu,
+    coupling.cu, ...) is bound, with one argtype per C parameter; rqs.cu
+    and rqs_bf16.cu are built without contraction."""
     sigs = {}
     for path in _build._sources():
         if path.suffix == ".cu":
@@ -293,12 +293,13 @@ def test_ctypes_argtypes_match_the_c_entries():
     # strides and K
     P_, I64, I32, F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_double)
-    for sfx in ("f32", "f64"):
+    for sfx in ("f32", "f64", "f32_rbf16", "bf16"):
         assert _build.ENTRIES[f"rqs_fwd_{sfx}"] == [
             P_, P_, P_, P_, I64, I64, I64, I32, I32, I32, F64, I32, P_]
-    for name in ("rqs.cu", "coupling.cu"):
+    for name in ("rqs.cu", "rqs_bf16.cu", "coupling.cu"):
         assert Path(_build.CSRC, name) in _build._sources()
     assert "--fmad=false" in _build.SOURCE_FLAGS["rqs.cu"]
+    assert "--fmad=false" in _build.SOURCE_FLAGS["rqs_bf16.cu"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -344,8 +345,9 @@ def test_bwd_plan_reads_param_major_raw_directly(K):
 
 
 def test_bwd_rows_match_the_kernel():
-    """The plan's rows are the kernels' CTA (kThreads in csrc/rqs.cu)."""
-    src = Path(_build.CSRC, "rqs.cu").read_text()
+    """The plan's rows are the kernels' CTA (kThreads in
+    csrc/rqs_device.cuh)."""
+    src = Path(_build.CSRC, "rqs_device.cuh").read_text()
     threads = re.search(r"constexpr int kThreads = (\d+);", src).group(1)
     assert int(threads) == rqs_cuda.BWD_ROWS
 
@@ -398,7 +400,7 @@ def test_fwd_plan_is_one_the_kernel_takes():
     """K1's tile is one CTA of kThreads rows, as K2/K3's (BWD_ROWS), and
     the C launch refuses a staged stride that is even or short of 3K−1,
     as `fwd_plan` never gives."""
-    src = Path(_build.CSRC, "rqs.cu").read_text()
+    src = Path(_build.CSRC, "rqs_device.cuh").read_text()
     threads = int(re.search(r"constexpr int kThreads = (\d+);",
                             src).group(1))
     assert rqs_cuda.BWD_ROWS == threads
@@ -430,7 +432,8 @@ def _fake_entries(monkeypatch):
         for s in ("f32", "f64")}))
     # the device checks want CUDA tensors (test_backend_errors covers them)
     monkeypatch.setattr(rqs_cuda, "_kernel_args",
-                        lambda x, raw, K: rqs_cuda._DTYPE_SUFFIX[x.dtype])
+                        lambda x, raw, K:
+                        rqs_cuda.KERNEL_TYPES[(x.dtype, raw.dtype)])
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -538,6 +541,21 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
      "rqs_fwd<f32, K=10, fwd, staged>"),
     ("_ZN12_GLOBAL__N_17rqs_fwdIdLi8ELb1ELb0EEEvNS_7FwdArgsIT_EE",
      "rqs_fwd<f64, K=8, inv, direct>"),
+    # the kernels' (x, raw) type pair, and the bfloat16 instantiations
+    ("_ZN12_GLOBAL__N_17rqs_fwdIffLi10ELb0ELb1EEEvNS_7FwdArgsIT_T0_EE",
+     "rqs_fwd<f32, K=10, fwd, staged>"),
+    ("_ZN12_GLOBAL__N_17rqs_fwdIf13__nv_bfloat16Li10ELb1ELb1EEEvNS_7FwdArgs"
+     "IT_T0_EE", "rqs_fwd<f32_rbf16, K=10, inv, staged>"),
+    ("_ZN12_GLOBAL__N_114rqs_bwd_fwddirI13__nv_bfloat16S1_Li8ELb0EEEvNS_7"
+     "BwdArgsIT_T0_EE", "rqs_bwd_fwddir<bf16, K=8, direct>"),
+    ("_ZN12_GLOBAL__N_112coupling_fwdIfLb1ELi16ENS_12Bf16OperandsEEEvPKNT2_"
+     "1SEPS3_S6_lNS_5StackE", "coupling_fwd<f32_cbf16, inv, H=16>"),
+    ("_ZN12_GLOBAL__N_112coupling_bwdIfLb0ELi32ENS_11Bf16StorageEEEvPKNT2_"
+     "1SE", "coupling_bwd<bf16, fwd, H=32>"),
+    ("_ZN12_GLOBAL__N_118coupling_fwd_lanesIdLb0ELi16ENS_5ExactIdEEEEvPKNT2_"
+     "1SE", "coupling_fwd_lanes<f64, fwd, H=16>"),
+    ("_ZN12_GLOBAL__N_119coupling_bwd_reduceIf13__nv_bfloat16EEvPKT_ilNS_"
+     "9GradTableE", "coupling_bwd_reduce<bf16>"),
 ])
 def test_chip_smoke_names_rqs_kernels_in_the_ptxas_report(mangled, name):
     """chip_smoke.py's register report reads K2/K3's bool as STAGED and
@@ -568,10 +586,10 @@ def test_chip_smoke_counts_k1_sass_statically():
     EXIT apart, and no instruction of another function."""
     cs = _chip_smoke()
     sass = """
-\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi8ELb0ELb1EEEvNS_7FwdArgsIT_EE
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIffLi8ELb0ELb1EEEvNS_7FwdArgsIT_T0_EE
         /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x0 */
         /*0010*/                   EXIT ;                          /* 0x0 */
-\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb0ELb1EEEvNS_7FwdArgsIT_EE
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIffLi10ELb0ELb1EEEvNS_7FwdArgsIT_T0_EE
         /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x0 */
                                                                    /* 0x0 */
         /*0010*/                   S2R R0, SR_TID.X ;              /* 0x0 */
@@ -587,7 +605,7 @@ def test_chip_smoke_counts_k1_sass_statically():
         /*00b0*/                   @P2 BRA 0xa0 ;                  /* 0x0 */
         /*00c0*/                   RET.REL.NODEC R4 0x0 ;          /* 0x0 */
         /*00d0*/                   BRA 0xd0;                       /* 0x0 */
-\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIfLi10ELb1ELb1EEEvNS_7FwdArgsIT_EE
+\t\tFunction : _ZN12_GLOBAL__N_17rqs_fwdIffLi10ELb1ELb1EEEvNS_7FwdArgsIT_T0_EE
         /*0000*/                   EXIT ;                          /* 0x0 */
 """
     assert cs.sass_counts(sass, cs.K1_SASS) == (13, 9)
