@@ -1,6 +1,6 @@
 // Device code of the fused RealNVP coupling-stack kernels, shared by K4/K5
-// (csrc/coupling.cu) and K6 (csrc/train.cu): the stack's description
-// (`Stack`), staging weights in shared memory (K5/K6 a coupling at a time
+// (csrc/coupling_kernels.cuh) and K6 (csrc/train_kernel.cuh): the stack's
+// description (`Stack`), staging weights in shared memory (K5/K6 a coupling at a time
 // with loads and stores between two barriers, K4 by cp.async: the whole
 // stack where it fits, else the next coupling into a second slot while
 // this one computes), and two mappings of a batch row onto threads. One row a thread: K4 and K5's row tile at large
@@ -108,8 +108,8 @@ __device__ __forceinline__ float th(float v) { return tanhf(v); }
 __device__ __forceinline__ double th(double v) { return tanh(v); }
 
 // How a kernel stores and rounds, its template parameter P (csrc/coupling.cu
-// instantiates Exact<float> and Exact<double>, csrc/coupling_bf16.cu the
-// other two): P::S stores x, the weights and every output in device memory,
+// and csrc/train.cu instantiate Exact<float> and Exact<double>,
+// csrc/coupling_bf16.cu the other two, csrc/train_bf16.cu Bf16Storage): P::S stores x, the weights and every output in device memory,
 // T (the kernel's type) is the arithmetic and what shared memory holds;
 // with P::kRound every conditioner product rounds both operands to
 // bfloat16 before it multiplies (the bf16 compute_dtype policy, the

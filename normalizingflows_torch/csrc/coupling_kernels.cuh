@@ -112,8 +112,9 @@
 // cuBLAS sums its products in another order.
 //
 // The device code below the kernels (staging, the row and lane functions,
-// K5's two tiles) is in csrc/coupling_device.cuh, which csrc/train.cu (K6,
-// the whole training run, on the lane tile) includes too.
+// K5's two tiles) is in csrc/coupling_device.cuh, which
+// csrc/train_kernel.cuh (K6, the whole training run, on the lane tile)
+// includes too.
 
 #pragma once
 #include "coupling_device.cuh"

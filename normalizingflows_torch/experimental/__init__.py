@@ -2,8 +2,9 @@
 
 * `coupling_cuda`: the fused coupling-stack kernels K4/K5
   (`csrc/coupling.cu`) with their plain versions.
-* `train_cuda`: the whole-run training kernel K6 (`csrc/train.cu`), many
-  Adam/ELBO steps a launch, with its plain version.
+* `train_cuda`: the whole-run training kernel K6 (`csrc/train.cu`,
+  `csrc/train_bf16.cu`), many Adam/ELBO steps a launch on a Banana,
+  Funnel or WarpedGauss target, with its plain version.
 * `fused_flow`: the `FusedRealNVP` bijector that drives K4/K5
   (`realnvp(..., fused=True)` builds one) and `train_realnvp_fused`, which
   trains it through K6.

@@ -17,7 +17,7 @@ from torch import nn
 from ..models.bijector import Bijector
 from ..models.distributions import DiagNormal
 from ..models.nets import _check_compute_dtype
-from ..train import TrainResult, TrainState
+from ..train import TrainResult, TrainState, _host
 from .coupling_cuda import BACKENDS, _leaves, coupling_stack_fused
 
 __all__ = ["FusedRealNVP", "train_realnvp_fused"]
@@ -98,16 +98,19 @@ def train_realnvp_fused(generator, flow, target, n_samples: int,
     ``torch.optim.Adam(lr=learning_rate)`` and the base frozen.
 
     Requirements: ``flow`` built with ``realnvp(..., fused=True)``, a
-    `DiagNormal` base, and ``target`` an `nft.Banana` of the flow's
-    dimension (or its ``log_prob``): K6 evaluates the target's log-density
-    and gradient itself. The flow's `FusedRealNVP` backend decides where the
-    run goes ("auto": K6 for a flow on the card, the plain version for one
-    on the CPU). The flow is trained in place: `TrainResult.flow` is the
-    module passed in; its state holds no optimizer. A flow under the bf16
+    `DiagNormal` base, and ``target`` an `nft.Banana`, `nft.Funnel` or
+    `nft.WarpedGauss` of the flow's dimension (or its ``log_prob``): K6
+    evaluates the target's log-density and gradient itself, as JAX's
+    kernel does for these built-ins; any other target raises before a
+    step. The flow's `FusedRealNVP` backend decides where the run goes
+    ("auto": K6 for a flow on the card, the plain version for one on the
+    CPU). The flow is trained in place: `TrainResult.flow` is the module
+    passed in; its state holds no optimizer. A flow under the bf16
     ``compute_dtype`` policy trains in float32, as JAX's K6 does (its
-    trainer takes no compute dtype), and keeps its policy; bfloat16
-    weights raise `NotImplementedError` (K6 in bfloat16 is `ROADMAP.md` §1
-    item 5).
+    trainer takes no compute dtype), and keeps its policy. A flow of
+    bfloat16 weights trains on K6's bfloat16 entry (float32 arithmetic,
+    each stored value rounded once a step, Adam's bias corrections in
+    float32); its losses come back widened to float32.
     """
     from .train_cuda import adam_train_realnvp_fused
 
@@ -119,11 +122,6 @@ def train_realnvp_fused(generator, flow, target, n_samples: int,
     if not isinstance(flow.base, DiagNormal):
         raise ValueError("train_realnvp_fused requires a DiagNormal base")
     fb = bijectors[0]
-    if fb.groups["even"]["s"][0][0].dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "train_realnvp_fused: K6 is built for float32 and float64; "
-            "bfloat16 parameters wait for ROADMAP.md §1 item 5 (K6's "
-            "slice)")
     with torch.no_grad():
         xs = flow.base.sample(generator, (max_iters, n_samples))
         groups, losses = adam_train_realnvp_fused(
@@ -133,5 +131,5 @@ def train_realnvp_fused(generator, flow, target, n_samples: int,
         for p, new in zip(_leaves(fb.groups), _leaves(groups)):
             p.copy_(new)
     stats = {"iteration": np.arange(1, max_iters + 1),
-             "loss": losses.cpu().numpy()}
+             "loss": _host(losses)}
     return TrainResult(flow, stats, TrainState(flow, None, max_iters))

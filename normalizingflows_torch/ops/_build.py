@@ -42,8 +42,8 @@ SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",),
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
 # entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu,
-# csrc/rqs_bf16.cu, csrc/coupling.cu, csrc/coupling_bf16.cu and
-# csrc/train.cu); int and double arrays and pointer
+# csrc/rqs_bf16.cu, csrc/coupling.cu, csrc/coupling_bf16.cu, csrc/train.cu
+# and csrc/train_bf16.cu); int and double arrays and pointer
 # tables go in as ctypes arrays
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _F64, _I32,
              _P]
@@ -54,7 +54,7 @@ _CPL_FWD_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _I32,
 _CPL_BWD_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P,
                  _I32, _I32, _P]
 _TRAIN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32,
-               _I32, _P, _P, _P, _P]
+               _I32, _P, _P, _I32, _P, _P]
 ENTRIES = {
     "rqs_fwd_f32": _FWD_ARGS,
     "rqs_fwd_f64": _FWD_ARGS,
@@ -78,6 +78,7 @@ ENTRIES = {
     "coupling_bwd_bf16": _CPL_BWD_ARGS,
     "realnvp_train_f32": _TRAIN_ARGS,
     "realnvp_train_f64": _TRAIN_ARGS,
+    "realnvp_train_bf16": _TRAIN_ARGS,
 }
 
 

@@ -9,7 +9,7 @@ nowhere else: K1 ``rqs_fwd``, K2 ``rqs_bwd_fwddir`` and K3
 instantiations count apart, under their C entries' names: K1–K3 with
 ``_f32_rbf16`` (bfloat16 raw beside a float32 x) or ``_bf16`` (bfloat16
 x and raw), K4/K5 with ``_f32_cbf16`` (the bf16 compute_dtype policy) or
-``_bf16`` (bfloat16 parameters).
+``_bf16`` (bfloat16 parameters), K6 with ``_bf16`` (bfloat16 parameters).
 
 A CUDA graph runs the kernels captured in it at each replay, and none at
 capture, while the wrappers' Python runs only at capture. `CountedGraph`
@@ -29,7 +29,8 @@ _BASE = ("rqs_fwd", "rqs_bwd_fwddir", "rqs_bwd_invdir", "coupling_fwd",
          "coupling_bwd", "realnvp_train")
 BF16_KERNELS = tuple(
     [f"{k}_{s}" for k in _BASE[:3] for s in ("f32_rbf16", "bf16")]
-    + [f"{k}_{s}" for k in _BASE[3:5] for s in ("f32_cbf16", "bf16")])
+    + [f"{k}_{s}" for k in _BASE[3:5] for s in ("f32_cbf16", "bf16")]
+    + ["realnvp_train_bf16"])
 KERNELS = _BASE + BF16_KERNELS
 
 # launches since import (or since the last `reset`), and graphs captured

@@ -83,8 +83,6 @@ def _library() -> ctypes.CDLL:
     lib.dl_next.argtypes = [i64]
     lib.dl_release.restype = None
     lib.dl_release.argtypes = [i64, ptr]
-    lib.dl_epoch.restype = i64
-    lib.dl_epoch.argtypes = [i64]
     lib.dl_close.restype = None
     lib.dl_close.argtypes = [i64]
     return lib
@@ -126,7 +124,9 @@ def _batches_out(out, k: int, batch: int, dim: int) -> np.ndarray:
 class NativeLoader:
     """Shuffled minibatches of an mmapped raw float32 (n_rows, dim) file,
     prefetched by a C++ producer thread (the JAX package's
-    `NativeLoader`, on the same library source)."""
+    `NativeLoader`, on the same library source). `epoch` counts the
+    epochs that the rows handed out so far have completed, as
+    `NumpyLoader` does, not how far the producer has run ahead."""
 
     def __init__(self, path: str, n_rows: int, dim: int, batch: int,
                  seed: int = 0, n_prefetch: int = 4):
@@ -138,6 +138,7 @@ class NativeLoader:
         if self._handle < 0:
             raise IOError(f"cannot open dataset {path!r} "
                           f"({n_rows}x{dim} float32)")
+        self._taken = 0  # batches handed out
 
     def _take(self, dst: np.ndarray):
         """Copy the next ready batch into ``dst`` (batch, dim) and hand its
@@ -146,6 +147,7 @@ class NativeLoader:
         np.copyto(dst, np.ctypeslib.as_array(ptr, shape=(self.batch,
                                                          self.dim)))
         self._lib.dl_release(self._handle, ptr)
+        self._taken += 1
 
     def __iter__(self):
         return self
@@ -165,7 +167,10 @@ class NativeLoader:
 
     @property
     def epoch(self) -> int:
-        return int(self._lib.dl_epoch(self._handle))
+        """Epochs completed by the rows handed out: what the producer's
+        count was when it had filled exactly those batches (an epoch ends
+        when a row past its end is asked for)."""
+        return max(self._taken * self.batch - 1, 0) // self.n_rows
 
     def close(self):
         if self._handle >= 0:

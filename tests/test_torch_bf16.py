@@ -647,7 +647,7 @@ def test_kernel_suffixes_and_counts():
     assert launches.name_of("rqs_fwd", "f32") == "rqs_fwd"
     assert launches.name_of("rqs_fwd", "f32_rbf16") == "rqs_fwd_f32_rbf16"
     assert set(launches.BF16_KERNELS) <= set(launches.KERNELS)
-    assert len(launches.BF16_KERNELS) == 10
+    assert len(launches.BF16_KERNELS) == 11
     from normalizingflows_torch.ops import _build
 
     for name in launches.BF16_KERNELS:
@@ -750,8 +750,9 @@ def test_bf16_parameters_train_and_checkpoint(family, fused, tmp_path):
 
 def test_train_realnvp_fused_policy_and_bf16():
     """K6's trainer takes a policy flow and trains it in float32 (JAX's K6
-    has no compute dtype), the policy kept; bfloat16 weights raise,
-    naming the roadmap item that takes K6 in bfloat16."""
+    has no compute dtype), the policy kept; a flow of bfloat16 weights
+    trains on K6's bfloat16 storage (the plain version here), its weights
+    staying bfloat16 and its losses finite, widened to float32."""
     flow = nft.realnvp(torch.Generator().manual_seed(0), 2, (8, 8),
                        nlayers=2, fused=True, compute_dtype=BF, device="cpu")
     res = nft.train_realnvp_fused(torch.Generator().manual_seed(1), flow,
@@ -760,9 +761,11 @@ def test_train_realnvp_fused_policy_and_bf16():
     assert res.flow.bijector.bijectors[0].compute_dtype == BF
     bf = nft.realnvp(torch.Generator(), 2, (8, 8), nlayers=2, fused=True,
                      dtype=BF, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        nft.train_realnvp_fused(torch.Generator(), bf,
-                                nft.Banana(2, 1.0, 10.0), 8, max_iters=2)
+    res = nft.train_realnvp_fused(torch.Generator(), bf,
+                                  nft.Banana(2, 1.0, 10.0), 8, max_iters=2)
+    assert res.stats["loss"].dtype == np.float32
+    assert np.isfinite(res.stats["loss"]).all()
+    assert {p.dtype for p in bf.parameters()} == {BF}
 
 
 def test_config_json_round_trip_of_bf16():

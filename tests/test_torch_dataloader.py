@@ -35,20 +35,31 @@ def _sorted(rows):
     return rows[np.lexsort(rows.T)]
 
 
+def _epochs(k, batch):
+    """Epochs completed by k batches' rows (the producer's count once it
+    has filled exactly k batches)."""
+    return (k * batch - 1) // ROWS if k else 0
+
+
 @pytest.mark.parametrize("batch,seed", [(64, 1), (300, 7)])
 def test_native_loader_gives_the_jax_batches(dataset, batch, seed):
     """From one seed, across epoch ends (a batch that does not divide the
-    rows), through `next` and `next_batches` alike."""
+    rows), through `next` and `next_batches` alike. The port's `epoch`
+    counts the batches handed out; JAX's reads its producer thread, which
+    may have filled up to `n_prefetch` (4) batches more."""
     path, _ = dataset
     ours = data.NativeLoader(path, ROWS, DIM, batch, seed=seed)
     theirs = jax_data.NativeLoader(path, ROWS, DIM, batch, seed=seed)
     try:
-        for _ in range(3):
+        assert ours.epoch == 0
+        for _ in range(4):
             np.testing.assert_array_equal(next(ours), next(theirs))
             b = ours.next_batches(4)
             assert b.dtype == np.float32 and b.shape == (4, batch, DIM)
             np.testing.assert_array_equal(b, theirs.next_batches(4))
-        assert ours.epoch == theirs.epoch > 0
+        k = 4 * 5
+        assert ours.epoch == _epochs(k, batch) > 0
+        assert _epochs(k, batch) <= theirs.epoch <= _epochs(k + 4, batch)
     finally:
         ours.close()
         theirs.close()

@@ -301,7 +301,7 @@ def test_bridge_rejects_what_does_not_fit():
         load_jax_params(tflow, {"bijector..W": arrays[path]})
 
 
-def test_unported_options_raise():
+def test_every_option_builds_and_unknown_backend_raises():
     """Every option is ported: the bf16 ``compute_dtype`` (which raised
     until it was) builds and gives JAX's forward (its Pallas kernel in
     interpret mode, on the same bfloat16 raw) within 1e-4; ``remat`` and

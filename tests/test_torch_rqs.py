@@ -556,6 +556,14 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
      "1SE", "coupling_fwd_lanes<f64, fwd, H=16>"),
     ("_ZN12_GLOBAL__N_119coupling_bwd_reduceIf13__nv_bfloat16EEvPKT_ilNS_"
      "9GradTableE", "coupling_bwd_reduce<bf16>"),
+    # K6 on its storage policy
+    ("_ZN12_GLOBAL__N_113realnvp_trainIfLi16ENS_5ExactIfEEEEvPKNT1_1SEPS3_"
+     "S6_S6_PT_S6_S5_S5_illlNS_5TrainIS7_EENS_5StackE",
+     "realnvp_train<f32, H=16>"),
+    ("_ZN12_GLOBAL__N_113realnvp_trainIdLi32ENS_5ExactIdEEEEvPKNT1_1SE",
+     "realnvp_train<f64, H=32>"),
+    ("_ZN12_GLOBAL__N_113realnvp_trainIfLi32ENS_11Bf16StorageEEEvPKNT1_1SE",
+     "realnvp_train<bf16, H=32>"),
 ])
 def test_chip_smoke_names_rqs_kernels_in_the_ptxas_report(mangled, name):
     """chip_smoke.py's register report reads K2/K3's bool as STAGED and

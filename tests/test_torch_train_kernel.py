@@ -212,7 +212,8 @@ def test_train_realnvp_fused_trains_in_place():
 # (d) what the entry point refuses
 @pytest.mark.parametrize("case,match", [
     ("unfused", "fused=True"), ("base", "DiagNormal"),
-    ("target", "Banana"), ("dim", "dimension")])
+    ("target", "Banana"), ("dim", "dimension"),
+    ("cross", "JAX's kernel refuses"), ("mixture", "JAX's kernel refuses")])
 def test_train_realnvp_fused_rejects(case, match):
     g = torch.Generator().manual_seed(0)
     kw = dict(nlayers=2, dtype=torch.float64, device="cpu")
@@ -224,8 +225,14 @@ def test_train_realnvp_fused_rejects(case, match):
                            (8, 8), fused=True, **kw)
     else:
         flow = nft.realnvp(g, 2, (8, 8), fused=True, **kw)
-        target = ((lambda y: -0.5 * y.square().sum(-1)) if case == "target"
-                  else nft.Banana(3, 1.0, 100.0))
+        target = {
+            "target": lambda: lambda y: -0.5 * y.square().sum(-1),
+            "dim": lambda: nft.Banana(3, 1.0, 100.0),
+            # the mixtures JAX's kernel cannot capture (their arrays)
+            "cross": lambda: nft.Cross(device="cpu"),
+            "mixture": lambda: nft.GaussianMixture(
+                torch.zeros(2, 2), torch.ones(2, 2), torch.full((2,), 0.5),
+                device="cpu").log_prob}[case]()
     with pytest.raises(ValueError, match=match):
         nft.train_realnvp_fused(g, flow, target, 4, max_iters=2)
 
