@@ -334,6 +334,40 @@ parameters (``realnvp_train_bf16``, csrc/train_bf16.cu, counted apart):
     launches, the ELBO rising); K6 in bfloat16 against the eager bfloat16
     step (K4/K5 ``_bf16`` and torch.optim.Adam) on the same 25 draws.
 
+Then the sharded path (`normalizingflows_torch/parallel/`: the launcher,
+the 1-D batch mesh, `shard_objective` with JAX's replicated gradient,
+`sample_sharded`) and the multi-rank checkpoint (``backend="dcp"``):
+
+55. the slice's main path: `parallel.initialize()` through its NF_*
+    variables (one NCCL rank), `batch_mesh()`, and the graphed
+    `train_flow(per_shard_key(55), shard_objective(elbo_batch, mesh),
+    ...)` on the NSF demo (300 steps, K1 and K2 20 a step) and the fused
+    RealNVP demo (1,000 steps, one K4 and one K5 a step), in turns with
+    the unwrapped run from a generator in the same state (sharded,
+    unwrapped, unwrapped, sharded): every loss, gradient norm and final
+    parameter identical bits (strict), equal launch counts by replay, one
+    capture each, steps/s of each; each cell's replays profiled with and
+    without the wrapper after every rate of the call (kernels a step, the
+    kernels the wrapper adds, NCCL's own kernels and their device time);
+56. NSF wide (phase 6's shape, 20 graphed steps) through the wrapper,
+    against the unwrapped run bit for bit as in 55; `sample_sharded` of
+    the NSF demo flow at 262,144 rows: finite, global shape (262,144, 2),
+    placed [Shard(0)], equal to `flow.sample` from the same generator
+    state, K1 20 times;
+57. two ranks on the one card (spawned processes, gloo, each on cuda:0,
+    eager: gloo cannot be captured): the NSF demo at `elbo_batch` 64 (32 a
+    rank) for 20 steps, K1 and K2 20 a step in each rank, both ranks
+    identical bits in every loss, gradient norm and final parameter; the
+    first step's value and gradients on 64 shared rows (each rank its 32)
+    against one rank's on all 64 within FIRST_RANK_TOL; `sample_sharded`
+    at 262,144 rows (131,072 a rank), the ranks' blocks differ;
+58. the DCP round trip on the two ranks: the NSF demo flow and a
+    [Shard(0)] DTensor of 262,144 samples through `save_pytree(...,
+    backend="dcp")`, `barrier()`, `load_pytree` into a template of another
+    seed: each rank's local shard and the parameters equal to what was
+    saved bit for bit, the ranks' checksums equal, the bytes and the save
+    and load times.
+
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
 The last line of standard output is the device JSON; the line before it the
@@ -349,9 +383,11 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -359,6 +395,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DEVICE = "cuda"
 B = 30.0              # the NSF box half-width (nsf default)
@@ -636,7 +673,7 @@ TRAIN_BF16_TOL = (1e-4 + 2 * 2 ** -7, 1e-3)
 # K6_WITNESS_FACTOR times the float32 plain version's, plus LEAF_FLOOR.
 K6_WITNESS_FACTOR = 4.0
 BF16_FIRST_LOSS_REL, BF16_TRAJECTORY_REL = 2 * 2 ** -7, 4 * 2 ** -7
-ALL_PHASES = tuple(range(1, 55))
+ALL_PHASES = tuple(range(1, 59))
 
 
 def parse_phases(text: str) -> tuple:
@@ -2681,15 +2718,16 @@ def phase_annealed(gen, name):
     return {"counts": counts, "identical": identical, "steady": steady}
 
 
-def profile_cell(phase, label, p, train, name) -> dict:
+def profile_cell(phase, label, p, train, name, by_name=False) -> dict:
     """A graphed cell under torch.profiler: ``train(p, callback)`` trains
     2 × P steps in chunks of P from a fresh flow, and the profiler covers
     the second chunk, P replays: kernels a step, device busy ms a step
     (the union of the kernels' intervals), the idle share of the window's
     wall time and the device time by category
-    (`benchmarks/torch_profile.py`'s breakdown)."""
+    (`benchmarks/torch_profile.py`'s breakdown); with ``by_name`` also
+    every kernel's (launches a step, device ms a step) by name."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
-    from torch_profile import _breakdown
+    from torch_profile import _breakdown, _kernel_events
 
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -2707,6 +2745,14 @@ def profile_cell(phase, label, p, train, name) -> dict:
     wall = time.perf_counter() - t0[0]
     prof.stop()
     r = _breakdown(prof, p, wall)
+    if by_name:
+        names = {}
+        for e in _kernel_events(prof):
+            row = names.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us()
+        r["by_name"] = {k: (n / p, us / p / 1e3) for k, (n, us) in
+                        names.items()}
     say(phase, f"{label}, {p} replays under the profiler: "
                f"{r['kernels_per_step']:.1f} kernels a step, device busy "
                f"{r['device_busy_ms_per_step']:.4f} ms of "
@@ -5121,6 +5167,495 @@ def phase_train_bf16(gen, name):
     return counts, numbers
 
 
+# ---------------------------------------------------------------------------
+# The sharded path (parallel/) and the multi-rank checkpoint
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _one_rank_mesh():
+    """Phases 55-56's group: one NCCL rank started through the launcher's
+    NF_* path (once; `initialize` returns if a group runs), and its batch
+    mesh. The variables are set only around the call."""
+    from normalizingflows_torch import parallel
+
+    env = {"NF_COORDINATOR": f"localhost:{_free_port()}",
+           "NF_NUM_PROCESSES": "1", "NF_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        parallel.initialize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"the group is {dist.get_backend()} of "
+                             f"{dist.get_world_size()} ranks, not one NCCL "
+                             "rank")
+    return parallel.batch_mesh()
+
+
+def _sharded_turns(phase, label, make, target, batch, steps, lr, check,
+                   per_step, mesh, name):
+    """``make()``'s flow trained by the graphed `train_flow` with
+    `shard_objective(elbo_batch, mesh)` from `per_shard_key(phase)` and
+    unwrapped (`elbo_batch`) from a generator in the same state, in turns
+    (sharded, unwrapped, unwrapped, sharded): every run's losses, gradient
+    norms and final parameters equal the first sharded run's bit for bit
+    (strict); each run launches ``per_step`` kernels a step by replay
+    (equal counts) with one capture. Returns the steps/s of each path
+    after the first chunk and the counts."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch import parallel
+    from normalizingflows_torch.ops import launches
+
+    objectives = {"sharded": parallel.shard_objective(nft.elbo_batch, mesh),
+                  "unwrapped": nft.elbo_batch}
+    rates = {"sharded": [], "unwrapped": []}
+    first, counts = None, {}
+    for path in ("sharded", "unwrapped", "unwrapped", "sharded"):
+        flow = make()
+        reset_counts()
+        res, _, steady = _stamped(lambda cb: nft.train_flow(
+            parallel.per_shard_key(phase), objectives[path], flow,
+            target.log_prob, batch, max_iters=steps, check_every=check,
+            callback=cb, optimizer=lambda p: torch.optim.Adam(p, lr=lr)))
+        counts[path] = expect_counts(
+            f"phase {phase}, {label}, {path}",
+            **{k: n * steps for k, n in per_step.items()})
+        if launches.captures() != 1:
+            raise AssertionError(f"phase {phase}, {label}, {path}: "
+                                 f"{launches.captures()} captures")
+        rates[path].append(steady)
+        run = (res.stats["loss"], res.stats["gradient_norm"],
+               [p.detach().clone() for p in flow.parameters()])
+        if first is None:
+            first = run
+            if not np.isfinite(run[0]).all():
+                raise AssertionError(f"phase {phase}, {label}: non-finite "
+                                     "losses")
+            continue
+        differ = {
+            what: float(np.max(np.abs(a - b))) for what, a, b in (
+                ("losses", run[0], first[0]),
+                ("gradient norms", run[1], first[1]),
+                ("parameters", *(torch.cat([t.reshape(-1) for t in r[2]])
+                                 .double().cpu().numpy()
+                                 for r in (run, first))))
+            if not np.array_equal(a, b)}
+        if differ:
+            raise AssertionError(f"phase {phase}, {label}: the {path} run "
+                                 "differs from the sharded run's bits "
+                                 f"(max abs difference) {differ}")
+    say(phase, f"{label}, {steps} graphed steps, sharded over one NCCL rank "
+               f"and unwrapped from generators in the same state: losses, "
+               f"gradient norms and final parameters identical bits in all "
+               f"four runs; launches a step {per_step or 'none'} on both "
+               f"paths, by replay, one capture each; steps/s after the first"
+               f" chunk in turns (sharded, unwrapped, unwrapped, sharded): "
+               f"sharded {rates['sharded'][0]:.1f}, {rates['sharded'][1]:.1f};"
+               f" unwrapped {rates['unwrapped'][0]:.1f}, "
+               f"{rates['unwrapped'][1]:.1f}; loss {first[0][0]:.4f} -> "
+               f"{first[0][-1]:.4f}, on {name}")
+    return {"steps_per_s_sharded": rates["sharded"],
+            "steps_per_s_unwrapped": rates["unwrapped"],
+            "counts": counts["sharded"]}
+
+
+def _sharded_profile(phase, label, p, make, target, batch, lr, mesh, name):
+    """`profile_cell` of the sharded and the unwrapped cell: kernels a step
+    of the replay, the kernels the sharded step adds (by name, a step),
+    the collectives' own kernels (NCCL's) and their device ms a step."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch import parallel
+
+    out = {}
+    for path, objective in (
+            ("sharded", parallel.shard_objective(nft.elbo_batch, mesh)),
+            ("unwrapped", nft.elbo_batch)):
+        out[path] = profile_cell(phase, f"{label} {path}", p, (
+            lambda q, cb, objective=objective: nft.train_flow(
+                parallel.per_shard_key(phase), objective, make(),
+                target.log_prob, batch, max_iters=2 * q, check_every=q,
+                callback=cb, optimizer=lambda r: torch.optim.Adam(r, lr=lr))),
+            name, by_name=True)
+    s, u = out["sharded"]["by_name"], out["unwrapped"]["by_name"]
+    added = {k: (round(s[k][0] - u.get(k, (0, 0))[0], 3),
+                 round(s[k][1] - u.get(k, (0, 0))[1], 5))
+             for k in s if s[k][0] != u.get(k, (0, 0))[0]}
+    nccl = {k: v for k, v in s.items() if "nccl" in k.lower()}
+    nccl_ms = sum(v[1] for v in nccl.values())
+    added_ms = sum(v[1] for v in added.values())
+    busy = {k: r["device_busy_ms_per_step"] for k, r in out.items()}
+    say(phase, f"{label}: the sharded step runs "
+               f"{out['sharded']['kernels_per_step']:.1f} kernels a step "
+               f"against {out['unwrapped']['kernels_per_step']:.1f} "
+               f"unwrapped; busy {busy['sharded']:.4f} against "
+               f"{busy['unwrapped']:.4f} ms a step; added (name: a step, "
+               f"ms a step) {added}, {added_ms:.5f} ms a step in all; "
+               f"the collectives' (NCCL's) kernels {nccl or 'none'}, "
+               f"{nccl_ms:.5f} ms a step, on {name}")
+    return {path: {k: r[k] for k in PROFILE_KEYS} for path, r in
+            out.items()} | {"added_kernels": added,
+                            "added_ms_per_step": added_ms,
+                            "collective_kernels": nccl,
+                            "collective_ms_per_step": nccl_ms}
+
+
+def phase_sharded_main(name):
+    """The slice's main path: `train_flow` with the sharded objective on
+    one NCCL rank, graphed, on the NSF demo and the fused RealNVP demo,
+    against the unwrapped run (`_sharded_turns`). The profile is returned
+    as a closure, run after every rate of the call."""
+    import normalizingflows_torch as nft
+
+    mesh = _one_rank_mesh()
+    banana = nft.Banana(2, 1.0, 100.0)
+    nsf_step = dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"),
+                             2 * DEMO["nlayers"])
+    rnvp_step = dict(coupling_fwd=1, coupling_bwd=1)
+    out = {
+        "nsf_demo": _sharded_turns(55, "NSF demo", _demo_flow, banana,
+                                   DEMO_BATCH, DEMO_STEPS, DEMO_LR, 100,
+                                   nsf_step, mesh, name),
+        "realnvp_demo": _sharded_turns(
+            55, "fused RealNVP demo", lambda: _rnvp(RNVP_DEMO, 0, True),
+            banana, RNVP_BATCH, RNVP_STEPS, RNVP_LR, 100, rnvp_step, mesh,
+            name)}
+
+    def profile():
+        return {
+            "nsf_demo": _sharded_profile(55, "NSF demo", 50, _demo_flow,
+                                         banana, DEMO_BATCH, DEMO_LR, mesh,
+                                         name),
+            "realnvp_demo": _sharded_profile(
+                55, "fused RealNVP demo", 100,
+                lambda: _rnvp(RNVP_DEMO, 0, True), banana, RNVP_BATCH,
+                RNVP_LR, mesh, name)}
+
+    out["profile"] = profile
+    return out
+
+
+def phase_sharded_wide(name):
+    """NSF wide through the wrapper, graphed, against the unwrapped run bit
+    for bit; then `sample_sharded` of the NSF demo flow at SAMPLE_BATCH
+    rows on the one rank, against `flow.sample` from a generator in the
+    same state."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch import parallel
+
+    mesh = _one_rank_mesh()
+    per_step = dict.fromkeys(("rqs_fwd", "rqs_bwd_fwddir"),
+                             2 * WIDE["nlayers"])
+    out = {"nsf_wide": _sharded_turns(
+        56, "NSF wide", lambda: nft.nsf(torch.Generator().manual_seed(3),
+                                        **WIDE),
+        nft.Banana(WIDE["q0"], 1.0, 100.0), WIDE_BATCH, WIDE_STEPS,
+        WIDE_LR, WIDE_STEPS // 2, per_step, mesh, name)}
+    flow = _perturbed(_demo_flow())
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = parallel.sample_sharded(flow, parallel.per_shard_key(56),
+                                     SAMPLE_BATCH, mesh)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = expect_counts("phase 56, sample_sharded",
+                               rqs_fwd=2 * DEMO["nlayers"])
+        want = flow.sample(parallel.per_shard_key(56), (SAMPLE_BATCH,))
+    local = ys.to_local()
+    if (tuple(ys.shape) != (SAMPLE_BATCH, 2)
+            or [str(p) for p in ys.placements] != ["S(0)"]
+            or tuple(local.shape) != (SAMPLE_BATCH, 2)
+            or not bool(torch.isfinite(local).all())
+            or not torch.equal(local, want)):
+        raise AssertionError(f"phase 56: sample_sharded gave {ys.shape} "
+                             f"placed {ys.placements}, local "
+                             f"{tuple(local.shape)}, not finite rows equal "
+                             "to flow.sample's")
+    say(56, f"sample_sharded of the NSF demo flow: global shape "
+            f"{tuple(ys.shape)} placed {list(ys.placements)}, finite, equal "
+            f"to flow.sample from the same generator state; {ms:.2f} ms on "
+            f"the host clock (the first call); launches {counts}, on {name}")
+    out["sample"] = {"ms": ms, "counts": counts}
+    return out
+
+
+# Phases 57-58's ranks: RANKS processes sharing the one card through gloo,
+# all killed once RANK_TIMEOUT seconds have passed; the first step of the
+# sharded objective against one rank's on the same shared rows within
+# FIRST_RANK_TOL, the relative L2 error of the value and of each gradient
+# leaf (`_rel`: the two sum in different orders).
+RANKS, RANK_TIMEOUT, RANK_STEPS, FIRST_RANK_TOL = 2, 300, 20, 1e-5
+_RANK_MAIN = ("import sys, chip_smoke; "
+              "sys.exit(chip_smoke.rank_worker(sys.argv[1:]))")
+
+
+def _rank_train(mesh, out: dict):
+    """Phase 57 in one rank: the first step on shared rows, 20 eager steps
+    of the NSF demo through the sharded objective, sample_sharded."""
+    import normalizingflows_torch as nft
+    from normalizingflows_torch import parallel
+
+    target = nft.Banana(2, 1.0, 100.0)
+    rank = mesh.get_local_rank()
+    draws = torch.from_numpy(np.random.default_rng(57).standard_normal(
+        (DEMO_BATCH, 2)).astype(np.float32)).to(DEVICE)
+
+    def rows(generator, flow, logp, n):
+        return nft.elbo_from_samples(draws[rank * n:(rank + 1) * n], flow,
+                                     logp)
+
+    flow = _perturbed(_demo_flow())
+    grads = {}
+    for path, fn in (
+            ("sharded", lambda: parallel.shard_objective(rows, mesh)(
+                None, flow, target.log_prob, DEMO_BATCH)),
+            ("one_rank", lambda: nft.elbo_from_samples(draws, flow,
+                                                       target.log_prob))):
+        flow.zero_grad(set_to_none=True)
+        value = fn()
+        value.backward()
+        grads[path] = (value.detach(), {n: p.grad.clone() for n, p in
+                                        flow.named_parameters()
+                                        if p.grad is not None})
+    (vs, gs), (v1, g1) = grads["sharded"], grads["one_rank"]
+    if set(gs) != set(g1):
+        raise AssertionError("the sharded and one-rank steps differ in "
+                             "which parameters got gradients")
+    out["first_value_rel"] = _rel([vs], [v1])
+    out["first_grad_rel"] = max(_rel([gs[k]], [g1[k]]) for k in g1)
+
+    flow = _demo_flow()
+    reset_counts()
+    res = nft.train_flow(
+        parallel.per_shard_key(57, mesh),
+        parallel.shard_objective(nft.elbo_batch, mesh), flow,
+        target.log_prob, DEMO_BATCH, max_iters=RANK_STEPS, check_every=10,
+        optimizer=lambda p: torch.optim.Adam(p, lr=DEMO_LR), graph=False)
+    torch.cuda.synchronize()
+    out["train_counts"] = json.dumps(all_counts())
+    out["loss"] = res.stats["loss"]
+    out["gradient_norm"] = res.stats["gradient_norm"]
+    for i, p in enumerate(flow.parameters()):
+        out[f"param{i}"] = p.detach().cpu().numpy()
+    with torch.no_grad():
+        reset_counts()
+        ys = parallel.sample_sharded(flow, parallel.per_shard_key(570, mesh),
+                                     SAMPLE_BATCH, mesh)
+        torch.cuda.synchronize()
+    local = ys.to_local()
+    out["sample_counts"] = json.dumps(all_counts())
+    out["sample_shape"] = np.asarray(ys.shape)
+    out["sample_local_shape"] = np.asarray(local.shape)
+    out["sample_placements"] = json.dumps([str(p) for p in ys.placements])
+    out["sample_finite"] = np.asarray(bool(torch.isfinite(local).all()))
+    out["sample_head"] = local[:1024].cpu().numpy()
+
+
+def _rank_checkpoint(mesh, directory: Path, out: dict):
+    """Phase 58 in one rank: the NSF demo flow and a [Shard(0)] DTensor of
+    SAMPLE_BATCH samples through save_pytree(backend="dcp"), a barrier,
+    and load_pytree into a template of another seed."""
+    import hashlib
+
+    from torch.distributed.tensor import DTensor
+
+    from normalizingflows_torch import parallel
+    from normalizingflows_torch.utils import checkpoint as ckpt
+
+    flow = _perturbed(_demo_flow())
+    with torch.no_grad():
+        ys = parallel.sample_sharded(flow, parallel.per_shard_key(58, mesh),
+                                     SAMPLE_BATCH, mesh)
+    path = str(directory / "dcp58")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_pytree(path, {"flow": flow, "samples": ys}, backend="dcp")
+    out["save_ms"] = 1e3 * (time.perf_counter() - t0)
+    parallel.barrier()
+    template = {"flow": _demo_flow(seed=42),
+                "samples": DTensor.from_local(
+                    torch.zeros_like(ys.to_local()),
+                    *parallel.batch_sharding(mesh), shape=ys.shape,
+                    stride=ys.stride())}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = ckpt.load_pytree(path, template, backend="dcp")
+    torch.cuda.synchronize()
+    out["load_ms"] = 1e3 * (time.perf_counter() - t0)
+    got = loaded["samples"]
+    out["shard_equal"] = np.asarray(
+        got is template["samples"] and torch.equal(got.to_local(),
+                                                   ys.to_local())
+        and got.placements == ys.placements)
+    digest = hashlib.sha256()
+    same = True
+    for (k, a), b in zip(flow.state_dict().items(),
+                         loaded["flow"].state_dict().values()):
+        same = same and torch.equal(a, b)
+        digest.update(b.detach().cpu().numpy().tobytes())
+    out["params_equal"] = np.asarray(same)
+    out["checksum"] = digest.hexdigest()
+    parallel.barrier()
+    out["bytes"] = sum(f.stat().st_size for f in Path(path).rglob("*")
+                       if f.is_file())
+
+
+def rank_worker(argv) -> int:
+    """One of phases 57-58's ranks, spawned by `phase_two_ranks` as
+    ``python -c _RANK_MAIN PORT WORLD RANK DIR PHASES``: joins the gloo
+    group through the launcher (tcp://localhost:PORT), runs its phases on
+    the card and writes its results to DIR/rank{RANK}.npz."""
+    from normalizingflows_torch import parallel
+
+    port, world, rank, directory, phases = argv
+    directory = Path(directory)
+    torch.cuda.set_device(0)  # every rank on the one card
+    parallel.initialize(f"localhost:{port}", int(world), int(rank),
+                        device="cpu")
+    try:
+        mesh = parallel.batch_mesh()
+        out = {}
+        if "57" in phases.split(","):
+            _rank_train(mesh, out)
+        if "58" in phases.split(","):
+            _rank_checkpoint(mesh, directory, out)
+        np.savez(directory / f"rank{rank}.npz", **out)
+        parallel.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_two_ranks(phases, name):
+    """Phases 57-58: RANKS gloo ranks on the one card, spawned after the
+    parent builds the kernels (the ranks load build/torch_kernels/). 57:
+    the ranks agree bit for bit on every loss, gradient norm and final
+    parameter of 20 eager sharded NSF demo steps (K1/K2 20 a step in each
+    rank), the first step matches one rank's on the same rows, and the
+    ranks' sample blocks differ; 58: the DCP round trip."""
+    from normalizingflows_torch.ops import _build
+
+    _build.library()
+    directory = _exp_dir() / "ranks"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    port = _free_port()
+    wanted = ",".join(str(p) for p in (57, 58) if p in phases)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_MAIN, str(port), str(RANKS), str(r),
+         str(directory), wanted], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=max(
+                    1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phases {wanted}: the ranks ran past "
+                                     f"{RANK_TIMEOUT} s") from None
+            if p.returncode != 0:
+                raise AssertionError(f"phases {wanted}: rank {r} exited "
+                                     f"{p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    ranks = [dict(np.load(directory / f"rank{r}.npz")) for r in range(RANKS)]
+    out = {"seconds": seconds}
+    if 57 in phases:
+        out["train"] = _check_two_ranks_train(ranks, name)
+    if 58 in phases:
+        out["checkpoint"] = _check_two_ranks_checkpoint(ranks, name)
+    return out
+
+
+def _check_two_ranks_train(ranks, name) -> dict:
+    want = 2 * DEMO["nlayers"]
+    for r, d in enumerate(ranks):
+        counts = json.loads(str(d["train_counts"]))
+        full = {k: 0 for k in counts} | {"rqs_fwd": want * RANK_STEPS,
+                                         "rqs_bwd_fwddir": want * RANK_STEPS}
+        if counts != full:
+            raise AssertionError(f"phase 57, rank {r}: launches {counts}, "
+                                 f"expected {full}")
+        sample = json.loads(str(d["sample_counts"]))
+        if sample != {k: 0 for k in sample} | {"rqs_fwd": want}:
+            raise AssertionError(f"phase 57, rank {r}: sample_sharded "
+                                 f"launched {sample}")
+        if (tuple(d["sample_shape"]) != (SAMPLE_BATCH, 2)
+                or tuple(d["sample_local_shape"]) != (SAMPLE_BATCH // RANKS,
+                                                      2)
+                or json.loads(str(d["sample_placements"])) != ["S(0)"]
+                or not bool(d["sample_finite"])):
+            raise AssertionError(f"phase 57, rank {r}: sample_sharded gave "
+                                 f"{d['sample_shape']} placed "
+                                 f"{d['sample_placements']}, local "
+                                 f"{d['sample_local_shape']}")
+        for k in ("first_value_rel", "first_grad_rel"):
+            if not float(d[k]) <= FIRST_RANK_TOL:
+                raise AssertionError(f"phase 57, rank {r}: {k} "
+                                     f"{float(d[k]):.3e} against one rank's "
+                                     f"step on the same rows")
+        if not np.isfinite(d["loss"]).all():
+            raise AssertionError(f"phase 57, rank {r}: non-finite losses")
+    keys = [k for k in ranks[0] if k in ("loss", "gradient_norm")
+            or k.startswith("param")]
+    for d in ranks[1:]:
+        for k in keys:
+            if not np.array_equal(ranks[0][k], d[k]):
+                raise AssertionError(f"phase 57: the ranks differ in {k}")
+    if np.array_equal(ranks[0]["sample_head"], ranks[1]["sample_head"]):
+        raise AssertionError("phase 57: the ranks' sample blocks are equal")
+    first = {k: max(float(d[k]) for d in ranks)
+             for k in ("first_value_rel", "first_grad_rel")}
+    say(57, f"{RANKS} gloo ranks on one card, NSF demo, elbo_batch "
+            f"{DEMO_BATCH} ({DEMO_BATCH // RANKS} a rank), {RANK_STEPS} eager "
+            f"steps: losses, gradient norms and {len(keys) - 2} parameters "
+            f"identical bits in both ranks, loss {ranks[0]['loss'][0]:.4f} -> "
+            f"{ranks[0]['loss'][-1]:.4f}; K1 and K2 {2 * DEMO['nlayers']} a "
+            f"step in each rank; the first step against one rank's on the "
+            f"same {DEMO_BATCH} rows: value {first['first_value_rel']:.2e}, "
+            f"gradients {first['first_grad_rel']:.2e} relative (limit "
+            f"{FIRST_RANK_TOL}); sample_sharded {SAMPLE_BATCH} rows placed "
+            f"[S(0)], {SAMPLE_BATCH // RANKS} a rank, the blocks differ; on "
+            f"{name}")
+    return first
+
+
+def _check_two_ranks_checkpoint(ranks, name) -> dict:
+    for r, d in enumerate(ranks):
+        if not (bool(d["shard_equal"]) and bool(d["params_equal"])):
+            raise AssertionError(f"phase 58, rank {r}: the loaded shard or "
+                                 "parameters differ from the saved ones")
+    if len({str(d["checksum"]) for d in ranks}) != 1:
+        raise AssertionError("phase 58: the ranks' checksums differ")
+    out = {"bytes": int(ranks[0]["bytes"]),
+           "save_ms": [float(d["save_ms"]) for d in ranks],
+           "load_ms": [float(d["load_ms"]) for d in ranks]}
+    say(58, f"DCP round trip over {RANKS} gloo ranks of the NSF demo flow and"
+            f" a [Shard(0)] DTensor of {SAMPLE_BATCH} samples: every local "
+            f"shard and parameter restored bit for bit into a template of "
+            f"another seed, checksums equal ({str(ranks[0]['checksum'])[:16]}"
+            f"); {out['bytes']} bytes; save {out['save_ms']} ms, load "
+            f"{out['load_ms']} ms by rank (host clock), on {name}")
+    return out
+
+
 def graph_cells(phase: int, out: dict) -> dict:
     """A graphed phase's cells as numbers: steps/s graphed and eager,
     after the first chunk and overall, peak MiB, and whether graphed and
@@ -5270,6 +5805,13 @@ def main(argv=None) -> int:
     if 54 in phases:
         k6_bf16_counts, train16 = phase_train_bf16(gen, name)
         k6["bf16"] = train16
+    sharded = {}  # phases 55-58
+    if 55 in phases:
+        sharded["main"] = phase_sharded_main(name)
+    if 56 in phases:
+        sharded["wide"] = phase_sharded_wide(name)
+    if 57 in phases or 58 in phases:
+        sharded["ranks"] = phase_two_ranks(phases, name)
     if 41 in phases:  # its trace is a profiler run: after the rates
         experiment["profiling_41"] = phase_exp_profiling(
             gen, name, graphed[22]["demo"]["graph"]["steady"]
@@ -5287,6 +5829,10 @@ def main(argv=None) -> int:
     if 43 in phases:
         schedule["profiled"] = {k: v for k, v in sched_profile().items()
                                 if k in PROFILE_KEYS}
+    if 55 in phases:
+        sharded["main"]["profiled"] = sharded["main"].pop("profile")()
+    if dist.is_initialized():  # phases 55-56's one NCCL rank
+        dist.destroy_process_group()
     for phase, (_, info) in bf16.items():
         info["profiled"] = {
             k: {key: r[key] for key in PROFILE_KEYS + (
@@ -5347,6 +5893,8 @@ def main(argv=None) -> int:
         print(json.dumps({"bf16": bf16_line}), flush=True)
     if k6:
         print(json.dumps({"k6": k6}), flush=True)
+    if sharded:
+        print(json.dumps({"sharded": sharded}), flush=True)
     torch.cuda.synchronize()
     device_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -5397,7 +5945,11 @@ def main(argv=None) -> int:
                 for label, c in params16_counts.items()},
              **{f"realnvp_train_{kind}_demo": c
                 for kind, c in k6_counts.items()},
-             "realnvp_train_bf16_demo": k6_bf16_counts}
+             "realnvp_train_bf16_demo": k6_bf16_counts,
+             **{f"{cell}_sharded_graph": sharded[key][cell]["counts"]
+                for key, cell in (("main", "nsf_demo"),
+                                  ("main", "realnvp_demo"),
+                                  ("wide", "nsf_wide"))}}
     own = {"rqs_fwd": "mle_demo_graph", "rqs_bwd_fwddir": "elbo_demo_graph",
            "rqs_bwd_invdir": "mle_demo_graph",
            "coupling_fwd": "realnvp_demo_graph",

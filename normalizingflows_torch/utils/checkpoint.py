@@ -20,8 +20,15 @@ ValueError, as the JAX leaf-count and shape checks do.
 iteration) into the port's flow and `torch.optim.Adam`, given the JAX
 tree's ``keystr`` leaf paths in leaf order (this module imports no JAX).
 
-The JAX package's ``backend="orbax"`` (the multi-host path) is not ported:
-it waits for the sharded path (`ROADMAP.md` §1 item 15).
+``backend="dcp"`` is the multi-rank path, the counterpart of the JAX
+package's ``backend="orbax"``: `torch.distributed.checkpoint` writes a
+directory in which every rank saves its own shards, of a module or of a
+dict of modules and tensors (`DTensor`s of `parallel.sample_sharded`
+among them), and loads them in place into a template built the same way:
+a module gets its state_dict back, a `DTensor` keeps its placements and
+each rank reads only its own shard. It runs on one rank too. A train
+state is saved with ``"torch"`` only, as the JAX package saves one to its
+``.npz`` only.
 """
 
 from __future__ import annotations
@@ -40,13 +47,36 @@ __all__ = ["save_pytree", "load_pytree", "save_train_state",
            "load_train_state", "load_jax_checkpoint"]
 
 
-def _check_backend(backend: str):
+def _check_backend(backend: str, allowed=("torch", "dcp")):
     if backend == "orbax":
-        raise NotImplementedError(
-            "backend='orbax' (the multi-host checkpoint) is not ported: it "
-            "comes with the sharded path, ROADMAP.md §1 item 15")
-    if backend != "torch":
-        raise ValueError(f"unknown checkpoint backend {backend!r}")
+        raise ValueError(
+            "backend='orbax' is the JAX package's multi-host checkpoint; "
+            "the port's is backend='dcp' (torch.distributed.checkpoint)")
+    if backend not in allowed:
+        raise ValueError(f"unknown checkpoint backend {backend!r}: "
+                         f"this call takes {' or '.join(allowed)}")
+
+
+def _dcp_state(tree) -> dict:
+    """``tree``'s tensors as `torch.distributed.checkpoint` takes them: a
+    module's state_dict (its own tensors), a dict's values in turn."""
+    if isinstance(tree, nn.Module):
+        return tree.state_dict()
+    if isinstance(tree, dict):
+        return {k: (v if torch.is_tensor(v) else _dcp_state(v))
+                for k, v in tree.items()}
+    raise TypeError("backend='dcp' saves a module or a dict of modules and "
+                    f"tensors, not {type(tree).__name__}")
+
+
+def _dcp_restore(tree, state: dict):
+    """Each module of ``tree`` loads its part of ``state`` back."""
+    if isinstance(tree, nn.Module):
+        tree.load_state_dict(state)
+    else:
+        for k, v in tree.items():
+            if not torch.is_tensor(v):
+                _dcp_restore(v, state[k])
 
 
 def _save(path: str, payload: dict):
@@ -109,19 +139,35 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: dict, path: str):
     _place_steps(opt)
 
 
-def save_pytree(path: str, module: nn.Module, backend: str = "torch"):
+def save_pytree(path: str, module, backend: str = "torch"):
     """Save ``module``'s parameters and persistent buffers (its
-    state_dict) to ``path``, atomically."""
+    state_dict) to the file ``path``, atomically. With ``backend="dcp"``,
+    on every rank of the group: ``module`` may also be a dict of modules
+    and tensors, and ``path`` is a directory."""
     _check_backend(backend)
+    if backend == "dcp":
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(_dcp_state(module), checkpoint_id=path)
+        return
     _save(path, {"flow": module.state_dict(), "optimizer": None,
                  "generator": None, "iteration": None})
 
 
-def load_pytree(path: str, module: nn.Module,
-                backend: str = "torch") -> nn.Module:
+def load_pytree(path: str, module, backend: str = "torch"):
     """Load a flow saved by `save_pytree` or `save_train_state` into
-    ``module`` (built the same way) in place, and return it."""
+    ``module`` (built the same way) in place, and return it. With
+    ``backend="dcp"``, on every rank, a `save_pytree(backend="dcp")`
+    directory into a template of the saved tree's structure: tensors and
+    `DTensor`s are loaded in place (a `DTensor` keeps its placements)."""
     _check_backend(backend)
+    if backend == "dcp":
+        import torch.distributed.checkpoint as dcp
+
+        state = _dcp_state(module)
+        dcp.load(state, checkpoint_id=path)
+        _dcp_restore(module, state)
+        return module
     _load_flow(module, _read(path, _device(module))["flow"], path)
     return module
 
@@ -129,8 +175,9 @@ def load_pytree(path: str, module: nn.Module,
 def save_train_state(path: str, state, generator: torch.Generator | None
                      = None, backend: str = "torch"):
     """Save a `TrainState` (flow, optimizer, iteration) and, for an exact
-    resume, the training generator's state, atomically."""
-    _check_backend(backend)
+    resume, the training generator's state, atomically (``"torch"``
+    only)."""
+    _check_backend(backend, ("torch",))
     _save(path, {"flow": state.flow.state_dict(),
                  "optimizer": state.opt_state.state_dict(),
                  "generator": (None if generator is None
@@ -150,7 +197,7 @@ def load_train_state(path: str, template_state,
     from it."""
     from ..train import TrainState
 
-    _check_backend(backend)
+    _check_backend(backend, ("torch",))
     saved = _read(path, _device(template_state.flow))
     if saved["optimizer"] is None:
         raise ValueError(f"{path} holds a flow, not a train state")

@@ -171,8 +171,35 @@ def test_mismatched_template_raises(tmp_path):
     with pytest.raises(ValueError, match="without a generator"):
         ckpt.load_train_state(path, TrainState(other, torch.optim.Adam(
             trainable_parameters(other)), 0), generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="dcp"):
         ckpt.save_pytree(str(tmp_path / "o"), flow, backend="orbax")
+
+
+def test_dcp_round_trip_on_one_process(tmp_path):
+    """``backend="dcp"`` without a process group: a dict of a flow (glow's
+    buffers too) and a nested tensor is loaded in place into a template of
+    another seed bit for bit; a train state keeps ``"torch"`` only."""
+    src, dst = _flow("glow", 0), _flow("glow", 1)
+    data, into = torch.randn(6, 3, dtype=torch.float64), torch.zeros(6, 3)
+    path = str(tmp_path / "dcp")
+    ckpt.save_pytree(path, {"flow": src, "more": {"data": data}},
+                     backend="dcp")
+    template = {"flow": dst, "more": {"data": into.double()}}
+    out = ckpt.load_pytree(path, template, backend="dcp")
+    assert out is template and out["flow"] is dst
+    for (k, a), b in zip(src.state_dict().items(),
+                         dst.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert torch.equal(template["more"]["data"], data)
+    opt = torch.optim.Adam(trainable_parameters(src), lr=1e-3)
+    with pytest.raises(ValueError, match="takes torch"):
+        ckpt.save_train_state(str(tmp_path / "s"), TrainState(src, opt, 0),
+                              backend="dcp")
+    with pytest.raises(ValueError, match="takes torch"):
+        ckpt.load_train_state(str(tmp_path / "s"), TrainState(src, opt, 0),
+                              backend="dcp")
+    with pytest.raises(TypeError, match="module or a dict"):
+        ckpt.save_pytree(path, [src], backend="dcp")
 
 
 def test_atomic_write(tmp_path, monkeypatch):

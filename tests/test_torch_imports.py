@@ -51,6 +51,10 @@ def test_imports_with_jax_blocked():
             "normalizingflows_torch.examples.demo_maf_mle"} <= set(modules)
     assert sum(m.startswith("normalizingflows_torch.examples.demo_")
                for m in modules) == 7
+    # the sharded path
+    assert {"normalizingflows_torch.parallel.distributed",
+            "normalizingflows_torch.parallel.mesh",
+            "normalizingflows_torch.parallel.sharded"} <= set(modules)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
