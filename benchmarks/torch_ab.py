@@ -17,6 +17,19 @@ own ``build/``), on fixed seeds:
   N 262,144, and of K4 at the demo's last N on this checkout's K4 lane
   tile and one past it (``--k4-n``, from this checkout's
   ``coupling_cuda``: the same N for both trees);
+* K4 and K5 under the bf16 ``compute_dtype`` policy (``_f32_cbf16``): their
+  outputs at the shapes above in both directions, kept for the bitwise
+  comparison, and their device times at demo N 16, reference N 256 and
+  demo N 262,144;
+* the same policy times (two runs in one process) at 1, 2, 4 and 8 warps
+  a CTA: this checkout's package and ``chip_smoke.py`` copied to
+  ``build/torch_ab/warps<w>/`` with ``kMmaWarps`` set to w in the copy's
+  ``csrc/coupling_mma.cuh`` (the tensor-core kernels' one constant for
+  it), each copy built and run in a process of its own, after the four
+  runs;
+* the registers and spill bytes ptxas reports for every kernel of the
+  checkout's build, so that the two trees' instantiations can be held
+  against each other;
 * K6 (``train_cuda.adam_train_realnvp_fused``, launches of 512 steps): the
   demo (1,000 steps, batch 16) and the reference default (50 steps, batch
   256) from their seed-0 flows, float32 and float64: the losses and every
@@ -45,6 +58,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -86,6 +100,74 @@ def _outputs(cs, cc) -> dict:
                 for i, g in enumerate(grads):
                     out[f"K5 {tag} leaf {i}"] = g.cpu()
     return out
+
+
+def _policy_outputs(cs, cc) -> dict:
+    """K4's and K5's outputs under the bf16 policy at SHAPES, both
+    directions, on the CPU."""
+    out = {}
+    for model, n in SHAPES:
+        cfg = cs.CPL_CFG[model]
+        fb = cs._perturbed(cs._rnvp(cfg, 30, True)).bijector.bijectors[0]
+        d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        gy = torch.randn((n, d), generator=gen, device="cuda") / n
+        gld = torch.randn((n,), generator=gen, device="cuda") / n
+        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+        leaves = [t.detach() for t in cc._leaves(fb.groups)]
+        for inverse in (False, True):
+            tag = f"{model} N={n} " + ("inv" if inverse else "fwd")
+            y, ld = cc._launch_fwd(x, leaves, sels, depth, inverse,
+                                   compute_dtype=torch.bfloat16)
+            gx, grads = cc._launch_bwd(x, leaves, gy, gld, sels, depth,
+                                       inverse, torch.bfloat16)
+            out[f"K4 policy {tag} y"] = y.cpu()
+            out[f"K4 policy {tag} ld"] = ld.cpu()
+            out[f"K5 policy {tag} gx"] = gx.cpu()
+            for i, g in enumerate(grads):
+                out[f"K5 policy {tag} leaf {i}"] = g.cpu()
+    return out
+
+
+def _policy_times(cs, cc, label="") -> dict:
+    """Device times of K4 and K5 under the bf16 policy at CPL_TIMED."""
+    ms = {}
+    for model, n in cs.CPL_TIMED:
+        cfg = cs.CPL_CFG[model]
+        fb = cs._perturbed(cs._rnvp(cfg, 30, True)).bijector.bijectors[0]
+        d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        gy = torch.randn((n, d), generator=gen, device="cuda") / n
+        gld = torch.randn((n,), generator=gen, device="cuda") / n
+        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+        leaves = [t.detach() for t in cc._leaves(fb.groups)]
+        cd = torch.bfloat16
+        ms[f"K4 policy{label} {model} N={n}"] = cs.device_ms(
+            lambda: cc._launch_fwd(x, leaves, sels, depth, False,
+                                   compute_dtype=cd))
+        ms[f"K5 policy{label} {model} N={n}"] = cs.device_ms(
+            lambda: cc._launch_bwd(x, leaves, gy, gld, sels, depth, False,
+                                   cd))
+    return ms
+
+
+def _warps_copy(w: int) -> Path:
+    """This checkout's package and ``chip_smoke.py`` under
+    build/torch_ab/warps<w>/, its tensor-core kernels at w warps a CTA."""
+    root = HERE / "build" / "torch_ab" / f"warps{w}"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(HERE / "normalizingflows_torch",
+                    root / "normalizingflows_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(HERE / "chip_smoke.py", root)
+    header = root / "normalizingflows_torch" / "csrc" / "coupling_mma.cuh"
+    text, line = header.read_text(), "constexpr int kMmaWarps = 4;"
+    if line not in text:
+        raise RuntimeError(f"no '{line}' in {header}")
+    header.write_text(text.replace(line, f"constexpr int kMmaWarps = {w};"))
+    return root
 
 
 def _k6_outputs(cs) -> dict:
@@ -211,20 +293,30 @@ def _rqs_times(cs, rq) -> dict:
     return ms
 
 
-def worker(root: Path, out: Path, k4_n) -> None:
+def worker(root: Path, out: Path, k4_n, warps=None) -> None:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from normalizingflows_torch.experimental import coupling_cuda as cc
     from normalizingflows_torch.experimental import train_cuda as tc
     from normalizingflows_torch.ops import rqs_cuda as rq
 
-    for mod in (cs, cc, tc, rq):
+    from normalizingflows_torch.ops import _build
+
+    for mod in (cs, cc, tc, rq, _build):
         if not Path(mod.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"imported {mod.__file__}, not {root}'s "
                                f"package")
-    torch.save({"outputs": {**_outputs(cs, cc), **_k6_outputs(cs),
-                            **_rqs_outputs(cs, rq)},
-                "ms": {**_times(cs, cc, k4_n), **_rqs_times(cs, rq)}}, out)
+    build = _build.build()  # its ptxas report where this run built it
+    if warps is not None:  # a copy at `warps` warps a CTA: its policy times
+        first, again = (_policy_times(cs, cc, f" w={warps}") for _ in (0, 1))
+        torch.save({"ms": {k: [first[k], again[k]] for k in first}}, out)
+        return
+    torch.save({"outputs": {**_outputs(cs, cc), **_policy_outputs(cs, cc),
+                            **_k6_outputs(cs), **_rqs_outputs(cs, rq)},
+                "ms": {**_times(cs, cc, k4_n), **_policy_times(cs, cc),
+                       **_rqs_times(cs, rq)},
+                "registers": {k: [regs, stores, loads] for k, regs, stores,
+                              loads in cs.ptxas_report(build.log)}}, out)
 
 
 def _k4_switch_n() -> tuple:
@@ -244,12 +336,13 @@ def main() -> int:
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--result", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--k4-n", help=argparse.SUPPRESS)
+    parser.add_argument("--warps", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.worker:
         worker(args.worker.resolve(), args.result,
-               tuple(int(n) for n in args.k4_n.split(",")))
+               tuple(int(n) for n in args.k4_n.split(",")), args.warps)
         return 0
     k4_n = ",".join(str(n) for n in _k4_switch_n())
     parent = args.parent.resolve()
@@ -264,6 +357,13 @@ def main() -> int:
                         "--result", str(result), "--k4-n", k4_n],
                        check=True, cwd=root)
         runs.append((label, torch.load(result)))
+    warps_ms = {}
+    for w in (1, 2, 4, 8):
+        root, result = _warps_copy(w), scratch / f"warps{w}.pt"
+        subprocess.run([sys.executable, __file__, "--worker", str(root),
+                        "--result", str(result), "--k4-n", k4_n,
+                        "--warps", str(w)], check=True, cwd=root)
+        warps_ms.update(torch.load(result)["ms"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -280,14 +380,26 @@ def main() -> int:
     for prefix in ("K1 float32", "K1 float64", "K2 float32", "K2 float64",
                    "K3 float32", "K3 float64", "K4 float32", "K4 float64",
                    "K5 float32 demo", "K5 float32", "K5 float64",
-                   "K6 float32", "K6 float64"):
+                   "K4 policy", "K5 policy", "K6 float32", "K6 float64"):
         bits[prefix] = {"parent_vs_change": same(p0, c1, prefix),
                         "change_twice": same(c1, c2, prefix)}
+    # each tree's register report (its first run built it): the
+    # instantiations both trees have, and whether they take the same
+    registers = {label: {} for label in ("parent", "change")}
+    for label, r in runs:
+        registers[label].update(r.get("registers", {}))
+    both = sorted(set(registers["parent"]) & set(registers["change"]))
+    keys = list(dict.fromkeys(k for _, r in runs for k in r["ms"]))
     result = {"card": smi, "device": torch.cuda.get_device_name(0),
               "order": [label for label, _ in order],
-              "ms": {k: [r["ms"][k] for _, r in runs]
-                     for k in runs[0][1]["ms"]},
-              "identical_bits": bits}
+              "ms": {k: [r["ms"].get(k) for _, r in runs] for k in keys},
+              "policy_ms_by_warps": warps_ms,
+              "identical_bits": bits,
+              "registers": registers,
+              "registers_differ": {k: (registers["parent"][k],
+                                       registers["change"][k])
+                                   for k in both if registers["parent"][k]
+                                   != registers["change"][k]}}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

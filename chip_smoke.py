@@ -20,12 +20,15 @@ at each replay:
    ptxas's registers and spill bytes of every kernel instantiation (K1–K6:
    K1 in both directions, staged and direct, K2/K3 staged and direct, K4
    on its lane and row tiles, K4, K5 and K6 in float32/float64 × H 16/32,
-   K4 and K5 in both directions); a float32 or bfloat16 K1–K5, or any
-   K6, that spills fails; a
+   K4 and K5 in both directions, the bf16 policy's tensor-core K4/K5 in
+   both directions × H 16/32); a float32 or bfloat16 K1–K5, or any K6,
+   that spills fails; a
    static count of the SASS instructions of K1's float32 K=10 forward
    staged instantiation (cuobjdump -sass) and the time that count would
    take to issue for each of N = 131072 elements on all the SMs'
-   schedulers at the SM's top clock (a static estimate, not a floor);
+   schedulers at the SM's top clock (a static estimate, not a floor); the
+   HMMA instructions of each of the policy's kernels in the same SASS (a
+   policy kernel without one fails);
 3. kernels against their plain torch versions on the card: K1 forward and
    inverse, K2's and K3's gx/graw, at N = 64 (demo), 256 (MLE demo), 257
    (one live thread in the last CTA), 1000 (ragged) and 131072 (wide), K 8
@@ -286,10 +289,15 @@ whose launches count apart (``rqs_fwd_f32_rbf16``, ``coupling_fwd_bf16``,
     staged elem-major, the direct read, param-major and padded (exact-zero
     pad gradients); device times at K=10 warm and cold beside the byte
     bound with two-byte raw;
-47. K4/K5's policy and bfloat16-storage instantiations against their plain
-    versions at the demo's N 16/300/262,144, forward and inverse, within
-    CPL_BF16_TOL; each twice with identical bits; K4's two tiles with
-    identical bits; device times beside the float32 kernels';
+47. K4/K5's policy (its tensor-core kernels, csrc/coupling_mma.cuh) and
+    bfloat16-storage instantiations against their plain versions at the
+    demo's N 16/300/262,144, forward and inverse, within CPL_BF16_TOL,
+    and the policy on d=8 [32,32,32]x10 (a stack staged a coupling at a
+    time) at N 4,096 against a float64-summed witness; each twice with
+    identical bits; bfloat16 storage's two
+    K4 tiles with identical bits; the policy's rows split at a 16-row
+    boundary into two launches of K4 and K5 with identical bits (N 300 and
+    262,144); device times beside the float32 kernels';
 48. the slice's main path: wide RealNVP (d=128, [256,256]x10, remat, batch
     4096, Adam(1e-3), Banana(128, 1, 100)) under the policy through the
     graphed `train_flow`: graphed against eager identical bits (strict),
@@ -309,7 +317,11 @@ whose launches count apart (``rqs_fwd_f32_rbf16``, ``coupling_fwd_bf16``,
     finite losses, bfloat16 parameters, a checkpoint round trip;
 51. the fused RealNVP demo under the policy, 1,000 graphed steps, one K4
     and one K5 ``_f32_cbf16`` a step, graphed against eager identical
-    bits.
+    bits; the reference default under the policy (batch 256, 50 graphed
+    and eager steps, the H = 32 tile); `sample_and_log_prob` at 262,144
+    under the policy (K4 once a call) and its round trip; the demo's
+    graphed steps/s in turns against the float32 fused demo; both cells
+    profiled after every other phase.
 
 Then K6 on the targets JAX's kernel takes besides Banana, and on bfloat16
 parameters (``realnvp_train_bf16``, csrc/train_bf16.cu, counted apart):
@@ -616,6 +628,32 @@ RQS_BF16_TYPES = ((torch.float32, "f32_rbf16"), (torch.bfloat16, "bf16"))
 CPL_BF16_VARIANTS = {"f32_cbf16": (torch.float32, torch.bfloat16),
                      "bf16": (torch.bfloat16, None)}
 CPL_BF16_N = (16, 300, 262144)
+# the policy's rows split at a 16-row boundary into two launches at these N
+# (300: 18 whole tiles of 16 and 12 rows); its kernels also on a stack at
+# the kernels' bounds, d = 8 (n_A = n_B = 4: the head's whole n8 tile) and
+# [32,32,32] conditioners, whose 10 blocks are too many to stage whole, at
+# CPL_DEEP_N rows. Its 20 perturbed couplings amplify roundoff: y reaches
+# thousands, and the plain version with its products summed in float64
+# (`_dot_witness`: the same roundings, another order) is itself past the
+# elementwise tolerances (y by up to 63 on the card at 4,096 rows). So it
+# is held to that witness: each output's and gradient's relative L2 error
+# from the plain version at most DEEP_WITNESS_FACTOR times the witness's,
+# plus LEAF_FLOOR (`_witness_check`). On the card, two draws, both
+# directions: the kernels at most 4.87 times; two faulty products on the
+# plain version (`WITNESS_CONTROLS`: sums rounded to bfloat16, operands not
+# rounded) at least 78.0 times in their largest output, which the phase
+# requires past the factor. The reference default (20 couplings of H = 32)
+# runs at its batch, RNVP_REF_BATCH, within CPL_BF16_TOL; its flipped
+# share and weight-gradient ratio are read beside the witness's, which is
+# past FLIP_SHARE (up to 1.6 %) and LEAF_FACTOR (up to 2,391 times) there
+# too. At 256 rows a flipped rounding is a rare event, so the witness
+# ratio swings (the kernels up to 311 times on the card); at CPL_REF_N it
+# also holds the witness check (at 4,096 rows the kernels at most 11.0
+# times, the controls at least 211).
+CPL_SPLIT_N = (300, 262144)
+RNVP_DEEP, CPL_DEEP_N = dict(q0=8, hdims=(32, 32, 32), nlayers=10), 4096
+CPL_REF_N = 16384
+DEEP_WITNESS_FACTOR = 20.0
 FLIP_TOL, FLIP_SHARE = (1e-4, 1e-4), 1e-3
 LEAF_FACTOR, LEAF_FLOOR = 300.0, 1e-6
 CPL_BF16_TOL = {
@@ -643,6 +681,8 @@ CPL_BF16_TOL = {
 POLICY_STEPS, POLICY_LAST, POLICY_BAND = 40, 10, 0.05
 FIRST_STEP_SCALE, WITNESS_SHARE, MIXED_BAND = 0.1, 0.5, 1e-4
 POLICY_MLE_STEPS, POLICY_FUSED_EAGER = 100, 100
+# phase 51's rates in turns: chunks of POLICY_RATE_CHUNK steps
+POLICY_RATE_CHUNK = 200
 BF16_FAMILIES = (("realnvp", "realnvp", False, "elbo_batch"),
                  ("realnvp_fused", "realnvp", True, "elbo_batch"),
                  ("nsf", "nsf", False, "elbo_batch"),
@@ -822,9 +862,12 @@ def phase_device() -> str:
 # a kernel's mangled name in ptxas's report: its name, its types (f, d,
 # 13__nv_bfloat16, or S.._ repeating one), then its bool (Lb0/Lb1) and int
 # (Li16: H, or K for RQS) template arguments in order, and for K4/K5 the
-# policy (Exact, Bf16Operands, Bf16Storage); the bools are INVERSE, then
-# STAGED for K1, and STAGED for K2/K3
-_KERNEL_NAME = re.compile(r"(coupling_bwd_reduce|coupling_bwd_rows|"
+# storage (Exact, Bf16Storage; Bf16Operands, the bf16 policy's before it
+# had kernels of its own); the bools are INVERSE, then STAGED for K1, and
+# STAGED for K2/K3. The policy's tensor-core kernels (coupling_fwd_mma,
+# coupling_bwd_mma) take no type: INVERSE, then H.
+_KERNEL_NAME = re.compile(r"(coupling_fwd_mma|coupling_bwd_mma|"
+                          r"coupling_bwd_reduce|coupling_bwd_rows|"
                           r"coupling_bwd|coupling_fwd_lanes|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
                           r"rqs_bwd_invdir)I")
@@ -855,7 +898,7 @@ def _kernel_variant(kind: str, rest: str):
             types.append(types[-1])
             rest = rest[m.end():]
     seg = rest.split("EEv")[0]
-    if "Bf16Operands" in seg:
+    if kind.endswith("_mma") or "Bf16Operands" in seg:
         sfx = "f32_cbf16"
     elif "Bf16Storage" in seg or (kind == "coupling_bwd_reduce"
                                   and types[-1:] == ["bf16"]):
@@ -926,20 +969,46 @@ def sass_counts(sass: str, kernel: str):
     return len(ops), (exits[-1] + 1 if exits else len(ops))
 
 
-def static_issue_estimate(path: Path):
-    """K1's float32 K=10 forward staged instantiation: its main-line SASS
-    count (`sass_counts`) and the time that many warp instructions for
-    each of N = 131072 elements would take to issue, one an issue slot,
-    over the SMs × 4 schedulers at the SM's top clock (nvidia-smi
-    clocks.max.sm). A static estimate, not a floor: the count is not what
-    an element executes. None where the toolkit has no cuobjdump."""
-    import shutil
+def hmma_counts(sass: str) -> dict:
+    """The HMMA instructions (tensor-core products) of each function of
+    ``cuobjdump -sass`` output that `_KERNEL_NAME` names, by its name as
+    phase 2 spells it (`ptxas_report`); a static count, each once."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            k = _KERNEL_NAME.search(m.group(1))
+            name = None
+            if k:
+                report = ptxas_report(f"Compiling entry function "
+                                      f"'{m.group(1)}'\nUsed 0 registers")
+                name = report[0][0] if report else None
+                if name:
+                    out.setdefault(name, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(\S+)", line)
+        if m and name and m.group(1).startswith("HMMA"):
+            out[name] += 1
+    return out
 
+
+def _sass(path: Path):
+    """``cuobjdump -sass`` of the built library, or None where the toolkit
+    has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def static_issue_estimate(sass: str):
+    """K1's float32 K=10 forward staged instantiation: its main-line SASS
+    count (`sass_counts`) in ``sass`` and the time that many warp
+    instructions for each of N = 131072 elements would take to issue, one
+    an issue slot, over the SMs × 4 schedulers at the SM's top clock
+    (nvidia-smi clocks.max.sm). A static estimate, not a floor: the count
+    is not what an element executes."""
     counts = sass_counts(sass, K1_SASS)
     if counts is None:
         raise AssertionError(f"no {K1_SASS} in cuobjdump's SASS")
@@ -955,8 +1024,8 @@ def static_issue_estimate(path: Path):
 
 
 def phase_build():
-    """The build, ptxas's report and K1's static issue estimate (both
-    returned)."""
+    """The build, ptxas's report, K1's static issue estimate and the HMMA
+    counts of the bf16 policy's tensor-core kernels (all returned)."""
     from normalizingflows_torch.ops import _build
 
     build = _build.build()
@@ -977,22 +1046,33 @@ def phase_build():
         raise AssertionError(f"float32 and bfloat16 K1–K5, or K6, spill "
                              f"registers: {spilled}")
     for k in ("rqs_fwd<f32_rbf16", "rqs_fwd<bf16", "rqs_bwd_fwddir<bf16",
-              "coupling_fwd<f32_cbf16", "coupling_bwd<bf16",
-              "realnvp_train<f64", "realnvp_train<bf16"):
+              "coupling_fwd_mma<f32_cbf16", "coupling_bwd_mma<f32_cbf16",
+              "coupling_bwd<bf16", "realnvp_train<f64", "realnvp_train<bf16"):
         if build.log and not any(r[0].startswith(k) for r in report):
             raise AssertionError(f"no {k}> in ptxas's report")
     _build.library()
-    est = static_issue_estimate(build.path)
-    if est is None:
-        say(2, "K1 static issue estimate: not measured (no cuobjdump)")
+    sass = _sass(build.path)
+    est, hmma = None, {}
+    if sass is None:
+        say(2, "K1 static issue estimate and HMMA counts: not measured (no "
+               "cuobjdump)")
     else:
+        est = static_issue_estimate(sass)
+        hmma = {k: v for k, v in hmma_counts(sass).items()
+                if k.startswith(("coupling_fwd_mma<", "coupling_bwd_mma<"))}
+        if len(hmma) != 8 or not all(hmma.values()):
+            raise AssertionError(f"the bf16 policy's kernels (fwd/bwd x "
+                                 f"fwd/inv x H 16/32) must each hold HMMA "
+                                 f"instructions: {hmma}")
+        for k, v in sorted(hmma.items()):
+            say(2, f"{k}: {v} HMMA instructions (static count)")
         say(2, f"K1 static issue estimate: rqs_fwd<f32, K=10, fwd, staged> "
                f"{est['static_instructions']} SASS instructions in its main "
                f"line, each counted once ({est['instructions_all']} in the "
                f"function); once an element at N={est['n']}, "
                f"{est['sms']} SMs x 4 schedulers at {est['sm_mhz']:.0f} "
                f"MHz: {est['ms']:.5f} ms")
-    return report, est
+    return report, est, hmma
 
 
 def _same(name, got, want):
@@ -4256,13 +4336,14 @@ def phase_rqs_bf16(gen):
     return results
 
 
-def _flipped_share(name, got, want, limit):
+def _flipped_share(name, got, want, limit=None):
     """The share of elements outside FLIP_TOL (a float32 roundoff rounding
-    a later operand to the neighbouring bfloat16); raises past ``limit``."""
+    a later operand to the neighbouring bfloat16); raises past ``limit``
+    (None: a reading)."""
     got, want = got.detach().double(), want.detach().double()
     out = (got - want).abs() > FLIP_TOL[1] + FLIP_TOL[0] * want.abs()
     share = float(out.double().mean()) if out.numel() else 0.0
-    if share > limit:
+    if limit is not None and share > limit:
         raise AssertionError(f"{name}: {100 * share:.3f} % of the elements "
                              f"outside rtol/atol {FLIP_TOL}, over "
                              f"{100 * limit:.3f} %")
@@ -4278,14 +4359,15 @@ def _rel(a, b):
     return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
 
 
-def _leaf_check(cc, fb, x, gy, gld, sels, inverse, got, wants, tag):
+def _leaf_check(cc, fb, x, gy, gld, sels, inverse, got, wants, tag,
+                gate=True):
     """The policy's weight gradients from K5 (``got``) against its plain
     version's (``wants``), each leaf's relative L2 error held to
     LEAF_FACTOR times the float32 K5's against the float32 plain version
-    on the same inputs and weights, plus LEAF_FLOOR. The sums are the
-    same in the same orders; the policy adds roundings that float32
-    roundoff can flip, and an ill-conditioned sum amplifies both alike.
-    Returns the largest ratio of the two errors."""
+    on the same inputs and weights, plus LEAF_FLOOR (without ``gate``, a
+    reading). The sums are the same in the same orders; the policy adds
+    roundings that float32 roundoff can flip, and an ill-conditioned sum
+    amplifies both alike. Returns the largest ratio of the two errors."""
     xg = x.detach().requires_grad_()
     y32, ld32 = cc.coupling_stack_fused(xg, fb.groups, fb.idx_even,
                                         fb.idx_odd, inverse=inverse,
@@ -4296,7 +4378,7 @@ def _leaf_check(cc, fb, x, gy, gld, sels, inverse, got, wants, tag):
     worst = 0.0
     for i, (a, b, a32, b32) in enumerate(zip(got, wants, g32, t32)):
         err, err32 = _rel([a], [b]), _rel([a32], [b32])
-        if err > LEAF_FACTOR * err32 + LEAF_FLOOR:
+        if gate and err > LEAF_FACTOR * err32 + LEAF_FLOOR:
             raise AssertionError(
                 f"K5 {tag} leaf {i}: relative L2 error {err:.3e} against "
                 f"the plain version, float32's {err32:.3e} (limit "
@@ -4317,99 +4399,282 @@ def _bf16_fused(cfg, variant, seed=30):
     return _perturbed(flow).bijector.bijectors[0]
 
 
+def _split_bits(cc, x, leaves, gy, gld, sels, depth, inverse, cd, got,
+                tag):
+    """A row's K4 and K5 outputs under the policy do not depend on where
+    it lands: x's rows split at a 16-row boundary into two launches of
+    each kernel give the bits of one launch (``got``: y, ld, gx)."""
+    n = x.shape[0]
+    m = 16 * (n // 32)
+    outs = []
+    for a, b in ((0, m), (m, n)):
+        xp = x[a:b].contiguous()
+        y, ld = cc._launch_fwd(xp, leaves, sels, depth, inverse,
+                               compute_dtype=cd)
+        gx, _ = cc._launch_bwd(xp, leaves, gy[a:b].contiguous(),
+                               gld[a:b].contiguous(), sels, depth, inverse,
+                               cd)
+        outs.append((y, ld, gx))
+    for i, nm in enumerate(("y", "ld", "gx")):
+        _same(f"{tag} {nm}, rows split at {m} into two launches",
+              torch.cat([o[i] for o in outs]), got[i])
+
+
+def _dot_witness(a, b, cd=None):
+    """`coupling_cuda._dot` with the policy's products summed in float64:
+    the same roundings of the operands, another summation order."""
+    if cd is None:
+        return a @ b
+    return (a.to(cd).double() @ b.to(cd).double()).to(a.dtype)
+
+
+def _dot_bf16_sums(a, b, cd=None):
+    """A faulty policy product, one of `_witness_check`'s controls: the
+    float32 sum rounded to ``cd`` (a kernel keeping its sums in
+    bfloat16)."""
+    if cd is None:
+        return a @ b
+    return (a.to(cd).float() @ b.to(cd).float()).to(cd).to(a.dtype)
+
+
+def _dot_unrounded(a, b, cd=None):
+    """Another: the operands not rounded (a kernel skipping the policy)."""
+    return a @ b
+
+
+WITNESS_CONTROLS = {"bf16 sums": _dot_bf16_sums, "unrounded": _dot_unrounded}
+
+
+def _plain_on(cc, dot, fb, x, gy, gld, sels, inverse, cd):
+    """The plain versions' [y, ld, gx, *weight gradients] with
+    `coupling_cuda._dot` replaced by ``dot`` (None: as it is)."""
+    real = cc._dot
+    cc._dot = dot or real
+    try:
+        y, ld = cc.tile_flow(x, fb.groups, sels, inverse, cd)
+        gx, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels, inverse,
+                                    cd)
+    finally:
+        cc._dot = real
+    return [t.detach() for t in (y, ld, gx, *cc._leaves(tree))]
+
+
+def _witness_check(cc, fb, x, gy, gld, sels, inverse, cd, got, tag, seen,
+                   key):
+    """The policy's outputs and gradients from K4/K5 (``got``), each within
+    DEEP_WITNESS_FACTOR times `_dot_witness`'s relative L2 error from the
+    plain version, plus LEAF_FLOOR; and each of WITNESS_CONTROLS (the plain
+    version on a faulty product) past that limit in some output, so that
+    the factor tells such a fault from the roundoff. Keeps in ``seen``,
+    under ``key``, the kernel's largest ratio to the witness's error by
+    output (y, ld, gx, the weight gradients) and each control's largest,
+    its smallest over the cases; returns what failed."""
+    args = (fb, x, gy, gld, sels, inverse, cd)
+    plain = _plain_on(cc, None, *args)
+    witness = _plain_on(cc, _dot_witness, *args)
+    names = ["y", "ld", "gx"] + ["leaves"] * (len(plain) - 3)
+
+    def ratios(outs):
+        return [(nm, _rel([a.detach()], [b]), _rel([w], [b]))
+                for nm, a, b, w in zip(names, outs, plain, witness)]
+
+    def ratio(err, err_w):
+        return err / max(err_w, LEAF_FLOOR)
+
+    def over(err, err_w):
+        return err > DEEP_WITNESS_FACTOR * err_w + LEAF_FLOOR
+
+    failed, mine = [], seen["witness"].setdefault(key, {})
+    for nm, err, err_w in ratios(got):
+        mine[nm] = max(mine.get(nm, 0.0), ratio(err, err_w))
+        if over(err, err_w):
+            failed.append(f"{tag} {nm}: relative L2 error {err:.3e} from the "
+                          f"plain version, its float64-summed witness's "
+                          f"{err_w:.3e} (limit {DEEP_WITNESS_FACTOR} times "
+                          f"it plus {LEAF_FLOOR})")
+    for label, dot in WITNESS_CONTROLS.items():
+        rs = ratios(_plain_on(cc, dot, *args))
+        top = max(ratio(err, err_w) for _, err, err_w in rs)
+        ctl = seen["controls"].setdefault(key, {})
+        ctl[label] = min(ctl.get(label, math.inf), top)
+        if not any(over(err, err_w) for _, err, err_w in rs):
+            failed.append(f"{tag}: the faulty control '{label}' at most "
+                          f"{top:.2f} times the witness's error, within "
+                          f"DEEP_WITNESS_FACTOR {DEEP_WITNESS_FACTOR}: the "
+                          f"witness check would not see that fault")
+    return failed
+
+
+def _bf16_case(cc, variant, cfg, n, gen, results, seen):
+    """One phase-47 case: K4/K5's ``variant`` on ``cfg``'s perturbed stack
+    at N = n, forward and inverse, against its plain version within
+    CPL_BF16_TOL (RNVP_DEEP: against a witness only, `_witness_check`),
+    twice with identical bits; bfloat16 storage on its two K4 tiles with
+    identical bits, the policy on rows split into two launches (at
+    CPL_SPLIT_N) with identical bits, the share of its elements outside
+    FLIP_TOL and its weight gradients against the float32 K5's error
+    (`_leaf_check`; on RNVP_REF both read beside the float64-summed
+    witness's, and past its batch the witness check). ``seen`` gathers the
+    counts and extremes."""
+    dtype, cd = CPL_BF16_VARIANTS[variant]
+    tol = CPL_BF16_TOL[variant]
+    fb = _bf16_fused(cfg, variant)
+    d, depth = cfg["q0"], len(cfg["hdims"]) + 1
+    sels = cc._sels(fb.idx_even, fb.idx_odd, d)
+    leaves = cc._leaves(fb.groups)
+    x, draws = _off_kinks(cc, torch.randn(
+        (n, d), generator=gen, device=DEVICE, dtype=dtype),
+        fb.groups, sels, gen, cd)
+    seen["redrawn"] += draws
+    gy = (torch.randn((n, d), generator=gen, device=DEVICE) / n).to(dtype)
+    gld = (torch.randn((n,), generator=gen, device=DEVICE) / n).to(dtype)
+    tag = f"{variant} d={d} {cfg['hdims']}x{cfg['nlayers']} N={n}"
+
+    def run(inverse):
+        xg = x.detach().requires_grad_()
+        y, ld = cc.coupling_stack_fused(
+            xg, fb.groups, fb.idx_even, fb.idx_odd, inverse=inverse,
+            backend="cuda", compute_dtype=cd)
+        return [y.detach(), ld.detach(), *torch.autograd.grad(
+            (y, ld), [xg] + leaves, (gy, gld))]
+
+    for inverse in (False, True):
+        dr = "inv" if inverse else "fwd"
+        got, again = run(inverse), run(inverse)
+        for i, (a, b) in enumerate(zip(got, again)):
+            _same(f"K4/K5 {dr} {tag} output {i}, two runs", a, b)
+        if any(t.dtype != dtype for t in got):
+            raise AssertionError(f"{tag}: outputs not in {dtype}")
+        if cd is None:
+            for lanes in (True, False):
+                with fwd_tile(cc, lanes):
+                    y_t, ld_t = cc._launch_fwd(x, leaves, sels, depth,
+                                               inverse, compute_dtype=cd)
+                _same(f"K4 {dr} {tag} y, tile {lanes}", y_t, got[0])
+                _same(f"K4 {dr} {tag} ld, tile {lanes}", ld_t, got[1])
+        elif n in CPL_SPLIT_N:
+            _split_bits(cc, x, leaves, gy, gld, sels, depth, inverse, cd,
+                        got, f"K4/K5 {dr} {tag}")
+            seen["split"] += 1
+        if cfg is RNVP_DEEP:
+            seen["witness_failed"] += _witness_check(
+                cc, fb, x, gy, gld, sels, inverse, cd, got, f"{dr} {tag}",
+                seen, "deep")
+            seen["n_cmp"] += len(got)
+            continue
+        y_p, ld_p = cc.tile_flow(x, fb.groups, sels, inverse, cd)
+        gx_p, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels, inverse,
+                                      cd)
+        e4 = max(compare(f"K4 {dr} y  {tag}", got[0], y_p, tol["y"]),
+                 compare(f"K4 {dr} ld {tag}", got[1], ld_p, tol["ld"]))
+        gx_tol = tol.get("gx", tol["g"])
+        e5 = compare(f"K5 {dr} {tag} gx", got[2], gx_p,
+                     (gx_tol[0], gx_tol[1] / n))
+        wants = cc._leaves(tree)
+        for i, (a, b) in enumerate(zip(got[3:], wants)):
+            scale = min(1.0, float(b.detach().abs().max()))
+            e5 = max(e5, compare(f"K5 {dr} {tag} leaf {i}", a, b,
+                                 (tol["g"][0], tol["g"][1] * scale),
+                                 quiet=True))
+        seen["n_cmp"] += len(got)
+        if cd is not None and cfg is RNVP_REF:
+            # its 20 couplings: the float64-summed witness itself puts up
+            # to 1.6 % of y, ld and gx outside FLIP_TOL and its weight
+            # gradients up to 2,391 times float32's error on the card, so
+            # both are readings beside the witness's, and past 256 rows the
+            # witness check holds the case
+            witness = _plain_on(cc, _dot_witness, fb, x, gy, gld, sels,
+                                inverse, cd)
+            ref = seen["ref"].setdefault(n, dict(
+                flips=dict(kernel=0.0, witness=0.0),
+                leaf_ratio=dict(kernel=0.0, witness=0.0)))
+            for who, o in (("kernel", got), ("witness", witness)):
+                ref["flips"][who] = max(ref["flips"][who], *(
+                    _flipped_share(f"{dr} {tag}", a, b) for a, b in (
+                        (o[0], y_p), (o[1], ld_p), (o[2] * n, gx_p * n))))
+                ref["leaf_ratio"][who] = max(ref["leaf_ratio"][who],
+                                             _leaf_check(
+                    cc, fb, x, gy, gld, sels, inverse, o[3:], wants,
+                    f"{dr} {tag}", gate=False))
+            if n > RNVP_REF_BATCH:
+                seen["witness_failed"] += _witness_check(
+                    cc, fb, x, gy, gld, sels, inverse, cd, got,
+                    f"{dr} {tag}", seen, "ref")
+        elif cd is not None:
+            shares = [_flipped_share(f"{nm} {dr} {tag}", a, b, FLIP_SHARE)
+                      for nm, a, b in (("y", got[0], y_p),
+                                       ("ld", got[1], ld_p),
+                                       ("gx", got[2] * n, gx_p * n))]
+            seen["flips"] = max(seen["flips"], max(shares))
+            seen["leaf_ratio"] = max(seen["leaf_ratio"], _leaf_check(
+                cc, fb, x, gy, gld, sels, inverse, got[3:], wants,
+                f"{dr} {tag}"))
+        for k, e in (("coupling_fwd", e4), ("coupling_bwd", e5)):
+            r = results[f"{k}_{variant}"]
+            r["err"] = max(r["err"], e)
+
+
 def phase_coupling_bf16(gen):
     """Phase 47: K4 and K5's bfloat16 instantiations, the policy's
-    ("f32_cbf16") and bfloat16 storage ("bf16"), against their plain
-    versions on the card at the demo's N 16, 300 and 262,144, forward and
-    inverse, within CPL_BF16_TOL (y, ld, gx and every weight gradient, on
-    rows off the leaky ReLU's kink), the policy's weight gradients also
-    against the float32 K5's error (`_leaf_check`); K4 and K5 twice with
-    identical bits;
-    K4's two tiles with identical bits. Then device times at CPL_TIMED
-    beside the float32 kernels in this call."""
+    ("f32_cbf16", the tensor-core kernels) and bfloat16 storage ("bf16"),
+    against their plain versions on the card at the demo's N 16, 300 and
+    262,144, forward and inverse, and the policy also on the reference
+    default at its batch and at CPL_REF_N (H = 32, the whole stack staged,
+    K5's partial sums in device memory, at CPL_REF_N several tiles a CTA)
+    and on RNVP_DEEP at N CPL_DEEP_N (d = 8: the head's
+    whole n8 tile; 4 layers of 32; a stack staged a coupling at a time,
+    held to a float64-summed witness only), within CPL_BF16_TOL
+    (`_bf16_case`); K4 and K5
+    twice with identical bits; bfloat16 storage's two K4 tiles with
+    identical bits; the policy's rows split into two launches with
+    identical bits. Then device times at CPL_TIMED beside the float32
+    kernels in this call."""
     from normalizingflows_torch.experimental import coupling_cuda as cc
 
     results = {f"{k}_{v}": {"err": 0.0, "ms_by_n": {}, "plain_ms_by_n": {},
                             "bound_ms_by_n": {}, "f32_ms_by_n": {}}
                for v in CPL_BF16_VARIANTS for k in CPL_KERNELS}
-    n_cmp = redrawn = 0
-    flips = leaf_ratio = 0.0
-    for variant, (dtype, cd) in CPL_BF16_VARIANTS.items():
-        tol = CPL_BF16_TOL[variant]
-        fb = _bf16_fused(RNVP_DEMO, variant)
-        d, depth = RNVP_DEMO["q0"], len(RNVP_DEMO["hdims"]) + 1
-        sels = cc._sels(fb.idx_even, fb.idx_odd, d)
-        leaves = cc._leaves(fb.groups)
-        for n in CPL_BF16_N:
-            x, draws = _off_kinks(cc, torch.randn(
-                (n, d), generator=gen, device=DEVICE, dtype=dtype),
-                fb.groups, sels, gen, cd)
-            redrawn += draws
-            gy = (torch.randn((n, d), generator=gen, device=DEVICE)
-                  / n).to(dtype)
-            gld = (torch.randn((n,), generator=gen, device=DEVICE)
-                   / n).to(dtype)
-            tag = f"{variant} demo N={n}"
-
-            def run(inverse):
-                xg = x.detach().requires_grad_()
-                y, ld = cc.coupling_stack_fused(
-                    xg, fb.groups, fb.idx_even, fb.idx_odd, inverse=inverse,
-                    backend="cuda", compute_dtype=cd)
-                return [y.detach(), ld.detach(), *torch.autograd.grad(
-                    (y, ld), [xg] + leaves, (gy, gld))]
-
-            for inverse in (False, True):
-                dr = "inv" if inverse else "fwd"
-                got, again = run(inverse), run(inverse)
-                for i, (a, b) in enumerate(zip(got, again)):
-                    _same(f"K4/K5 {dr} {tag} output {i}, two runs", a, b)
-                if any(t.dtype != dtype for t in got):
-                    raise AssertionError(f"{tag}: outputs not in {dtype}")
-                for lanes in (True, False):
-                    with fwd_tile(cc, lanes):
-                        y_t, ld_t = cc._launch_fwd(x, leaves, sels, depth,
-                                                   inverse, compute_dtype=cd)
-                    _same(f"K4 {dr} {tag} y, tile {lanes}", y_t, got[0])
-                    _same(f"K4 {dr} {tag} ld, tile {lanes}", ld_t, got[1])
-                y_p, ld_p = cc.tile_flow(x, fb.groups, sels, inverse, cd)
-                gx_p, tree = cc.tile_flow_bwd(x, fb.groups, gy, gld, sels,
-                                              inverse, cd)
-                e4 = max(compare(f"K4 {dr} y  {tag}", got[0], y_p, tol["y"]),
-                         compare(f"K4 {dr} ld {tag}", got[1], ld_p,
-                                 tol["ld"]))
-                gx_tol = tol.get("gx", tol["g"])
-                e5 = compare(f"K5 {dr} {tag} gx", got[2], gx_p,
-                             (gx_tol[0], gx_tol[1] / n))
-                wants = cc._leaves(tree)
-                for i, (a, b) in enumerate(zip(got[3:], wants)):
-                    scale = min(1.0, float(b.detach().abs().max()))
-                    e5 = max(e5, compare(f"K5 {dr} {tag} leaf {i}", a, b,
-                                         (tol["g"][0], tol["g"][1] * scale),
-                                         quiet=True))
-                n_cmp += len(got)
-                if cd is not None:
-                    shares = [_flipped_share(f"{nm} {dr} {tag}", a, b,
-                                             FLIP_SHARE)
-                              for nm, a, b in (("y", got[0], y_p),
-                                               ("ld", got[1], ld_p),
-                                               ("gx", got[2] * n, gx_p * n))]
-                    flips = max(flips, max(shares))
-                    leaf_ratio = max(leaf_ratio, _leaf_check(
-                        cc, fb, x, gy, gld, sels, inverse, got[3:], wants,
-                        f"{dr} {tag}"))
-                for k, e in (("coupling_fwd", e4), ("coupling_bwd", e5)):
-                    r = results[f"{k}_{variant}"]
-                    r["err"] = max(r["err"], e)
+    seen = dict(n_cmp=0, redrawn=0, split=0, flips=0.0, leaf_ratio=0.0,
+                witness={}, controls={}, witness_failed=[], ref={})
+    cases = [(v, RNVP_DEMO, n) for v in CPL_BF16_VARIANTS
+             for n in CPL_BF16_N] + [("f32_cbf16", RNVP_REF, n)
+                                     for n in (RNVP_REF_BATCH, CPL_REF_N)] + [
+        ("f32_cbf16", RNVP_DEEP, CPL_DEEP_N)]
+    for variant, cfg, n in cases:
+        _bf16_case(cc, variant, cfg, n, gen, results, seen)
     torch.cuda.synchronize()
-    say(47, f"K4/K5 bfloat16: {n_cmp} comparisons with the plain versions "
-            f"within tolerance (policy and bfloat16 storage, forward and "
-            f"inverse, N {CPL_BF16_N}); under the policy at most "
-            f"{100 * flips:.4f} % of y, ld and gx outside {FLIP_TOL}, and "
-            f"its weight gradients at most {leaf_ratio:.1f} times float32's "
-            f"error (LEAF_FACTOR {LEAF_FACTOR}); K4 and "
-            f"K5 identical bits on two runs, K4's lane and row tiles "
-            f"identical bits; {redrawn} rows drawn again off the kink")
+    for key, mine in seen["witness"].items():
+        say(47, f"policy {key}: the kernels' relative L2 error at most "
+                + ", ".join(f"{nm} {r:.2f}" for nm, r in mine.items())
+                + " times the float64-summed witness's; the faulty controls' "
+                  "largest, their least over the cases: "
+                + ", ".join(f"{nm} {r:.2f}" for nm, r in
+                            seen["controls"][key].items())
+                + f" (DEEP_WITNESS_FACTOR {DEEP_WITNESS_FACTOR})")
+    for n, ref in seen["ref"].items():
+        say(47, f"policy ref N={n}: at most {100 * ref['flips']['kernel']:.4f}"
+                f" % of y, ld and gx outside {FLIP_TOL} (the float64-summed "
+                f"witness {100 * ref['flips']['witness']:.4f} %), weight "
+                f"gradients at most {ref['leaf_ratio']['kernel']:.1f} times "
+                f"float32's error (the witness "
+                f"{ref['leaf_ratio']['witness']:.1f}): readings")
+    if seen["witness_failed"]:
+        raise AssertionError("; ".join(seen["witness_failed"]))
+    say(47, f"K4/K5 bfloat16: {seen['n_cmp']} comparisons with the plain "
+            f"versions within tolerance (policy and bfloat16 storage, "
+            f"forward and inverse, demo N {CPL_BF16_N}, the policy also on "
+            f"the reference default at N {RNVP_REF_BATCH} and {CPL_REF_N} "
+            f"(the latter held to the float64-summed witness too) and on "
+            f"d=8 {RNVP_DEEP['hdims']}x{RNVP_DEEP['nlayers']} N={CPL_DEEP_N}"
+            f" (to the witness only)); under "
+            f"the policy at most {100 * seen['flips']:.4f} % of y, ld and gx "
+            f"outside {FLIP_TOL}, and its weight gradients at most "
+            f"{seen['leaf_ratio']:.1f} times float32's error (LEAF_FACTOR "
+            f"{LEAF_FACTOR}); K4 and K5 identical bits on two runs, the "
+            f"policy's rows split into two launches identical bits "
+            f"({seen['split']} cases, N {CPL_SPLIT_N}), bfloat16 storage's "
+            f"lane and row tiles identical bits; {seen['redrawn']} rows "
+            f"drawn again off the kink")
 
     for model, n in CPL_TIMED:
         cfg = CPL_CFG[model]
@@ -4504,10 +4769,11 @@ def _rnvp_wide(cd, seed=48):
                        **RNVP_WIDE)
 
 
-def _rates_in_turns(phase, label, make, train_rate, per_step, name):
+def _rates_in_turns(phase, label, make, train_rate, per_step, name,
+                    chunk=RATE_CHUNK):
     """Steps/s of the default graphed run (`elbo_batch`, the generator's
     draws) of the policy and float32 flows in turns (policy, float32,
-    float32, policy), over chunks 2-3 of RATE_CHUNK steps, with the launch
+    float32, policy), over chunks 2-3 of ``chunk`` steps, with the launch
     counts ``per_step[cd]`` a step."""
     rates = {"bf16": [], "f32": []}
     for key in ("bf16", "f32", "f32", "bf16"):
@@ -4516,10 +4782,10 @@ def _rates_in_turns(phase, label, make, train_rate, per_step, name):
         reset_counts()
         _, _, steady = _stamped(lambda cb: train_rate(flow, cb))
         expect_counts(f"phase {phase}, {label} {key}, timed",
-                      **{k: v * 3 * RATE_CHUNK
+                      **{k: v * 3 * chunk
                          for k, v in per_step[key].items()})
         rates[key].append(steady)
-    say(phase, f"{label}, graphed, steps/s over chunks 2-3 of {RATE_CHUNK} "
+    say(phase, f"{label}, graphed, steps/s over chunks 2-3 of {chunk} "
                f"steps, in turns (policy, float32, float32, policy): policy "
                f"{rates['bf16'][0]:.1f}, {rates['bf16'][1]:.1f}; float32 "
                f"{rates['f32'][0]:.1f}, {rates['f32'][1]:.1f}, on {name}")
@@ -4970,19 +5236,63 @@ def phase_bf16_params(gen, name):
     return out, counts
 
 
+def _policy_sampling(flow, name):
+    """`sample_and_log_prob` at SAMPLE_BATCH rows under the policy, K4 once
+    a call (samples/s over SAMPLE_REPS calls), and the round trip
+    `log_prob(y)` through K4's inverse, once, against its value within the
+    policy's elementwise bound (CPL_BF16_TOL's ld, JAX's 0.05): the
+    inverse recovers each coupling's input to float32 roundoff, and a
+    bfloat16 rounding of the next coupling's x_B can flip on it (on the
+    card, 9 of 262,144 log-densities of the trained demo past float32's
+    ROUND_TRIP_TOL)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(51)
+    with torch.no_grad():
+        flow.sample_and_log_prob(gen, (SAMPLE_BATCH,))  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLE_REPS):
+            y, lq = flow.sample_and_log_prob(gen, (SAMPLE_BATCH,))
+        torch.cuda.synchronize()
+        rate = SAMPLE_REPS * SAMPLE_BATCH / (time.perf_counter() - t0)
+        expect_counts("phase 51, sampling under the policy",
+                      coupling_fwd_f32_cbf16=SAMPLE_REPS)
+        if y.shape != (SAMPLE_BATCH, 2) or not bool(torch.isfinite(y).all()):
+            raise AssertionError("phase 51: samples are not finite "
+                                 f"({SAMPLE_BATCH}, 2)")
+        reset_counts()
+        lp = flow.log_prob(y)
+        expect_counts("phase 51, log_prob under the policy",
+                      coupling_fwd_f32_cbf16=1)
+    e = compare("phase 51: log_prob(y) vs sample_and_log_prob, bf16 policy",
+                lp, lq, CPL_BF16_TOL["f32_cbf16"]["ld"])
+    say(51, f"sample_and_log_prob under the policy, batch {SAMPLE_BATCH}, "
+            f"{SAMPLE_REPS} calls (one K4 each): {rate:.4g} samples/s; the "
+            f"round trip through K4's inverse: max abs err {e:.3e}, on "
+            f"{name}")
+    return {"samples_per_s": rate, "round_trip_err": e}
+
+
 def phase_fused_policy(name):
     """Phase 51: the fused RealNVP demo under the bf16 policy
     (`realnvp(2, (16, 16), nlayers=3, fused=True,
     compute_dtype=bfloat16)`, Banana(2, 1, 100), 16 samples, Adam(5e-4)),
     RNVP_STEPS graphed steps and POLICY_FUSED_EAGER eager, one K4 and one
     K5 `_f32_cbf16` a step; graphed against eager on the same draws,
-    identical bits (strict)."""
+    identical bits (strict); the reference default under the policy
+    ([32,32]x10, batch 256, the H = 32 tile), RNVP_REF_STEPS graphed and
+    eager; `sample_and_log_prob` at SAMPLE_BATCH under the policy (K4 once
+    a call) and its round trip; the demo's graphed steps/s in turns against
+    the float32 fused demo; the profiles of the demo and the reference
+    default under the policy after every other phase."""
     import normalizingflows_torch as nft
 
     target = nft.Banana(2, 1.0, 100.0)
-    make = lambda: nft.realnvp(  # noqa: E731
-        torch.Generator().manual_seed(51), fused=True,
-        compute_dtype=torch.bfloat16, **RNVP_DEMO)
+    policy = dict(coupling_fwd_f32_cbf16=1, coupling_bwd_f32_cbf16=1)
+
+    def make(cd=torch.bfloat16, cfg=RNVP_DEMO, seed=51):
+        return nft.realnvp(torch.Generator().manual_seed(seed), fused=True,
+                           compute_dtype=cd, **cfg)
 
     def train(flow, graph, callback):
         steps = RNVP_STEPS if graph else POLICY_FUSED_EAGER
@@ -4994,8 +5304,7 @@ def phase_fused_policy(name):
 
     out = {"realnvp_demo_bf16": _graph_and_eager(
         51, "fused RealNVP demo, bf16 policy", make, train, RNVP_STEPS,
-        dict(coupling_fwd_f32_cbf16=1, coupling_bwd_f32_cbf16=1), name,
-        eager_steps=POLICY_FUSED_EAGER)}
+        policy, name, eager_steps=POLICY_FUSED_EAGER)}
 
     def same_inputs(flow, graph):
         return nft.train_flow(
@@ -5012,7 +5321,48 @@ def phase_fused_policy(name):
     losses = out["realnvp_demo_bf16"]["graph"]["res"].stats["loss"]
     if not losses[-100:].mean() < losses[:100].mean():
         raise AssertionError("phase 51: the loss did not fall")
-    return out
+
+    def train_ref(flow, graph, callback, steps=RNVP_REF_STEPS):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(52), nft.elbo_batch,
+            flow, target.log_prob, RNVP_REF_BATCH, max_iters=steps,
+            check_every=steps // 2, callback=callback,
+            optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_LR), graph=graph)
+
+    out["realnvp_ref_bf16"] = _graph_and_eager(
+        51, "reference default, bf16 policy",
+        lambda: make(cfg=RNVP_REF, seed=52), train_ref, RNVP_REF_STEPS,
+        policy, name)
+    sampling = _policy_sampling(out["realnvp_demo_bf16"]["graph"]["flow"],
+                                name)
+
+    def rate(flow, cb):
+        return nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(53), nft.elbo_batch,
+            flow, target.log_prob, RNVP_BATCH,
+            max_iters=3 * POLICY_RATE_CHUNK, check_every=POLICY_RATE_CHUNK,
+            callback=cb, optimizer=lambda p: torch.optim.Adam(p, lr=RNVP_LR))
+
+    rates = _rates_in_turns(
+        51, "fused RealNVP demo", lambda cd: make(cd), rate,
+        {"bf16": policy, "f32": dict(coupling_fwd=1, coupling_bwd=1)}, name,
+        chunk=POLICY_RATE_CHUNK)
+
+    def profiled(cfg, batch, seed):
+        return lambda p, cb: nft.train_flow(
+            torch.Generator(device=DEVICE).manual_seed(seed), nft.elbo_batch,
+            make(cfg=cfg, seed=seed), target.log_prob, batch,
+            max_iters=2 * p, check_every=p, callback=cb,
+            optimizer=lambda q: torch.optim.Adam(q, lr=RNVP_LR))
+
+    return out, {"cell": "realnvp_demo_bf16", "numbers": {
+        "sampling": sampling, "graph_steady_in_turns": rates},
+        "profile": lambda: {
+            "demo": profile_cell(51, "fused RealNVP demo, bf16 policy", 100,
+                                 profiled(RNVP_DEMO, RNVP_BATCH, 54), name),
+            "ref": profile_cell(51, "reference default, bf16 policy", 20,
+                                profiled(RNVP_REF, RNVP_REF_BATCH, 55),
+                                name)}}
 
 
 # ---------------------------------------------------------------------------
@@ -5695,7 +6045,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     if 2 in phases:
-        report, estimate = phase_build()
+        report, estimate, hmma = phase_build()
     if 3 in phases:
         kernels = phase_kernels(gen)
     if 4 in phases:
@@ -5784,7 +6134,7 @@ def main(argv=None) -> int:
         demos = phase_demos(name)
     if 45 in phases:
         parity_rows, parity_seconds = phase_parity_quick(name)
-    bf16 = {}  # phases 48-49's cells and their numbers
+    bf16 = {}  # phases 48, 49 and 51's cells and their numbers
     if 46 in phases:
         rqs16 = phase_rqs_bf16(gen)
     if 47 in phases:
@@ -5796,7 +6146,7 @@ def main(argv=None) -> int:
     if 50 in phases:
         params16, params16_counts = phase_bf16_params(gen, name)
     if 51 in phases:
-        fused16 = phase_fused_policy(name)
+        bf16[51] = phase_fused_policy(name)
     k6 = {}  # phases 52-54
     if 52 in phases:
         k6["err_by_target"] = phase_train_targets(gen)
@@ -5887,8 +6237,6 @@ def main(argv=None) -> int:
             info["numbers"], profiled=info["profiled"])
     if 50 in phases:
         bf16_line["bf16_parameters_50"] = params16
-    if 51 in phases:
-        bf16_line.update(graph_cells(51, fused16))
     if bf16_line:
         print(json.dumps({"bf16": bf16_line}), flush=True)
     if k6:
@@ -5940,7 +6288,7 @@ def main(argv=None) -> int:
                  bf16[49][0]["nsf_wide_bf16_remat"]["graph"]["counts"],
              "mle_demo_bf16_graph": bf16[49][1]["numbers"]["mle_counts"],
              "realnvp_demo_bf16_graph":
-                 fused16["realnvp_demo_bf16"]["graph"]["counts"],
+                 bf16[51][0]["realnvp_demo_bf16"]["graph"]["counts"],
              **{f"{label}_bf16_config_graph": c
                 for label, c in params16_counts.items()},
              **{f"realnvp_train_{kind}_demo": c
@@ -5976,6 +6324,14 @@ def main(argv=None) -> int:
         registers={k: regs for k, regs, _, _ in sorted(set(report))
                    if k.startswith("rqs_fwd<")},
         static_issue_estimate=estimate)
+    # the bf16 policy's tensor-core kernels: their registers and HMMA
+    # instructions (phase 2)
+    for k in CPL_KERNELS:
+        mma = f"{k}_mma<"
+        cpl16[f"{k}_f32_cbf16"].update(
+            registers={n: regs for n, regs, _, _ in sorted(set(report))
+                       if n.startswith(mma)},
+            hmma={n: c for n, c in hmma.items() if n.startswith(mma)})
 
     def entry(k, source, r, extra):
         return {"name": k, "route": "cuda",
@@ -6013,8 +6369,10 @@ def main(argv=None) -> int:
         entry(k, "rqs_bf16.cu", r, ("ms_by_n", "plain_ms_by_n",
                                     "bound_ms_by_n", "cold_ms"))
         for k, r in rqs16.items()] + [
-        entry(k, "coupling_bf16.cu", r, ("ms_by_n", "plain_ms_by_n",
-                                         "bound_ms_by_n", "f32_ms_by_n"))
+        entry(k, "coupling_mma.cuh" if k.endswith("_f32_cbf16")
+              else "coupling_bf16.cu", r,
+              ("ms_by_n", "plain_ms_by_n", "bound_ms_by_n", "f32_ms_by_n",
+               "registers", "hmma"))
         for k, r in cpl16.items()]}),
           flush=True)
     print(device_line, flush=True)

@@ -107,41 +107,22 @@ __device__ __forceinline__ double ex(double v) { return exp(v); }
 __device__ __forceinline__ float th(float v) { return tanhf(v); }
 __device__ __forceinline__ double th(double v) { return tanh(v); }
 
-// How a kernel stores and rounds, its template parameter P (csrc/coupling.cu
-// and csrc/train.cu instantiate Exact<float> and Exact<double>,
-// csrc/coupling_bf16.cu the other two, csrc/train_bf16.cu Bf16Storage): P::S stores x, the weights and every output in device memory,
-// T (the kernel's type) is the arithmetic and what shared memory holds;
-// with P::kRound every conditioner product rounds both operands to
-// bfloat16 before it multiplies (the bf16 compute_dtype policy, the
-// Pallas kernels' `_dot(a, b, cd)`: bfloat16 operands, float32 sums). The
-// bias adds, activations, selections and the coupling's own arithmetic
-// are not rounded. Bf16Storage (bfloat16 parameters) widens what it reads
-// and rounds each output once; its partial weight gradients stay float32
-// until the reduce writes them.
+// How a kernel stores, its template parameter P (csrc/coupling.cu and
+// csrc/train.cu instantiate Exact<float> and Exact<double>,
+// csrc/coupling_bf16.cu and csrc/train_bf16.cu Bf16Storage): P::S stores
+// x, the weights and every output in device memory, T (the kernel's type)
+// is the arithmetic and what shared memory holds. Bf16Storage (bfloat16
+// parameters) widens what it reads and rounds each output once; its
+// partial weight gradients stay float32 until the reduce writes them. (The
+// bf16 compute_dtype policy has kernels of its own, on the tensor cores:
+// csrc/coupling_mma.cuh.)
 template <typename T>
 struct Exact {
   using S = T;
-  static constexpr bool kRound = false;
-};
-struct Bf16Operands {
-  using S = float;
-  static constexpr bool kRound = true;
 };
 struct Bf16Storage {
   using S = __nv_bfloat16;
-  static constexpr bool kRound = false;
 };
-
-// a conditioner product's operand under P. The weights are rounded once,
-// as they are staged (`stage`, `lane_staged_word`, `stage_layer`: W, not
-// b), a layer's input and cotangent once a layer in registers; only the
-// weight gradient's batch sum rounds both operands at each use, since the
-// caches hold the unrounded values the slopes and bias gradients need.
-template <typename P, typename T>
-__device__ __forceinline__ T opnd(T v) {
-  if constexpr (P::kRound) return __bfloat162float(__float2bfloat16_rn(v));
-  else return v;
-}
 // a stored word widened to the arithmetic's T, and T rounded (to nearest
 // even) to the stored type
 template <typename T, typename S>
@@ -223,7 +204,7 @@ __device__ void stage(const Stack& st, int g, int blk, T* w) {
         T v = T(0);
         if (e < ib * ob) {
           const int k = e / ob, j = e - (e / ob) * ob;
-          if (k < in && j < o) v = opnd<P>(widen<T>(W[k * o + j]));
+          if (k < in && j < o) v = widen<T>(W[k * o + j]);
         } else if (e - ib * ob < o) {
           v = widen<T>(b[e - ib * ob]);
         }
@@ -255,8 +236,8 @@ __device__ __forceinline__ T lane_staged_word(const Stack& st, int g,
   if (e < ib * os) {
     const int k = e / os, j = e - (e / os) * os;
     return (k < in && j < o)
-               ? opnd<P>(widen<T>(static_cast<const S*>(
-                     st.W[g][net][l])[(int64_t)blk * in * o + k * o + j]))
+               ? widen<T>(static_cast<const S*>(
+                     st.W[g][net][l])[(int64_t)blk * in * o + k * o + j])
                : T(0);
   }
   e -= ib * os;
@@ -294,8 +275,8 @@ __device__ void lane_stage(const Stack& st, int g, int blk, T* w) {
 // then b (o of OS − PAD words) into w by cp.async, the padding zero-filled.
 // Thread t copies words t, t + T, ... walking the padded (row, column) by
 // running counters; OS is a constant, so the divisions are cheap. Stored
-// bfloat16 words (widened) and the policy's rounded W go by a load and a
-// store instead: cp.async copies bytes as they are.
+// bfloat16 words (widened) go by a load and a store instead: cp.async
+// copies bytes as they are.
 template <typename T, int OS, int PAD, typename P = Exact<T>>
 __device__ __forceinline__ void stage_layer(T* w, const typename P::S* W,
                                             const typename P::S* b, int ib,
@@ -306,11 +287,11 @@ __device__ __forceinline__ void stage_layer(T* w, const typename P::S* W,
   int k = tid / OS, j = tid - k * OS;
   for (int e = tid; e < size; e += nt) {
     const bool valid = j < o && (k < in || k == ib);
-    if constexpr (sizeof(typename P::S) == sizeof(T) && !P::kRound) {
+    if constexpr (sizeof(typename P::S) == sizeof(T)) {
       cp_word(w + e, valid ? (k < ib ? W + k * o + j : b + j) : W, valid);
     } else {
       T v = T(0);
-      if (valid) v = k < ib ? opnd<P>(widen<T>(W[k * o + j])) : widen<T>(b[j]);
+      if (valid) v = k < ib ? widen<T>(W[k * o + j]) : widen<T>(b[j]);
       w[e] = v;
     }
     j += dj;
@@ -384,15 +365,9 @@ __device__ __forceinline__ void scatter(const T (&src)[kHalf],
 
 // z = h @ W + b on one row; W (IB, OB) row-major then b (OB) in shared
 // memory. The product is summed over k in order, then the bias added.
-// Under P's rounding h is rounded in place first (the caller has cached
-// it and overwrites it with the next activation) and W was at staging.
 template <typename T, int H, int IB, int OB, typename P = Exact<T>>
 __device__ __forceinline__ void dense(const T* W, T (&h)[H], T (&z)[H]) {
   constexpr int V = 16 / sizeof(T);
-  if constexpr (P::kRound) {
-#pragma unroll
-    for (int k = 0; k < IB; ++k) h[k] = opnd<P>(h[k]);
-  }
 #pragma unroll
   for (int j = 0; j < OB; ++j) z[j] = T(0);
 #pragma unroll
@@ -595,7 +570,7 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
       const T* hk = h_in + k * kRowStride;
       const T* gj = gbuf + j * kRowStride;
       for (int r = 0; r < kRowTileRows; ++r)
-        acc = acc + opnd<P>(hk[r]) * opnd<P>(gj[r]);
+        acc = acc + hk[r] * gj[r];
       dst = offW + e;
     } else {
       const T* gj = gbuf + (e - n_w) * kRowStride;
@@ -604,12 +579,7 @@ __device__ __forceinline__ void layer_bwd(const Stack& st, int g, int net,
     }
     part[dst] = first ? acc : part[dst] + acc;
   }
-  // the row's input cotangent G·Wᵀ, a row of W in 16-byte loads (under
-  // P's rounding G rounded here, W at staging; gbuf keeps G unrounded)
-  if constexpr (P::kRound) {
-#pragma unroll
-    for (int j = 0; j < OB; ++j) gc[j] = opnd<P>(gc[j]);
-  }
+  // the row's input cotangent G·Wᵀ, a row of W in 16-byte loads
   T gn[H];
 #pragma unroll
   for (int k = 0; k < H; ++k) gn[k] = T(0);
@@ -780,10 +750,9 @@ template <typename T, int H, int IB, int OB, typename P = Exact<T>>
 __device__ __forceinline__ T lane_dense(const T* W, T h, int u) {
   constexpr int S = OB + 1;
   const int j = u < OB ? u : 0;
-  const T hr = opnd<P>(h);  // W was rounded at staging
   T z = T(0);
 #pragma unroll
-  for (int k = 0; k < IB; ++k) z = z + lane<H>(hr, k) * W[k * S + j];
+  for (int k = 0; k < IB; ++k) z = z + lane<H>(h, k) * W[k * S + j];
   z = z + W[IB * S + j];
   return u < OB ? z : T(0);
 }
@@ -886,7 +855,7 @@ __device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
       const int k = e / o, j = e - (e / o) * o;
 #pragma unroll 8
       for (int r = 0; r < rows; ++r)
-        acc = acc + opnd<P>(h_in[r * IB + k]) * opnd<P>(gbuf[r * H + j]);
+        acc = acc + h_in[r * IB + k] * gbuf[r * H + j];
       dst = offW + e;
     } else {
       const int j = e - n_w;
@@ -897,10 +866,9 @@ __device__ __forceinline__ T lane_layer_bwd(const Stack& st, int g, int net,
     part[dst] = first ? acc : part[dst] + acc;
   }
   const int k = u < IB ? u : 0;
-  const T gcr = opnd<P>(gc);  // W was rounded at staging
   T gn = T(0);
 #pragma unroll
-  for (int j = 0; j < OB; ++j) gn = gn + lane<H>(gcr, j) * W[k * S + j];
+  for (int j = 0; j < OB; ++j) gn = gn + lane<H>(gc, j) * W[k * S + j];
   __syncthreads();  // gbuf is the next layer's
   return u < IB ? gn : T(0);
 }

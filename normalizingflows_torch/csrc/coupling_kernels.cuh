@@ -1,8 +1,9 @@
 // Fused RealNVP coupling-stack kernels for Hopper (sm_90a): the kernels
-// and their launchers, templated on the arithmetic T and the storage and
-// rounding policy P (csrc/coupling_device.cuh). The C entries are in
-// csrc/coupling.cu (float32, float64) and csrc/coupling_bf16.cu (the bf16
-// compute_dtype policy and bfloat16 parameters), built side by side.
+// and their launchers, templated on the arithmetic T and the storage
+// policy P (csrc/coupling_device.cuh). The C entries are in csrc/coupling.cu
+// (float32, float64) and csrc/coupling_bf16.cu (bfloat16 parameters), built
+// side by side; the bf16 compute_dtype policy's kernels, on the tensor
+// cores, are in csrc/coupling_mma.cuh, which reuses coupling_bwd_reduce.
 //
 // What each entry replaces (normalizingflows/jl_tpu/experimental/
 // coupling_pallas.py):
@@ -37,9 +38,10 @@
 // (x in, y and ld out); K5 about four times that against 2d+1 words in and
 // d out, plus the weight gradients. Both are far above the H100's balance
 // point of ~20 flop/byte, so the bound is the CUDA cores' float32
-// (float64) rate; no tensor cores in this version. The main paths run 16
-// to 256 rows, too few to fill the card, so what the time follows there is
-// how long one row's chain of dependent operations is.
+// (float64) rate: the tensor cores would need TF32, another function (the
+// bf16 policy's products are theirs: csrc/coupling_mma.cuh). The main
+// paths run 16 to 256 rows, too few to fill the card, so what the time
+// follows there is how long one row's chain of dependent operations is.
 //
 // Shared by both: layer widths are padded to compile-time bounds, so
 // register arrays are never indexed at run time: a coupling's n_A and n_B
@@ -385,6 +387,37 @@ int launch_bwd_h(const typename P::S* x, const typename P::S* gy,
   return (int)cudaGetLastError();
 }
 
+// The gradient leaves' pointers and flat offsets, in the JAX pytree's order,
+// into gt; returns the stack's weight count.
+inline int64_t grad_table(const Stack& st, void* const* grads,
+                          GradTable& gt) {
+  gt = GradTable{};
+  gt.n_leaves = 8 * st.depth;
+  for (int g = 0; g < 2; ++g)
+    for (int net = 0; net < 2; ++net)
+      for (int l = 0; l < st.depth; ++l) {
+        const int leaf = ((g * 2 + net) * st.depth + l) * 2;
+        gt.ptr[leaf] = grads[leaf];
+        gt.ptr[leaf + 1] = grads[leaf + 1];
+        gt.off[leaf] = st.leaf_off[g][net][l][0];
+        gt.off[leaf + 1] = st.leaf_off[g][net][l][1];
+      }
+  const int64_t n_params = n_params_of(st);
+  gt.off[gt.n_leaves] = n_params;
+  return n_params;
+}
+
+// K5's second pass over n_ctas partial slices
+template <typename T, typename S>
+int launch_reduce(const T* scratch, int n_ctas, int64_t n_params,
+                  const GradTable& gt, cudaStream_t cs) {
+  const unsigned grid =
+      (unsigned)((n_params + kReduceThreads - 1) / kReduceThreads);
+  coupling_bwd_reduce<T, S><<<grid, kReduceThreads, 0, cs>>>(
+      scratch, n_ctas, n_params, gt);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename P = Exact<T>>
 int launch_bwd(const void* x, const void* gy, const void* gld, void* gx,
                void* scratch, int64_t n, int d, int n_blocks, int depth,
@@ -396,20 +429,8 @@ int launch_bwd(const void* x, const void* gy, const void* gld, void* gx,
   if (err) return err;
   if (n <= 0) return 0;
 
-  GradTable gt{};
-  gt.n_leaves = 8 * depth;
-  for (int g = 0; g < 2; ++g)
-    for (int net = 0; net < 2; ++net)
-      for (int l = 0; l < depth; ++l) {
-        const int leaf = ((g * 2 + net) * depth + l) * 2;
-        gt.ptr[leaf] = grads[leaf];
-        gt.ptr[leaf + 1] = grads[leaf + 1];
-        gt.off[leaf] = st.leaf_off[g][net][l][0];
-        gt.off[leaf + 1] = st.leaf_off[g][net][l][1];
-      }
-  const int64_t n_params = n_params_of(st);
-  gt.off[gt.n_leaves] = n_params;
-
+  GradTable gt;
+  const int64_t n_params = grad_table(st, grads, gt);
   const auto cs = static_cast<cudaStream_t>(stream);
   using S = typename P::S;
   const auto xp = static_cast<const S*>(x);
@@ -422,11 +443,7 @@ int launch_bwd(const void* x, const void* gy, const void* gld, void* gx,
                 : launch_bwd_h<T, 32, P>(xp, gyp, glp, gxp, sp, n, n_params,
                                          st, n_ctas, inverse, cs);
   if (err) return err;
-  const unsigned grid =
-      (unsigned)((n_params + kReduceThreads - 1) / kReduceThreads);
-  coupling_bwd_reduce<T, S><<<grid, kReduceThreads, 0, cs>>>(sp, n_ctas,
-                                                             n_params, gt);
-  return (int)cudaGetLastError();
+  return launch_reduce<T, S>(sp, n_ctas, n_params, gt, cs);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // cp.async copies from device memory into shared memory, and their commit
-// and wait: K1's staged tile (csrc/rqs.cu) and K4's weight slots
-// (csrc/coupling_device.cuh). A copy in flight holds no register.
+// and wait: K1's staged tile (csrc/rqs.cu), K4's weight slots
+// (csrc/coupling_device.cuh) and the bf16 policy's landing ring
+// (csrc/coupling_mma.cuh). A copy in flight holds no register.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -31,6 +32,11 @@ __device__ __forceinline__ void cp_commit() {
 // every cp.async group this thread committed has landed
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every group but the one committed last has landed
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 }  // namespace

@@ -48,10 +48,21 @@ bfloat16 (``csrc/coupling_bf16.cu``): under the bf16 ``compute_dtype``
 policy (float32 x and weights) every conditioner product rounds its
 operands to bfloat16 and accumulates in float32, as the Pallas kernels'
 `_dot(a, b, cd)` does, forward and backward; the selections stay exact.
-With bfloat16 parameters (x and weights bfloat16, no policy) the kernels
-read bfloat16, compute in float32 and round each output once (y, ld, gx,
-the weight gradients), where the Pallas kernel computes in bfloat16. The
-plain versions do the same, in cuBLAS's summation order.
+That is what Hopper's tensor cores compute, so the policy's K4 and K5 are
+kernels of their own (``csrc/coupling_mma.cuh``, replacing `_fwd_kernel`
+and `_bwd_kernel` under ``compute_dtype``): one warp a tile of 16 rows,
+every conditioner product an ``mma.sync`` m16n8k16 whose float32 output
+fragments, through bias and leaky ReLU, become the next layer's bfloat16
+operand in registers; K5 takes the weight gradients over a CTA's rows as
+the product's k. What bounds them is the float32 work around the products
+and, at 16 to 256 rows, one tile's chain. `mma_plan` asks the built
+library for their rows a CTA (16 a warp, four warps) and shared memory:
+the whole stack staged once where it fits, else a coupling at a time.
+With bfloat16 parameters
+(x and weights bfloat16, no policy) the kernels read bfloat16, compute in
+float32 and round each output once (y, ld, gx, the weight gradients),
+where the Pallas kernel computes in bfloat16. The plain versions do the
+same, in cuBLAS's summation order.
 
 The weights are the JAX ``groups`` pytree: ``groups['even'|'odd']['s'|'t']
 [layer]`` is ``(W (n_blocks, in, out), b (n_blocks, out))``, as dicts and
@@ -74,7 +85,8 @@ from ..ops.masks import cached_index
 
 __all__ = [
     "coupling_stack_fused", "tile_flow", "tile_flow_bwd", "fwd_plan",
-    "FwdPlan", "KERNEL_MAX_D", "KERNEL_TYPES", "word_of",
+    "FwdPlan", "mma_plan", "MmaPlan", "KERNEL_MAX_D",
+    "KERNEL_TYPES", "word_of",
     "KERNEL_MAX_WIDTH", "KERNEL_MAX_DEPTH", "KERNEL_MAX_SMEM",
 ]
 
@@ -472,6 +484,28 @@ def fwd_plan(n_blocks: int, depth: int, hidden: int, word: int,
                    stack if resident else word * 2 * 2 * net)
 
 
+class MmaPlan(NamedTuple):
+    """How the policy's K4 or K5 runs: ``rows`` rows a CTA, in ``bytes``
+    of dynamic shared memory."""
+    rows: int
+    bytes: int
+
+
+def mma_plan(d: int, n_blocks: int, depth: int, widths,
+             backward: bool = False) -> MmaPlan:
+    """The policy's K4 (or with ``backward`` K5) plan for a stack of the C
+    interface's ``widths``, from the built library (`coupling_mma_plan`:
+    the layout its launches take). Past KERNEL_MAX_SMEM only where K5's
+    saved inputs do not fit."""
+    from ..ops._build import library
+
+    out = (ctypes.c_longlong * 2)()
+    _raise_on(library().coupling_mma_plan(
+        d, n_blocks, depth, (ctypes.c_int * len(widths))(*widths),
+        int(backward), out), "coupling_mma_plan")
+    return MmaPlan(*out)
+
+
 def _hidden_of(widths, depth: int) -> int:
     """The widest hidden layer of the C interface's widths array."""
     return max(widths[g * (depth + 1) + l] for g in (0, 1)
@@ -510,19 +544,27 @@ def _kernel_args(x, leaves, sels, depth, backward=False, train_batch=None,
             f"{KERNEL_MAX_D}, widths <= {KERNEL_MAX_WIDTH}, 2 <= depth <= "
             f"{KERNEL_MAX_DEPTH}): d={d}, widths={widths}, depth={depth}")
     typed = x.dtype in (torch.float32, torch.float64, torch.bfloat16)
-    if train_batch is None and typed:
-        need = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
-                        word_of(x.dtype), n).bytes
+    n_blocks, hidden = leaves[0].shape[0], _hidden_of(widths, depth)
+    # the policy's K4 needs at most one coupling's slot and its rows (its
+    # largest need is far below the cap); its K5 holds every coupling's
+    # input, so the blocks it takes are capped
+    policy = compute_dtype is not None and train_batch is None
+    if train_batch is None and typed and not policy:
+        need = fwd_plan(n_blocks, depth, hidden, word_of(x.dtype), n).bytes
         if need > KERNEL_MAX_SMEM:
             raise ValueError(
                 f"the forward's two staged couplings need {need} bytes of "
                 f"shared memory at depth {depth} in {x.dtype}, over the "
                 f"{KERNEL_MAX_SMEM} a block may use")
     if backward and typed:
-        word, n_blocks = word_of(x.dtype), leaves[0].shape[0]
-        rows, need = _bwd_tile(
-            d, n_blocks, depth, _hidden_of(widths, depth), word,
-            n if train_batch is None else train_batch, train_batch is not None)
+        word = word_of(x.dtype)
+        if policy:
+            rows, need = mma_plan(d, n_blocks, depth, widths, True)
+        else:
+            rows, need = _bwd_tile(
+                d, n_blocks, depth, hidden, word,
+                n if train_batch is None else train_batch,
+                train_batch is not None)
         if need > KERNEL_MAX_SMEM:
             cap = n_blocks - -(-(need - KERNEL_MAX_SMEM)
                                // (2 * rows * d * word))
@@ -565,7 +607,8 @@ def _raise_on(err: int, name: str):
 
 def _launch_fwd(x, leaves, sels, depth, inverse, backward=False,
                 compute_dtype=None):
-    """K4 on x (n, d) contiguous, on the tile `fwd_plan` picks.
+    """K4 on x (n, d) contiguous, on the tile `fwd_plan` picks (under the
+    policy its one tile, which the C entry sizes itself).
     ``backward``: K5 will follow, so its bounds are checked before K4
     runs."""
     from ..ops._build import library
@@ -576,13 +619,14 @@ def _launch_fwd(x, leaves, sels, depth, inverse, backward=False,
     y, ld = torch.empty_like(x), x.new_empty(n)
     if n == 0:
         return y, ld
-    plan = fwd_plan(leaves[0].shape[0], depth, _hidden_of(widths, depth),
-                    word_of(x.dtype), n)
+    lanes = compute_dtype is None and fwd_plan(
+        leaves[0].shape[0], depth, _hidden_of(widths, depth),
+        word_of(x.dtype), n).lanes
     with torch.cuda.device(x.device):
         err = getattr(library(), f"coupling_fwd_{sfx}")(
             x.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d,
             leaves[0].shape[0], depth, widths, idx, _pointers(leaves),
-            int(plan.lanes), int(inverse),
+            int(lanes), int(inverse),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "coupling_fwd")
     launches.count(launches.name_of("coupling_fwd", sfx))
@@ -604,8 +648,10 @@ def _launch_bwd(x, leaves, gy, gld, sels, depth, inverse,
     grads = [torch.empty_like(t) for t in leaves]
     if n == 0:
         return gx, [g.zero_() for g in grads]
-    rows, _ = _bwd_tile(d, leaves[0].shape[0], depth,
-                        _hidden_of(widths, depth), word_of(x.dtype), n)
+    rows = (mma_plan(d, leaves[0].shape[0], depth, widths, True).rows
+            if compute_dtype is not None else
+            _bwd_tile(d, leaves[0].shape[0], depth, _hidden_of(widths, depth),
+                      word_of(x.dtype), n)[0])
     n_ctas = min(-(-n // rows), BWD_MAX_CTAS)
     scratch = torch.empty(n_ctas * sum(t.numel() for t in leaves),
                           dtype=torch.float32 if x.dtype == torch.bfloat16

@@ -76,6 +76,7 @@ ENTRIES = {
     "coupling_fwd_bf16": _CPL_FWD_ARGS,
     "coupling_bwd_f32_cbf16": _CPL_BWD_ARGS,
     "coupling_bwd_bf16": _CPL_BWD_ARGS,
+    "coupling_mma_plan": [_I32, _I32, _I32, _P, _I32, _P],
     "realnvp_train_f32": _TRAIN_ARGS,
     "realnvp_train_f64": _TRAIN_ARGS,
     "realnvp_train_bf16": _TRAIN_ARGS,

@@ -556,8 +556,23 @@ def test_coupling_bf16_plain_matches_the_pallas_kernel(cd, inverse):
     and gradient comes back in bfloat16. The policy is one program on both
     sides (POLICY_TOL); bfloat16 storage computes in float32 here and in
     bfloat16 in JAX (PARAM_TOL)."""
-    jb, tb = _fused_bf16_pair(cd)
-    n, d = 96, 4
+    _coupling_against_pallas(cd, inverse, 4, (16, 16))
+
+
+@pytest.mark.parametrize("d,hdims", [(2, (32, 32)), (8, (16, 16))])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_coupling_policy_plain_matches_the_pallas_kernel_at_the_bounds(
+        d, hdims, inverse):
+    """The policy's plain version, which the tensor-core kernels are held
+    to, against JAX's kernel as above at the shapes their tiles take apart:
+    H = 32 (two k16 chunks a hidden layer) and d = 8 (n_A = n_B = 4, the
+    head's whole n8 tile), within POLICY_TOL."""
+    _coupling_against_pallas(BF, inverse, d, hdims)
+
+
+def _coupling_against_pallas(cd, inverse, d, hdims):
+    jb, tb = _fused_bf16_pair(cd, d, hdims)
+    n = 96
     x = _draws(d, n, seed=4)
     rng = np.random.default_rng(5)
     gy = rng.standard_normal((n, d)).astype(np.float32) / n

@@ -615,6 +615,73 @@ def test_forward_shared_memory_check(monkeypatch):
                         sels, 3)
 
 
+def test_policy_constants_match_the_device_header():
+    """csrc/coupling_mma.cuh's shared-memory cap is the one the wrapper
+    holds the policy's K5 to, and its CTAs are four warps of 16 rows
+    (benchmarks/torch_ab.py rewrites the warps' line in its copies)."""
+    text = (ROOT / "normalizingflows_torch" / "csrc"
+            / "coupling_mma.cuh").read_text()
+    assert cc.KERNEL_MAX_SMEM == 227 * 1024
+    for line in ("constexpr int kMmaMaxSmem = 227 * 1024;",
+                 "constexpr int kMmaRows = 16;",
+                 "constexpr int kMmaWarps = 4;",
+                 "constexpr int kMmaMaxWarps = 8;"):
+        assert line in text, line
+
+
+def test_policy_launches_hand_the_entries_their_plan(monkeypatch):
+    """Under the policy `_launch_fwd` passes the C entry no tile (lanes 0:
+    the tensor-core kernel has one) and `_launch_bwd` one CTA per 64 rows;
+    float32 keeps its lane tile and K5's lane-tile CTAs."""
+    import contextlib
+    import types
+
+    from normalizingflows_torch.ops import _build
+
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def coupling_mma_plan(d, n_blocks, depth, widths, backward, out):
+            out[0], out[1] = 64, 1024  # the C entry's rows and bytes
+            return 0
+
+        def __getattr__(self, name):
+            return lambda *a: calls.append((name, a)) or 0
+
+    real = cc._kernel_args
+
+    def kernel_args(x, leaves, sels, depth, backward=False,
+                    train_batch=None, compute_dtype=None):
+        with pytest.raises(ValueError, match="CUDA device"):
+            real(x, leaves, sels, depth, backward, train_batch,
+                 compute_dtype)
+        # the C interface's widths (per group n_B, hidden..., n_A)
+        return (cc.KERNEL_TYPES[(x.dtype, compute_dtype)],
+                [1, 16, 16, 1] * 2, None)
+
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(cc, "_kernel_args", kernel_args)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    flow = nft.realnvp(torch.Generator().manual_seed(0), 2, (16, 16),
+                       nlayers=3, fused=True, device="cpu")
+    fb = flow.bijector.bijectors[0]
+    sels = cc._sels(fb.idx_even, fb.idx_odd, 2)
+    leaves = [t.detach() for t in cc._leaves(fb.groups)]
+    x, gld = torch.zeros((300, 2)), torch.zeros(300)
+    for cd in (torch.bfloat16, None):
+        cc._launch_fwd(x, leaves, sels, 3, False, compute_dtype=cd)
+        cc._launch_bwd(x, leaves, x, gld, sels, 3, False, cd)
+    (f16, a), (b16, b), (f32, c), (b32, e) = calls
+    assert (f16, b16) == ("coupling_fwd_f32_cbf16", "coupling_bwd_f32_cbf16")
+    assert a[10] == 0 and b[13] == 5  # no tile; 300 rows in 64-row CTAs
+    assert (f32, b32) == ("coupling_fwd_f32", "coupling_bwd_f32")
+    assert c[10] == 1 and e[13] == 19  # the lane tiles: 16 rows a CTA
+
+
 def _chip_smoke():
     import importlib.util
 

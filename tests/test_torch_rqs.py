@@ -552,6 +552,11 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
      "1SEPS3_S6_lNS_5StackE", "coupling_fwd<f32_cbf16, inv, H=16>"),
     ("_ZN12_GLOBAL__N_112coupling_bwdIfLb0ELi32ENS_11Bf16StorageEEEvPKNT2_"
      "1SE", "coupling_bwd<bf16, fwd, H=32>"),
+    # the bf16 policy's tensor-core kernels: INVERSE and H, no type
+    ("_ZN12_GLOBAL__N_116coupling_fwd_mmaILb1ELi16EEEvPKfPfS3_l5Stack"
+     "9MmaLayout", "coupling_fwd_mma<f32_cbf16, inv, H=16>"),
+    ("_ZN12_GLOBAL__N_116coupling_bwd_mmaILb0ELi32EEEvPKfS3_S3_PfS4_ll5Stack"
+     "9MmaLayout", "coupling_bwd_mma<f32_cbf16, fwd, H=32>"),
     ("_ZN12_GLOBAL__N_118coupling_fwd_lanesIdLb0ELi16ENS_5ExactIdEEEEvPKNT2_"
      "1SE", "coupling_fwd_lanes<f64, fwd, H=16>"),
     ("_ZN12_GLOBAL__N_119coupling_bwd_reduceIf13__nv_bfloat16EEvPKT_ilNS_"
@@ -618,3 +623,24 @@ def test_chip_smoke_counts_k1_sass_statically():
 """
     assert cs.sass_counts(sass, cs.K1_SASS) == (13, 9)
     assert cs.sass_counts(sass, "no_such_kernel") is None
+
+
+def test_chip_smoke_counts_the_policy_kernels_hmma():
+    """Phase 2's evidence that the bf16 policy's products run on the tensor
+    cores: each HMMA instruction (predicated ones too) of each named
+    kernel, by its phase-2 name, each once; a kernel without one counts 0."""
+    cs = _chip_smoke()
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_116coupling_fwd_mmaILb1ELi16EEEvPKfPfS3_l5Stack9MmaLayout
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x0 */
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R16, RZ ;
+        /*0020*/              @!P0 HMMA.16816.F32.BF16 R8, R4, R18, R8 ;
+        /*0030*/                   EXIT ;                          /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_116coupling_bwd_mmaILb0ELi32EEEvPKfS3_S3_PfS4_ll5Stack9MmaLayout
+        /*0000*/                   FFMA R2, R2, R0, R1 ;           /* 0x0 */
+\t\tFunction : some_other_function
+        /*0000*/                   HMMA.16816.F32.BF16 R8, R4, R16, RZ ;
+"""
+    assert cs.hmma_counts(sass) == {
+        "coupling_fwd_mma<f32_cbf16, inv, H=16>": 2,
+        "coupling_bwd_mma<f32_cbf16, fwd, H=32>": 0}
