@@ -1,6 +1,6 @@
 """K1–K6 of two checkouts of this repository on one GPU, in turns.
 
-    python benchmarks/torch_ab.py --parent DIR [--out FILE]
+    python benchmarks/torch_ab.py --parent DIR [--out FILE] [--k6]
 
 DIR is another checkout (for example the parent commit, unpacked with
 ``git archive``). Four runs, in the order DIR, this checkout, this
@@ -28,15 +28,19 @@ own ``build/``), on fixed seeds:
   it), each copy built and run in a process of its own, after the four
   runs;
 * the registers and spill bytes ptxas reports for every kernel of the
-  checkout's build, so that the two trees' instantiations can be held
-  against each other;
+  checkout's build (its log, which the build keeps beside the library),
+  so that the two trees' instantiations can be held against each other;
+  a tree with no report is named in ``registers_missing`` and nothing is
+  compared;
 * K6 (``train_cuda.adam_train_realnvp_fused``, launches of 512 steps): the
   demo (1,000 steps, batch 16) and the reference default (50 steps, batch
-  256) from their seed-0 flows, float32 and float64: the losses and every
-  final weight, kept for the bitwise comparison;
-* K6 through ``train_realnvp_fused``: the same two runs in float32, device
-  time a step by CUDA events around each launch
-  (``chip_smoke._timed_train``), and steps/s;
+  256 and 1,024) from their seed-0 flows, float32 and float64: the losses
+  and every final weight, kept for the bitwise comparison; where the two
+  trees' bits differ, the largest difference beside ``TRAIN_TOL``;
+* K6 through ``train_realnvp_fused``: the same three runs in float32 and
+  the reference default at batch 256 in float64, device time a step by
+  CUDA events around each launch (``chip_smoke._timed_train``), and
+  steps/s;
 * K1, K2 and K3 through autograd of ``rqs_cuda.rqs_fused`` (elem-major raw
   as the conditioner's (batch, n_t·(3K−1)) output viewed per element),
   ``rqs_fused_e`` (raw padded to 3K+2 columns) and ``rqs_fused_t``
@@ -48,9 +52,11 @@ own ``build/``), on fixed seeds:
   in the wide layout, n_t = 32), warm, and at 131,072 also with a cold L2
   (a 64 MiB buffer written before each call, its own time subtracted).
 
-Prints one JSON object (and writes it to ``--out``): the card, each run's
-times, and per output whether DIR and this checkout gave identical bits
-and whether this checkout's two runs did. Needs a CUDA device.
+With ``--k6`` the runs hold K6's outputs and times alone (and the
+registers), and no copy at other warps is built. Prints one JSON object
+(and writes it to ``--out``): the card, each run's times, and per output
+whether DIR and this checkout gave identical bits and whether this
+checkout's two runs did. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,6 +73,10 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = (("demo", 16), ("demo", 300), ("ref", 256), ("odd", 300))
+# K6's runs: (model, batch, steps attribute of chip_smoke)
+K6_RUNS = (("demo", 16, "RNVP_STEPS"), ("ref", 256, "TRAIN_REF_STEPS"),
+           ("ref", 1024, "TRAIN_REF_STEPS"))
+TRAIN_TOL = {"float32": (1e-4, 1e-5), "float64": (1e-8, 1e-12)}
 RQS_N, RQS_TIMED = (64, 256, 257, 1000, 131072), (64, 256, 131072)
 WIDE_N = 131072
 
@@ -171,15 +181,14 @@ def _warps_copy(w: int) -> Path:
 
 
 def _k6_outputs(cs) -> dict:
-    """K6's losses and final weights on the demo's and the reference
-    default's runs, float32 and float64, on the CPU."""
+    """K6's losses and final weights on K6_RUNS, float32 and float64, on
+    the CPU."""
     from normalizingflows_torch.experimental import train_cuda as tc
 
     out = {}
     for dtype in (torch.float32, torch.float64):
-        for model, batch, steps in (("demo", cs.RNVP_BATCH, cs.RNVP_STEPS),
-                                    ("ref", cs.RNVP_REF_BATCH,
-                                     cs.TRAIN_REF_STEPS)):
+        for model, batch, steps in K6_RUNS:
+            steps = getattr(cs, steps)
             gen = torch.Generator(device="cuda").manual_seed(batch)
             _, args = cs._train_args(cs.CPL_CFG[model], dtype, batch, steps,
                                      0, gen, perturb=False)
@@ -191,8 +200,6 @@ def _k6_outputs(cs) -> dict:
 
 
 def _times(cs, cc, k4_n) -> dict:
-    import normalizingflows_torch as nft
-
     ms = {}
     for model, n in cs.CPL_TIMED + tuple(("demo", n) for n in k4_n):
         cfg = cs.CPL_CFG[model]
@@ -210,15 +217,30 @@ def _times(cs, cc, k4_n) -> dict:
             ms[f"K5 {model} N={n}"] = cs.device_ms(
                 lambda: cc._launch_bwd(x, leaves, gy, gld, sels, depth,
                                        False))
+    return ms
+
+
+def _k6_times(cs) -> dict:
+    """K6 through ``train_realnvp_fused`` on K6_RUNS in float32 and on the
+    reference default at batch 256 in float64: device ms a step and
+    steps/s."""
+    import normalizingflows_torch as nft
+
+    ms = {}
     target = nft.Banana(2, 1.0, 100.0)
     gen = torch.Generator(device="cuda").manual_seed(80)
-    for model, batch, steps in (("demo", cs.RNVP_BATCH, cs.RNVP_STEPS),
-                                ("ref", cs.RNVP_REF_BATCH,
-                                 cs.TRAIN_REF_STEPS)):
-        flow = cs._rnvp(cs.CPL_CFG[model], 0, True)
-        _, dt, launch_ms, _ = cs._timed_train(flow, gen, target, batch, steps)
-        ms[f"K6 {model} batch {batch} ms a step"] = sum(launch_ms) / steps
-        ms[f"K6 {model} batch {batch} steps/s"] = steps / dt
+    runs = [(*r, torch.float32) for r in K6_RUNS]
+    runs.append(("ref", 256, "TRAIN_REF_STEPS", torch.float64))
+    for model, batch, steps, dtype in runs:
+        steps = getattr(cs, steps)
+        flow = cs._rnvp(cs.CPL_CFG[model], 0, True, dtype)
+        # this tree's _timed_train: (result, s, ms, steps, ...)
+        _, dt, launch_ms, *_ = cs._timed_train(flow, gen, target, batch,
+                                               steps)
+        tag = f"K6 {model} batch {batch}" + (
+            " float64" if dtype == torch.float64 else "")
+        ms[f"{tag} ms a step"] = sum(launch_ms) / steps
+        ms[f"{tag} steps/s"] = steps / dt
     return ms
 
 
@@ -293,7 +315,7 @@ def _rqs_times(cs, rq) -> dict:
     return ms
 
 
-def worker(root: Path, out: Path, k4_n, warps=None) -> None:
+def worker(root: Path, out: Path, k4_n, warps=None, k6=False) -> None:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from normalizingflows_torch.experimental import coupling_cuda as cc
@@ -311,10 +333,14 @@ def worker(root: Path, out: Path, k4_n, warps=None) -> None:
         first, again = (_policy_times(cs, cc, f" w={warps}") for _ in (0, 1))
         torch.save({"ms": {k: [first[k], again[k]] for k in first}}, out)
         return
-    torch.save({"outputs": {**_outputs(cs, cc), **_policy_outputs(cs, cc),
-                            **_k6_outputs(cs), **_rqs_outputs(cs, rq)},
-                "ms": {**_times(cs, cc, k4_n), **_policy_times(cs, cc),
-                       **_rqs_times(cs, rq)},
+    if k6:
+        outputs, ms = _k6_outputs(cs), _k6_times(cs)
+    else:
+        outputs = {**_outputs(cs, cc), **_policy_outputs(cs, cc),
+                   **_k6_outputs(cs), **_rqs_outputs(cs, rq)}
+        ms = {**_times(cs, cc, k4_n), **_k6_times(cs),
+              **_policy_times(cs, cc), **_rqs_times(cs, rq)}
+    torch.save({"outputs": outputs, "ms": ms,
                 "registers": {k: [regs, stores, loads] for k, regs, stores,
                               loads in cs.ptxas_report(build.log)}}, out)
 
@@ -337,12 +363,15 @@ def main() -> int:
     parser.add_argument("--result", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--k4-n", help=argparse.SUPPRESS)
     parser.add_argument("--warps", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--k6", action="store_true",
+                        help="K6's outputs and times alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.worker:
         worker(args.worker.resolve(), args.result,
-               tuple(int(n) for n in args.k4_n.split(",")), args.warps)
+               tuple(int(n) for n in args.k4_n.split(",")), args.warps,
+               args.k6)
         return 0
     k4_n = ",".join(str(n) for n in _k4_switch_n())
     parent = args.parent.resolve()
@@ -354,11 +383,11 @@ def main() -> int:
     for i, (label, root) in enumerate(order):
         result = scratch / f"run{i}.pt"
         subprocess.run([sys.executable, __file__, "--worker", str(root),
-                        "--result", str(result), "--k4-n", k4_n],
-                       check=True, cwd=root)
+                        "--result", str(result), "--k4-n", k4_n]
+                       + ["--k6"] * args.k6, check=True, cwd=root)
         runs.append((label, torch.load(result)))
     warps_ms = {}
-    for w in (1, 2, 4, 8):
+    for w in () if args.k6 else (1, 2, 4, 8):
         root, result = _warps_copy(w), scratch / f"warps{w}.pt"
         subprocess.run([sys.executable, __file__, "--worker", str(root),
                         "--result", str(result), "--k4-n", k4_n,
@@ -381,13 +410,32 @@ def main() -> int:
                    "K3 float32", "K3 float64", "K4 float32", "K4 float64",
                    "K5 float32 demo", "K5 float32", "K5 float64",
                    "K4 policy", "K5 policy", "K6 float32", "K6 float64"):
-        bits[prefix] = {"parent_vs_change": same(p0, c1, prefix),
-                        "change_twice": same(c1, c2, prefix)}
-    # each tree's register report (its first run built it): the
-    # instantiations both trees have, and whether they take the same
+        if any(k.startswith(prefix) for k in p0):
+            bits[prefix] = {"parent_vs_change": same(p0, c1, prefix),
+                            "change_twice": same(c1, c2, prefix)}
+    # K6's runs whose bits differ across the trees: the largest difference,
+    # and whether every element is within TRAIN_TOL of the parent's
+    k6_diff = {}
+    for k in p0:
+        if k.startswith("K6") and not torch.equal(p0[k], c1[k]):
+            run = k.rsplit(" ", 1 if k.endswith("losses") else 2)[0]
+            a, b = c1[k].double(), p0[k].double()
+            rtol, atol = TRAIN_TOL[k.split()[1]]
+            r = k6_diff.setdefault(run, {"max_abs_diff": 0.0,
+                                         "train_tol": [rtol, atol],
+                                         "within": True})
+            r["max_abs_diff"] = max(r["max_abs_diff"],
+                                    float((a - b).abs().max()))
+            r["within"] &= bool(((a - b).abs() <= atol
+                                 + rtol * b.abs()).all())
+    # each tree's register report (from its build's log): the
+    # instantiations both trees have, and whether they take the same; a
+    # tree without a report (a build from before the log was kept beside
+    # the library) leaves them uncompared, and says so
     registers = {label: {} for label in ("parent", "change")}
     for label, r in runs:
         registers[label].update(r.get("registers", {}))
+    missing = [label for label, regs in registers.items() if not regs]
     both = sorted(set(registers["parent"]) & set(registers["change"]))
     keys = list(dict.fromkeys(k for _, r in runs for k in r["ms"]))
     result = {"card": smi, "device": torch.cuda.get_device_name(0),
@@ -395,13 +443,18 @@ def main() -> int:
               "ms": {k: [r["ms"].get(k) for _, r in runs] for k in keys},
               "policy_ms_by_warps": warps_ms,
               "identical_bits": bits,
+              "k6_differences": k6_diff,
               "registers": registers,
-              "registers_differ": {k: (registers["parent"][k],
-                                       registers["change"][k])
-                                   for k in both if registers["parent"][k]
-                                   != registers["change"][k]}}
+              "registers_missing": missing,
+              "registers_differ": None if missing else {
+                  k: (registers["parent"][k], registers["change"][k])
+                  for k in both
+                  if registers["parent"][k] != registers["change"][k]}}
     text = json.dumps(result, indent=1)
     print(text)
+    if missing:
+        print(f"registers not compared: no ptxas report from {missing}",
+              file=sys.stderr)
     if args.out:
         Path(args.out).write_text(text)
     return 0

@@ -402,7 +402,7 @@ def bwd_rows(word: int, hidden: int) -> int:
 
 def lane_rows(word: int, hidden: int, n: int) -> int:
     """Rows of a lane tile holding n rows (`lane_rows<T, H>`): n in whole
-    warps of 32/H rows, at most R. K6's tile holds its batch."""
+    warps of 32/H rows, at most R. K6's tile holds its batch, up to R."""
     per_warp = 32 // _hidden_bound(hidden)
     return min(bwd_rows(word, hidden), -(-n // per_warp) * per_warp)
 
@@ -415,18 +415,17 @@ def k5_lane_rows(word: int, hidden: int, n: int) -> int:
     return lane_rows(word, hidden, min(n, want))
 
 
-def _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows, extra_words=0):
+def _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows):
     """The lane tile's dynamic shared memory (`lane_bwd_words`,
     csrc/coupling_device.cuh) for ``rows`` rows, in bytes: one coupling's
     two padded nets (W's rows one word apart more than K4's), every
     coupling's saved (rows, d) input, the two nets' activations and one
-    layer's cotangents; ``extra_words`` more (K6's ELBO terms)."""
+    layer's cotangents."""
     half, H = KERNEL_MAX_D // 2, _hidden_bound(hidden)
     net = (half * (H + 1) + H + (depth - 2) * (H * (H + 1) + H)
            + H * (half + 1) + half)
     acts = rows * (half + (depth - 1) * H) + rows * half
-    return word * (2 * net + 2 * n_blocks * rows * d + 2 * acts + rows * H
-                   + extra_words)
+    return word * (2 * net + 2 * n_blocks * rows * d + 2 * acts + rows * H)
 
 
 def _row_smem_bytes(d, n_blocks, depth, hidden, word):
@@ -443,12 +442,12 @@ def _row_smem_bytes(d, n_blocks, depth, hidden, word):
 def _bwd_tile(d, n_blocks, depth, hidden, word, n, train=False):
     """(rows, shared-memory bytes) of the tile K5 runs on n rows: the lane
     tile while n is at most LANE_MAX_TILES lane tiles, else the row tile;
-    with ``train``, K6's lane tile for a batch of n with its ELBO terms."""
+    with ``train``, K6's lane tile for a batch of n (its CTAs' split and
+    scratch are the C side's, `train_cuda._plan`)."""
     n = max(n, 1)
     if train or -(-n // bwd_rows(word, hidden)) <= LANE_MAX_TILES:
         rows = (lane_rows if train else k5_lane_rows)(word, hidden, n)
-        return rows, _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows,
-                                      rows if train else 0)
+        return rows, _lane_smem_bytes(d, n_blocks, depth, hidden, word, rows)
     return ROW_TILE_ROWS, _row_smem_bytes(d, n_blocks, depth, hidden, word)
 
 

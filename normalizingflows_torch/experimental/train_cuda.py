@@ -36,9 +36,13 @@ and rounded once a step as K6 does. ``backend="auto"`` launches K6 for
 CUDA tensors and runs the plain version for CPU tensors; ``"plain"``
 always runs the plain version; ``"cuda"`` raises without CUDA tensors.
 Nothing falls back. K6 runs K5's lane tile, its rows fitted to the batch,
-plus a word a row for the ELBO terms, so it has a cap on blocks like K5's
-and raises before any step runs (`coupling_cuda._kernel_args`). Each K6
-launch is counted in `ops/launches.py`, the bfloat16 one apart.
+in a thread-block cluster of up to eight CTAs that share the batch's row
+tiles; its plan (the CTAs, the tiles a CTA holds, the scratch and the
+shared memory, `train_plan`) is the built library's, which its launches
+take too. K6 has a cap on blocks like K5's, and a cluster of its CTAs must
+fit on the card: each is checked before any step runs
+(`coupling_cuda._kernel_args`, `_plan`), and raises. Each K6 launch is
+counted in `ops/launches.py`, the bfloat16 one apart.
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ from .coupling_cuda import (
     tile_flow_bwd,
 )
 
-__all__ = ["adam_train_realnvp_fused", "adam_train_plain"]
+__all__ = ["adam_train_realnvp_fused", "adam_train_plain", "train_plan",
+           "TrainPlan"]
 
 _LOG_2PI = 1.8378770664093453
 # the targets K6 evaluates itself, and their ids in csrc/train_kernel.cuh
@@ -277,12 +282,56 @@ def _launch_chunk(fn, xs, w, m, v, grad, losses, run: _Run, step0: int,
     n_steps, batch, d = xs.shape
     widths, idx, n_blocks, hyper, name = args
     err = fn(xs[step0].data_ptr(), w.data_ptr(), m.data_ptr(), v.data_ptr(),
-             grad.data_ptr(), losses[step0].data_ptr(), run.loc.data_ptr(),
-             run.scale.data_ptr(), steps, step0, batch, d, n_blocks,
-             run.depth, widths, idx, run.target, hyper,
+             grad.data_ptr(), grad.numel(), losses[step0].data_ptr(),
+             run.loc.data_ptr(), run.scale.data_ptr(), steps, step0, batch,
+             d, n_blocks, run.depth, widths, idx, run.target, hyper,
              torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     launches.count(name)
+
+
+class TrainPlan(NamedTuple):
+    """How K6 runs a batch (`train_plan` in csrc/train_kernel.cuh): a
+    cluster of ``ctas`` CTAs, each walking at most ``tiles_per_cta`` of the
+    batch's lane tiles; a scratch of ``scratch_words`` words of the
+    arithmetic's dtype (a weight-gradient slice a CTA, an ELBO term a row
+    where a CTA's terms do not fit in its shared memory, and last the size
+    of the cluster the launch ran in); ``bytes`` of dynamic shared memory
+    a CTA."""
+    ctas: int
+    tiles_per_cta: int
+    scratch_words: int
+    bytes: int
+
+
+def _plan(sfx, batch, d, n_blocks, depth, widths, idx) -> TrainPlan:
+    """K6's plan for ``batch`` rows from the built library
+    (`realnvp_train_plan_<sfx>`, whose answer is the plan its launches
+    take); raises where no cluster of its CTAs fits on the card."""
+    from ..ops._build import library
+
+    out = (ctypes.c_longlong * 5)()
+    _raise_on(getattr(library(), f"realnvp_train_plan_{sfx}")(
+        d, n_blocks, depth, widths, idx, batch, out), "realnvp_train_plan")
+    plan = TrainPlan(*out[:4])
+    if out[4] < 1:
+        raise RuntimeError(
+            f"no cluster of {plan.ctas} K6 CTAs with {plan.bytes} bytes of "
+            f"shared memory each fits on this card")
+    return plan
+
+
+def train_plan(xs, groups, idx_even, idx_odd) -> TrainPlan:
+    """K6's plan for a run on draws ``xs`` (n_steps, batch, d), CUDA
+    tensors, of the fused stack ``groups`` (`adam_train_realnvp_fused`'s
+    arguments), from the built library; raises where K6 does not take
+    them."""
+    leaves, depth = _leaves(groups), _depth(groups)
+    _, batch, d = xs.shape
+    sfx, widths, idx = _kernel_args(
+        xs.flatten(0, 1), leaves, _sels(idx_even, idx_odd, d), depth,
+        backward=True, train_batch=batch)
+    return _plan(sfx, batch, d, leaves[0].shape[0], depth, widths, idx)
 
 
 def _launch(xs, leaves, run: _Run, chunk: int):
@@ -297,15 +346,18 @@ def _launch(xs, leaves, run: _Run, chunk: int):
     xs = xs.contiguous()
     w = torch.cat([t.reshape(-1) for t in leaves])
     m, v = torch.zeros_like(w), torch.zeros_like(w)
-    # the gradient buffer is in the arithmetic's dtype
-    grad = torch.empty_like(w, dtype=torch.float32 if w.dtype ==
-                            torch.bfloat16 else w.dtype)
     losses = xs.new_empty(xs.shape[0])
     hyper = (ctypes.c_double * 8)(run.lr, run.b1, run.b2, run.eps,
                                   *run.consts)
     args = (widths, idx, leaves[0].shape[0], hyper,
             launches.name_of("realnvp_train", sfx))
     with torch.cuda.device(xs.device):
+        plan = _plan(sfx, xs.shape[1], xs.shape[2], leaves[0].shape[0],
+                     run.depth, widths, idx)
+        # the scratch is in the arithmetic's dtype
+        grad = torch.empty(plan.scratch_words, device=xs.device,
+                           dtype=torch.float32 if w.dtype == torch.bfloat16
+                           else w.dtype)
         fn = getattr(library(), f"realnvp_train_{sfx}")
         for step0, steps in _chunks(xs.shape[0], chunk):
             _launch_chunk(fn, xs, w, m, v, grad, losses, run, step0, steps,

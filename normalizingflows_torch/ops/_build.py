@@ -53,8 +53,9 @@ _CPL_FWD_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _I32,
                  _P]
 _CPL_BWD_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P,
                  _I32, _I32, _P]
-_TRAIN_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32,
-               _I32, _P, _P, _I32, _P, _P]
+_TRAIN_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I32, _I64, _I64, _I32,
+               _I32, _I32, _P, _P, _I32, _P, _P]
+_TRAIN_PLAN_ARGS = [_I32, _I32, _I32, _P, _P, _I64, _P]
 ENTRIES = {
     "rqs_fwd_f32": _FWD_ARGS,
     "rqs_fwd_f64": _FWD_ARGS,
@@ -80,6 +81,9 @@ ENTRIES = {
     "realnvp_train_f32": _TRAIN_ARGS,
     "realnvp_train_f64": _TRAIN_ARGS,
     "realnvp_train_bf16": _TRAIN_ARGS,
+    "realnvp_train_plan_f32": _TRAIN_PLAN_ARGS,
+    "realnvp_train_plan_f64": _TRAIN_PLAN_ARGS,
+    "realnvp_train_plan_bf16": _TRAIN_PLAN_ARGS,
 }
 
 
@@ -87,7 +91,8 @@ ENTRIES = {
 class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str        # nvcc's output (ptxas register and spill report)
+    log: str        # nvcc's output (ptxas register and spill report), kept
+                    # beside the library for a later call
 
 
 def _sources() -> list[Path]:
@@ -106,15 +111,18 @@ def _nvcc() -> str:
 
 def build() -> Build:
     """Compile ``csrc/*.cu`` unless a library of these exact sources and
-    flags is already in ``build/torch_kernels/``."""
+    flags is already in ``build/torch_kernels/`` (then its build's log is
+    read back from beside it)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     digest.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"lib{digest.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return Build(out, 0.0, "")
+        return Build(out, 0.0, log_path.read_text()
+                     if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_name(f"{tag}.tmp.so")
@@ -150,6 +158,9 @@ def build() -> Build:
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError("\n".join(failed))
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)  # before the library, which readers test
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
     return Build(out, seconds, log)
 

@@ -453,15 +453,15 @@ F32, F64 = 4, 8
 # word apart more than K4's, kHalf·(H+1) + H + (depth−2)·(H·(H+1) + H) +
 # H·(kHalf+1) + kHalf words; saved inputs 2·blocks·rows·d; activations of
 # two nets 2·rows·(kHalf + (depth−1)·H + kHalf); cotangents rows·H; K6
-# adds rows. The row tile (64 rows): net kHalf·H + H + (depth−2)·(H·H + H)
+# no more (its ELBO terms are in device memory). The row tile (64 rows): net kHalf·H + H + (depth−2)·(H·H + H)
 # + H·kHalf + kHalf; saved 2·blocks·64·d; activations 2·65·(kHalf +
 # (depth−1)·H + kHalf); cotangents 65·H.
 @pytest.mark.parametrize("word,d,blocks,depth,hidden,n,k6,rows,nbytes", [
     # demo, N 16 (16 rows, H=16): net 68+16+288+80+4 = 456;
     # 912 + 192 + 1280 + 256 = 2640 words
     (F32, 2, 3, 3, 16, 16, False, 16, 4 * 2640),
-    # through K6 at batch 16: + 16 terms
-    (F32, 2, 3, 3, 16, 16, True, 16, 4 * 2656),
+    # through K6 at batch 16: the same
+    (F32, 2, 3, 3, 16, 16, True, 16, 4 * 2640),
     # demo, N 300: 300/128 rows, at least 8 warps: 16 rows
     (F32, 2, 3, 3, 16, 300, False, 16, 4 * 2640),
     # demo, N 4,096: 32 rows; 912 + 384 + 2560 + 512 = 4368
@@ -472,14 +472,14 @@ F32, F64 = 4, 8
     # reference default, N 256 (8 warps of 1 row, H=32): net
     # 132+32+1088+160+4 = 1416; 2832 + 320 + 1152 + 256 = 4560
     (F32, 2, 10, 3, 32, 256, False, 8, 4 * 4560),
-    # through K6 at batch 256 (32 rows): 2832 + 1280 + 4608 + 1024 + 32
-    (F32, 2, 10, 3, 32, 256, True, 32, 4 * 9776),
+    # through K6 at batch 256 (32 rows): 2832 + 1280 + 4608 + 1024 = 9744
+    (F32, 2, 10, 3, 32, 256, True, 32, 4 * 9744),
     # d=8 [32,32] float64, 14 blocks, N 2,048 (16-row tiles): 2832 + 3584 +
     # 2304 + 512 = 9232
     (F64, 8, 14, 3, 32, 2048, False, 16, 8 * 9232),
     # d=5 [8,8]x2 float32 through K6 at batch 100 (H=16, 64 rows): 912 +
-    # 1280 + 5120 + 1024 + 64 = 8400
-    (F32, 5, 2, 3, 8, 100, True, 64, 4 * 8400),
+    # 1280 + 5120 + 1024 = 8336
+    (F32, 5, 2, 3, 8, 100, True, 64, 4 * 8336),
 ])
 def test_row_tile_sizes_match_hand_counts(word, d, blocks, depth, hidden, n,
                                           k6, rows, nbytes):

@@ -80,7 +80,8 @@ extern "C" void emu_set_warps(int w) { kMmaWarps = w; }
 def _rewrite(text: str, name: str) -> str:
     text = re.sub(r"(\w+(?:<[^;{}]*?>)?)<<<(.*?)>>>\(",
                   r"emu_launch(\1, \2, ", text, flags=re.S)
-    text = re.sub(r"#include <cuda_(bf16|runtime)\.h>\n", "", text)
+    text = re.sub(r"#include <(cuda_bf16|cuda_runtime|cooperative_groups)"
+                  r"\.h>\n", "", text)
     if name == "coupling_mma.cuh":
         for fn in HELPERS:
             text, k = re.subn(
@@ -96,30 +97,40 @@ def _rewrite(text: str, name: str) -> str:
     return text
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
-    """The emulated kernels' library, built with g++ from csrc/."""
+def build_emulated(out: Path, main: str, entries, opt: str = "-O1"):
+    """csrc/'s sources rewritten for the host emulation into ``out`` and
+    ``main`` (the emulation's globals, then the sources it includes)
+    compiled there with g++: the library, with the C interface's types on
+    ``entries``. Skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host emulation")
-    out = tmp_path_factory.mktemp("mma_emulation")
     for src in _build.CSRC.iterdir():
         if src.suffix in (".cu", ".cuh"):
             (out / src.name).write_text(
                 CP_ASYNC if src.name == "cp_async.cuh"
                 else _rewrite(src.read_text(), src.name))
     shutil.copy(ROOT / "tests" / "mma_emulation.h", out)
-    (out / "main.cpp").write_text(MAIN)
-    lib = out / "libmma_emulated.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
-                    "-Wno-unknown-pragmas", "-I", str(out), "-o", str(lib),
-                    str(out / "main.cpp")], check=True, capture_output=True,
-                   timeout=600)
+    (out / "main.cpp").write_text(main)
+    lib = out / "libemulated.so"
+    done = subprocess.run([gxx, "-std=c++17", opt, "-fPIC", "-shared",
+                           "-pthread", "-Wno-unknown-pragmas", "-I", str(out),
+                           "-o", str(lib), str(out / "main.cpp")],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
     lib = ctypes.CDLL(str(lib))
-    for name in ("coupling_fwd_f32_cbf16", "coupling_bwd_f32_cbf16",
-                 "coupling_mma_plan"):
+    for name in entries:
         getattr(lib, name).argtypes = _build.ENTRIES[name]
         getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """The emulated kernels' library, built with g++ from csrc/."""
+    lib = build_emulated(tmp_path_factory.mktemp("mma_emulation"), MAIN,
+                         ("coupling_fwd_f32_cbf16", "coupling_bwd_f32_cbf16",
+                          "coupling_mma_plan"))
     lib.emu_set_cap.argtypes = [ctypes.c_int]
     lib.emu_set_warps.argtypes = [ctypes.c_int]
     yield lib

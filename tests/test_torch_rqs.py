@@ -581,6 +581,28 @@ def test_chip_smoke_names_rqs_kernels_in_the_ptxas_report(mangled, name):
     assert cs.ptxas_report(log) == [(name, 80, 8, 4)]
 
 
+def test_build_reads_its_log_back(tmp_path, monkeypatch):
+    """A library built by an earlier call gives the log of its build
+    (ptxas's register report), not an empty one: here with a stand-in for
+    nvcc that writes its output and reports each source."""
+    import sys
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\nimport sys\nargs = sys.argv[1:]\n"
+        "open(args[args.index('-o') + 1], 'w').write('')\n"
+        "if '-c' in args:\n"
+        "    print('ptxas info    : Used 63 registers, ' + args[-1])\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first, again = _build.build(), _build.build()
+    assert first.log.count("Used 63 registers") == len(
+        list(_build.CSRC.glob("*.cu")))
+    assert (again.path, again.log, again.seconds) == (first.path, first.log,
+                                                       0.0)
+
+
 def _chip_smoke():
     import importlib.util
 

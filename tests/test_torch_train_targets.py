@@ -208,8 +208,14 @@ def test_launch_hands_the_target_to_the_kernel(name, dtype, want_id,
         calls.append((grad, rest))
         return 0
 
+    def fake_plan(d, n_blocks, depth, widths, idx, batch, out):
+        # one CTA: its slice and the cluster's size
+        out[:5] = [1, 1, sum(t.numel() for t in leaves) + 1, 0, 1]
+        return 0
+
     monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
-        **{f"realnvp_train_{sfx}": fake_kernel}))
+        **{f"realnvp_train_{sfx}": fake_kernel,
+           f"realnvp_train_plan_{sfx}": fake_plan}))
     monkeypatch.setattr(tc, "_kernel_args",
                         lambda *a, **kw: (sfx, None, None))
     monkeypatch.setattr(torch.cuda, "device",
@@ -219,12 +225,12 @@ def test_launch_hands_the_target_to_the_kernel(name, dtype, want_id,
     empty = torch.empty
     grads = []
 
-    def spy_empty_like(t, **kw):  # the gradient buffer's dtype
-        out = torch.zeros(t.shape, dtype=kw.get("dtype", t.dtype))
+    def spy_empty(*size, **kw):  # the gradient buffer's dtype
+        out = empty(*size, **kw)
         grads.append(out)
         return out
 
-    monkeypatch.setattr(torch, "empty_like", spy_empty_like)
+    monkeypatch.setattr(torch, "empty", spy_empty)
     launches.reset()
     flow = nft.realnvp(torch.Generator().manual_seed(0), d, (8, 8),
                        nlayers=2, dtype=dtype, fused=True, device="cpu")
@@ -241,8 +247,10 @@ def test_launch_hands_the_target_to_the_kernel(name, dtype, want_id,
         assert target_arg == want_id
         np.testing.assert_allclose(list(hyper), [LR, 0.9, 0.999, 1e-8,
                                                  *want_consts])
-    # bfloat16 storage keeps its gradient buffer in float32
+    # bfloat16 storage keeps its gradient buffer in float32, of the
+    # plan's size
     assert grads[-1].dtype == (torch.float32 if dtype == BF else dtype)
+    assert grads[-1].numel() == sum(t.numel() for t in leaves) + 1
     counted = launches.name_of("realnvp_train", sfx)
     assert launches.counts()[counted] == 2
     assert counted == ("realnvp_train_bf16" if dtype == BF
