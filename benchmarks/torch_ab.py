@@ -1,6 +1,7 @@
 """K1–K6 of two checkouts of this repository on one GPU, in turns.
 
     python benchmarks/torch_ab.py --parent DIR [--out FILE] [--k6]
+        [--no-warps]
 
 DIR is another checkout (for example the parent commit, unpacked with
 ``git archive``). Four runs, in the order DIR, this checkout, this
@@ -53,7 +54,8 @@ own ``build/``), on fixed seeds:
   (a 64 MiB buffer written before each call, its own time subtracted).
 
 With ``--k6`` the runs hold K6's outputs and times alone (and the
-registers), and no copy at other warps is built. Prints one JSON object
+registers), and no copy at other warps is built; ``--no-warps`` builds no
+such copy either. Prints one JSON object
 (and writes it to ``--out``): the card, each run's times, and per output
 whether DIR and this checkout gave identical bits and whether this
 checkout's two runs did. Needs a CUDA device.
@@ -365,6 +367,8 @@ def main() -> int:
     parser.add_argument("--warps", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--k6", action="store_true",
                         help="K6's outputs and times alone")
+    parser.add_argument("--no-warps", action="store_true",
+                        help="build no copy at other warps a CTA")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -387,7 +391,7 @@ def main() -> int:
                        + ["--k6"] * args.k6, check=True, cwd=root)
         runs.append((label, torch.load(result)))
     warps_ms = {}
-    for w in () if args.k6 else (1, 2, 4, 8):
+    for w in () if args.k6 or args.no_warps else (1, 2, 4, 8):
         root, result = _warps_copy(w), scratch / f"warps{w}.pt"
         subprocess.run([sys.executable, __file__, "--worker", str(root),
                         "--result", str(result), "--k4-n", k4_n,

@@ -16,7 +16,7 @@ against the plain version,
   and the weight gradients;
 * the share of y, ld and gx outside FLIP_TOL;
 * the weight gradients' largest ratio to the float32 K5's error
-  (`chip_smoke._leaf_check` without its gate);
+  (`chip_smoke._leaf_ratio`);
 
 and `chip_smoke._witness_check`'s ratios: the kernels' relative L2 error
 over the witness's by output, and that of each faulty product of
@@ -58,8 +58,8 @@ def _readings(fb, x, gy, gld, sels, inverse, outs, plain, n):
         flips=[cs._flipped_share("", a, b) for a, b in (
             (outs[0], plain[0]), (outs[1], plain[1]),
             (outs[2] * n, plain[2] * n))],
-        leaf_ratio=cs._leaf_check(cc, fb, x, gy, gld, sels, inverse,
-                                  outs[3:], plain[3:], "", gate=False))
+        leaf_ratio=cs._leaf_ratio(cc, fb, x, gy, gld, sels, inverse,
+                                  outs[3:], plain[3:]))
 
 
 def case(cfg, n, gen, key):

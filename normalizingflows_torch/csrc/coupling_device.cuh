@@ -114,8 +114,7 @@ __device__ __forceinline__ double th(double v) { return tanh(v); }
 // is the arithmetic and what shared memory holds. Bf16Storage (bfloat16
 // parameters) widens what it reads and rounds each output once; its
 // partial weight gradients stay float32 until the reduce writes them. (The
-// bf16 compute_dtype policy has kernels of its own, on the tensor cores:
-// csrc/coupling_mma.cuh.)
+// bf16 compute_dtype policy has kernels of its own: csrc/coupling_mma.cuh.)
 template <typename T>
 struct Exact {
   using S = T;

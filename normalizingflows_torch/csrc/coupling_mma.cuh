@@ -1,27 +1,46 @@
-// K4/K5 under the bf16 compute_dtype policy on Hopper's tensor cores: the
-// C entries coupling_fwd_f32_cbf16 and coupling_bwd_f32_cbf16
-// (csrc/coupling_bf16.cu) launch coupling_fwd_mma and coupling_bwd_mma
-// (+ coupling_bwd_reduce, csrc/coupling_kernels.cuh).
+// K4/K5 under the bf16 compute_dtype policy, K5's weight gradients on
+// Hopper's tensor cores: the C entries coupling_fwd_f32_cbf16 and
+// coupling_bwd_f32_cbf16 (csrc/coupling_bf16.cu) launch coupling_fwd_mma
+// and coupling_bwd_mma (+ coupling_bwd_reduce, csrc/coupling_kernels.cuh).
 //
 // What they replace (normalizingflows/jl_tpu/experimental/
 // coupling_pallas.py), under compute_dtype=bfloat16: K4 the Pallas
 // `_fwd_kernel` (`_tile_flow`, `pallas_call` at :371), K5 `_bwd_kernel`
 // (`_mlp_bwd` at :202, `pallas_call` at :438). The policy's product is
 // `_dot(a, b, cd)` (:80-89): bfloat16 operands summed in float32, "one
-// native MXU pass" on the TPU, and on Hopper what one
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 computes. The selections, the
-// bias adds, the activations and the coupling's own arithmetic stay exact
-// float32, as `_dot` leaves them.
+// native MXU pass" on the TPU. The selections, the bias adds, the
+// activations and the coupling's own arithmetic stay exact float32, as
+// `_dot` leaves them.
+//
+// The sums. Every product whose result is rounded to bfloat16 downstream
+// (a layer's pre-activation, through its activation; the heads, through
+// y_A and the next coupling's x_B; an input cotangent, through the next G)
+// is the exact sum of its bfloat16 products rounded once to float32, the
+// float64-summed witness's arithmetic (`chip_smoke._dot_witness`): a
+// product one ulp off it flips one such rounding in 2^16, and over the
+// demo's 262,144 rows a flipped row, now and then across a leaky ReLU's
+// kink, puts a weight gradient far from the plain version where the
+// witness stands near it (the tensor-core forward with the bias as its
+// addend: 1,179 times the witness's error on one draw; every product
+// rounded to nearest from two mma passes, `mma_rn`: still up to 117 times,
+// 10 of 128 draws past phase 47's 20; benchmarks/torch_leaf_scan.py on an
+// H100). Hopper's mma.sync cannot give the exact sum: it aligns its
+// addends to the largest and cuts each below 2^(E − 25) (chip_smoke.py
+// phase 59), so a product 2^-11 below the largest loses bits in either
+// pass. So those products run on the CUDA cores in float64 (`dense_exact`,
+// `mma_input_cot`: a quad's lanes each sum their share of the k,
+// `quad_sum` adds the shares), and the weight gradients, which only sum
+// over the rows, run on the tensor cores, each k16 product rounded to
+// nearest (`mma_rn`).
 //
 // What bounds them on this card: not the products. At the demo's 262,144
-// rows K5 needs about 16 GMAC, some 30 µs at a quarter of the tensor cores'
-// rate; what sets the pace is the float32 work around each product (bias,
-// leaky ReLU, the conversions to bfloat16, tanh and exp, the gathers) on
-// the CUDA cores, and at 16 to 256 rows the length of one tile's dependent
-// chain (the weights' staging, then per coupling a few mma and their
-// epilogues). The float32 kernels run every multiply-add on the CUDA cores
-// as one scalar chain a row or a lane; here a Dense layer of 16 rows is 1
-// to 8 mma.
+// rows K5 needs about 3.7 GMAC (16 GMAC of mma with the padding), some
+// 0.2 ms of float64 FMAs at the CUDA cores' rate for the forward and the
+// cotangents; the conversions to float64 (16 a clock an SM, a quarter of
+// the FMAs' rate), the float32 work around each product (bias, leaky
+// ReLU, the roundings, tanh and exp, the gathers) and at 16 to 256 rows
+// the length of one tile's dependent chain (the weights' staging, then per
+// coupling its layers) set the pace.
 //
 // The design: one warp, one tile of 16 rows (the mma's M). A CTA is
 // kMmaWarps warps, 16·kMmaWarps rows, sharing the staged weights. The
@@ -30,25 +49,27 @@
 // * Weights: each coupling's s and t nets, zero-padded to the kernels'
 //   bounds (n_A, n_B ≤ 4, H = 16 or 32, 2 to 4 layers), are rounded to
 //   bfloat16 once, as they are staged (the float32 kernels' rounding point
-//   of W), and stored transposed, Wᵀ (out, in), so that the forward reads
-//   its B fragments by ldmatrix and the backward's input cotangent G·Wᵀ
-//   reads the same words by ldmatrix.trans. A row of Wᵀ is H + 8 bfloat16
-//   (48 or 80 bytes), so the 8 rows one ldmatrix phase reads fall in 8
-//   distinct 16-byte bank groups; the first layer's, 8 wide, 16 bytes.
-//   Biases stay float32. A stack that fits in shared memory beside the
-//   rest is staged whole once a CTA; a larger one a coupling at a time
-//   between barriers. A coupling's float32 words come in by cp.async into
-//   one of two landing slots (every copy in flight at once, none holding a
-//   register), and a pass within shared memory rounds and transposes them
-//   into the staged layout while the next coupling's copies land.
-// * First layer: x_B goes into k-columns 0..3 of a 16×16 A fragment, the
-//   rest zero; both nets multiply the same fragment.
+//   of W), and stored transposed, Wᵀ (out, in): the forward reads a lane's
+//   pair of inputs from a row, the input cotangent two rows along the
+//   inputs. A row of Wᵀ is H + 8 bfloat16 (48 or 80 bytes); the first
+//   layer's, 8 wide, 16 bytes. Biases stay float32. A stack that fits in
+//   shared memory beside the rest is staged whole once a CTA; a larger one
+//   a coupling at a time between barriers. A coupling's float32 words come
+//   in by cp.async into one of two landing slots (every copy in flight at
+//   once, none holding a register), and a pass within shared memory rounds
+//   and transposes them into the staged layout while the next coupling's
+//   copies land.
+// * Layers hold their values in the mma's fragment layouts: a layer's
+//   input as a k16 A fragment (lane (g, t): rows g and g + 8, k 2t, 2t + 1
+//   and those + 8), its outputs as n8 C fragments (rows g, g + 8, columns
+//   2t, 2t + 1). The first layer's x_B fills k 0..3, the rest zero; both
+//   nets take the same input.
 // * Hidden layers: the float32 C fragments of two neighbouring n8 tiles
 //   hold the same (row, column) pairs a thread holds of one k16 A
 //   fragment, so each thread adds the bias, takes the leaky ReLU (slope
 //   0.01) in float32, rounds to bfloat16 and packs, and that is the next
-//   layer's A operand: the activations never leave registers.
-// * Head: n_A ≤ 4 fills one n8 tile (columns 4..7 of Wᵀ zero). Lane (g, t)
+//   layer's input: the activations never leave registers.
+// * Head: n_A ≤ 4 fills one n8 tile (rows 4..7 of Wᵀ zero). Lane (g, t)
 //   with t < 2 holds s and t of k = 2t, 2t+1 at rows g and g + 8: tanh,
 //   exp, y_A = x_A·exp(s) + t, written back by index; ld += Σ s is one
 //   shuffle within the quad. The inverse keeps the float32 kernels' order:
@@ -58,11 +79,11 @@
 //   writing each layer's input (bfloat16, the rounded value the product
 //   takes) to shared memory; then per net and layer from the head down,
 //   G = gc ⊙ slope (float32; the slope from the kept post-activation, 1
-//   where it is ≥ 0), the input cotangent round(G)·Wᵀ by mma from its own
+//   where it is ≥ 0), the input cotangent round(G)·Wᵀ from its own
 //   registers, and, after one barrier, the weight gradient gW = Hᵀ·G over
-//   the CTA's 16·w rows as the product's k dimension: round(G) and the
-//   kept H are read back as fragments by ldmatrix.trans. gb = Σ_rows G is
-//   an exact float32 sum (a butterfly within each warp, then the warps in
+//   the CTA's 16·w rows as the mma's k dimension: round(G) and the kept H
+//   are read back as fragments by ldmatrix.trans. gb = Σ_rows G is an
+//   exact float32 sum (a butterfly within each warp, then the warps in
 //   order). Each CTA sums its tiles' gradients (its first tile writes,
 //   later tiles add) in shared memory where they fit, else in its own
 //   slice of the scratch buffer, and copies them to its slice;
@@ -70,18 +91,15 @@
 //   CTAs than fit at once. No atomics, so two runs give the same bits.
 // * Rounding points are the float32 kernels' policy's: W once at staging,
 //   a layer's input and its cotangent once a layer, gW's two operands at
-//   use. Only the float32 summation inside the tensor core differs: it
-//   truncates, and the backward's products are unbiased (`unbias`). A
-//   row's outputs (y, ld, gx) depend on that row alone: the mma computes
-//   each row of its tile from that row.
+//   use. A row's outputs (y, ld, gx) depend on that row alone.
 // Why not wgmma or TMA: a conditioner's k is 4 to 32 and its n 4 to 32. A
 // wgmma takes 64-row tiles from a warpgroup with B in shared memory, so at
-// the demo's 16 rows it would be three quarters padding, and it would break
-// the register-resident chain from one layer to the next. A wgmma row tile
-// for batches of 64 rows and more is later work.
+// the demo's 16 rows it would be three quarters padding. A wgmma row tile
+// for K5's weight gradients at 64 rows and more is later work.
 
 #pragma once
 #include "coupling_kernels.cuh"
+#include "mma_frag.cuh"
 
 namespace {
 
@@ -321,166 +339,148 @@ __device__ __forceinline__ const unsigned char* mma_weights(
   return sm;
 }
 
-// ---------------------------------------------------------------------------
-// Fragments. Lane (g, t) = (lane / 4, lane % 4) holds of a 16×16 A fragment
-// a[0] = (row g, k 2t..2t+1), a[1] = (row g + 8, the same k), a[2], a[3] the
-// same at k + 8; of a 16×8 C fragment c[0..1] = (row g, n 2t..2t+1) and
-// c[2..3] = (row g + 8, the same n); of a B fragment b0 = (k 2t..2t+1, n g),
-// b1 = (k + 8, n g). A register holds two bfloat16, the lower k (or n) in
-// its low half.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_at(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
+// The tensor core's sum, as chip_smoke.py phase 59 measured it on the H100
+// (csrc/mma_probe.cu, every bit of 402 crafted cases): the 16 products
+// exact; c and the products aligned to the largest exponent among them (a
+// product's exponent the sum of its operands'), each addend's bits below
+// 2^(E − 25) cut toward zero; the aligned addends summed exactly and the
+// sum normalised to float32 toward zero. So a result lies up to an ulp
+// short of the sum, toward zero. The weight gradients' k16 products are
+// rounded to nearest: taken from zero (t, toward zero), then again with c
+// = −t, whose aligned sum is the part t left out, exact wherever no
+// product falls below the window of the larger of the two alignments; t
+// moves one ulp away from zero where that part is past half an ulp, or at
+// half an ulp with t odd (`to_nearest`); the k16 products of a CTA's rows
+// add in float32, k in order (`mma_rn`).
+__device__ __forceinline__ float to_nearest(float t, float rest) {
+  const uint32_t u = __float_as_uint(t);
+  const float half = __uint_as_float(u & 0x7f800000u) * 0x1p-24f;
+  const float r = (__float_as_uint(rest) ^ u) >> 31 ? 0.f : fabsf(rest);
+  return r > half || (r == half && (u & 1u)) ? __uint_as_float(u + 1u) : t;
 }
 
-// lo and hi rounded to bfloat16 (to nearest even), packed
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-__device__ __forceinline__ float lo_of(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float hi_of(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-// ldmatrix: 8×8 matrices of bfloat16, each row 16 bytes at the address one
-// lane gives (lanes 8j..8j+7 matrix j); .trans hands each lane the
-// transpose's pair.
-__device__ __forceinline__ void ldsm_x2(unsigned a, uint32_t& r0,
-                                        uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4(unsigned a, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x2_t(unsigned a, uint32_t& r0,
-                                          uint32_t& r1) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned a, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(a));
-}
-
-// c += A·B on the tensor cores: bfloat16 operands, float32 sums
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-template <int NT>
-__device__ __forceinline__ void mma_zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-}
-
-// The tensor core sums a product's terms exactly and truncates the sum
-// toward zero to float32, so each result lies up to an ulp short of the
-// exact sum, always toward zero. In the backward, where a cotangent is
-// rounded to bfloat16 and summed over the batch, such biased values flip
-// roundings in one direction and the flips add up coherently (on the card:
-// a bias gradient at 262,144 rows 416 times the float32 K5's error from
-// the plain version). So each backward product starts from zero and its
-// result moves half an ulp away from zero, rounded to even (`unbias`: by
-// an ulp where its last bit is odd, which leaves the error's mean at zero),
-// and the k16 products of a wider sum add in float32, k in order
-// (`mma_acc`). The forward's biased sums flip roundings too, but nothing
-// sums them over the batch (through the host emulation, unbiasing the
-// forward as well changes no gradient's error), so its products take the
-// bias as the tensor core's addend and are used as they come.
-__device__ __forceinline__ float unbias(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return __uint_as_float(u + (u & 1u));
-}
-
-// c += A·B, the product from zero, unbiased (`unbias`), added in float32
-__device__ __forceinline__ void mma_acc(float (&c)[4], uint32_t a0,
+// c += A·B, the product from zero rounded to nearest (`to_nearest`), added
+// in float32
+__device__ __forceinline__ void mma_rn(float (&c)[4], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        uint32_t b0, uint32_t b1) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
   mma16816(t, a0, a1, a2, a3, b0, b1);
+  float r[4] = {-t[0], -t[1], -t[2], -t[3]};
+  mma16816(r, a0, a1, a2, a3, b0, b1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] = c[i] + unbias(t[i]);
+  for (int i = 0; i < 4; ++i) c[i] = c[i] + to_nearest(t[i], r[i]);
 }
 
 // ---------------------------------------------------------------------------
 // The forward on a warp's 16 rows
 // ---------------------------------------------------------------------------
 
-// NT n8 tiles of C fragments holding a layer's bias (columns nt·8 + 2t, +1)
-template <int NT>
-__device__ __forceinline__ void mma_bias(const float* bias,
-                                         float (&z)[NT][4], int lane) {
-  const int t2 = 2 * (lane & 3);
+// One n8 tile of a product's outputs for this lane's rows g and g + 8: the
+// quad's four lanes each hold a share of the k (the pairs 2t, 2t + 1 of each
+// 8), sum their products over it in float64 (exact: each product of two
+// bfloat16 is, and so is their sum while it spans at most 53 bits), and
+// these partials (P: rows g, g + 8 by the tile's 8 columns) are summed over
+// the quad, each lane keeping its own columns 2t, 2t + 1 in the C layout,
+// rounded once to float32 to nearest: the float64-summed witness's product
+// (`_dot_witness`). The xor-2 exchange keeps the columns whose owner shares
+// the lane's bit 1, the xor-1 exchange those whose owner is the lane.
+__device__ __forceinline__ void quad_sum(const double (&P)[2][8],
+                                         float (&c)[4], int lane) {
+  const bool hi2 = lane & 2, hi1 = lane & 1;
+  double Q[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const double keep = hi2 ? P[r][4 + m] : P[r][m];
+      const double send = hi2 ? P[r][m] : P[r][4 + m];
+      Q[r][m] = keep + __shfl_xor_sync(kWarp, send, 2);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const double keep = hi1 ? Q[r][2 + j] : Q[r][j];
+      const double send = hi1 ? Q[r][j] : Q[r][2 + j];
+      c[2 * r + j] =
+          __double2float_rn(keep + __shfl_xor_sync(kWarp, send, 1));
+    }
+}
+
+// A lane's share of a product's k for its two rows, as float64: NP pairs
+// (k 8q + 2t, + 1 of the q-th 8), row g in v[0], row g + 8 in v[1], each
+// set from the packed bfloat16 pair of either row
+template <int NP>
+struct KShare {
+  double v[2][2 * NP];
+  __device__ __forceinline__ void set(int q, uint32_t row_g,
+                                      uint32_t row_g8) {
+    v[0][2 * q] = lo_of(row_g), v[0][2 * q + 1] = hi_of(row_g);
+    v[1][2 * q] = lo_of(row_g8), v[1][2 * q + 1] = hi_of(row_g8);
+  }
+};
+
+// z = x·W + b over NT n8 tiles of outputs on the CUDA cores (`quad_sum`),
+// x this lane's share of the NP·8 inputs, W by its staged Wᵀ (rows of the
+// outputs, SW bytes apart; the lane's pair of k adjacent in a row), the
+// bias added after the product in float32, as the plain version adds it
+template <int NP, int NT, int SW>
+__device__ __forceinline__ void dense_exact(const unsigned char* wt,
+                                            const float* bias,
+                                            const KShare<NP>& x,
+                                            float (&z)[NT][4], int lane) {
+  const int t4 = 4 * (lane & 3), t2 = 2 * (lane & 3);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
+    double P[2][8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      P[0][n] = 0.0, P[1][n] = 0.0;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            wt + (nt * 8 + n) * SW + q * 16 + t4);
+        const double w0 = lo_of(w), w1 = hi_of(w);
+        P[0][n] = fma(x.v[0][2 * q], w0, P[0][n]);
+        P[0][n] = fma(x.v[0][2 * q + 1], w1, P[0][n]);
+        P[1][n] = fma(x.v[1][2 * q], w0, P[1][n]);
+        P[1][n] = fma(x.v[1][2 * q + 1], w1, P[1][n]);
+      }
+    }
+    quad_sum(P, z[nt], lane);
     const float2 bb = *reinterpret_cast<const float2*>(bias + nt * 8 + t2);
-    z[nt][0] = bb.x, z[nt][1] = bb.y, z[nt][2] = bb.x, z[nt][3] = bb.y;
+    z[nt][0] = z[nt][0] + bb.x, z[nt][1] = z[nt][1] + bb.y;
+    z[nt][2] = z[nt][2] + bb.x, z[nt][3] = z[nt][3] + bb.y;
   }
 }
 
 // z = x_B·W0 + b0 over H outputs; a0 the x_B fragment's k < 8 half (a0[0]
-// rows g, a0[1] rows g + 8), the k ≥ 8 half zero, as W0's rows 8..15 would
-// be.
+// rows g, a0[1] rows g + 8); W0ᵀ's rows 8 bfloat16 (16 bytes) apart
 template <int H>
-__device__ __forceinline__ void mma_first(unsigned w0, const float* bias,
+__device__ __forceinline__ void mma_first(const unsigned char* w0,
+                                          const float* bias,
                                           const uint32_t (&a0)[2],
                                           float (&z)[H / 8][4], int lane) {
-  uint32_t b[H / 8];
-  if constexpr (H == 16) ldsm_x2(w0 + (lane & 15) * 16, b[0], b[1]);
-  else ldsm_x4(w0 + lane * 16, b[0], b[1], b[2], b[3]);
-  mma_bias(bias, z, lane);
-#pragma unroll
-  for (int nt = 0; nt < H / 8; ++nt)
-    mma16816(z[nt], a0[0], a0[1], 0, 0, b[nt], 0);
+  KShare<1> x;
+  x.set(0, a0[0], a0[1]);
+  dense_exact<1, H / 8, 16>(w0, bias, x, z, lane);
 }
 
 // z = h·W + b over NT n8 tiles of outputs (H/8 for a hidden layer, 1 for
 // the head), h the H inputs' A fragments; Wᵀ's rows H + 8 bfloat16 apart.
 template <int H, int NT>
-__device__ __forceinline__ void mma_dense(unsigned wt, const float* bias,
+__device__ __forceinline__ void mma_dense(const unsigned char* wt,
+                                          const float* bias,
                                           const uint32_t (&a)[H / 16][4],
                                           float (&z)[NT][4], int lane) {
-  constexpr int S = 2 * (H + 8);
-  const int j = lane >> 3, r = lane & 7;
-  mma_bias(bias, z, lane);
+  KShare<H / 8> x;
 #pragma unroll
   for (int kc = 0; kc < H / 16; ++kc) {
-    if constexpr (NT == 1) {
-      uint32_t b0, b1;
-      ldsm_x2(wt + r * S + (kc * 16 + (j & 1) * 8) * 2, b0, b1);
-      mma16816(z[0], a[kc][0], a[kc][1], a[kc][2], a[kc][3], b0, b1);
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(wt + ((nt + (j >> 1)) * 8 + r) * S + (kc * 16 + (j & 1) * 8) * 2,
-                b0, b1, b2, b3);
-        mma16816(z[nt], a[kc][0], a[kc][1], a[kc][2], a[kc][3], b0, b1);
-        mma16816(z[nt + 1], a[kc][0], a[kc][1], a[kc][2], a[kc][3], b2, b3);
-      }
-    }
+    x.set(2 * kc, a[kc][0], a[kc][1]);
+    x.set(2 * kc + 1, a[kc][2], a[kc][3]);
   }
+  dense_exact<H / 8, NT, 2 * (H + 8)>(wt, bias, x, z, lane);
 }
 
 // the next layer's A fragments from z through the leaky ReLU (slope 0.01,
@@ -535,36 +535,23 @@ struct MmaKeep {
   __device__ unsigned char* x() const { return hx + warp * kMmaRows * 16; }
 };
 
-// A lane's index reads for one group, set once a launch: for k = 2q and
-// 2q + 1 (lane (g, q)) the transformed (x_A) and the conditioner (x_B)
-// index, −1 past n_A or n_B (every k of a lane q ≥ 2), and n_A
+// A lane's index reads for group grp: for k = 2q and 2q + 1 (lane (g, q))
+// the transformed (x_A) and the conditioner (x_B) index, −1 past n_A or n_B
+// (every k of a lane q ≥ 2), and n_A; read from the kernel's parameters
+// at each coupling, so that the other group's keep no registers
 struct MmaIdx {
   int a[2], b[2], na;
 };
 
-__device__ __forceinline__ void mma_idx(const Stack& st, int lane,
-                                        MmaIdx (&idx)[2]) {
+__device__ __forceinline__ MmaIdx mma_ix(const Stack& st, int grp,
+                                         int lane) {
   const int q = lane & 3;
-#pragma unroll
-  for (int grp = 0; grp < 2; ++grp) {
-    idx[grp].na = st.width[grp][st.depth];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      idx[grp].a[e] = entry(st.idx_a[grp], 2 * q + e);
-      idx[grp].b[e] = entry(st.idx_b[grp], 2 * q + e);
-    }
-  }
-}
-
-// group grp's indices by selects (an index into idx would put it in local
-// memory)
-__device__ __forceinline__ MmaIdx mma_pick(const MmaIdx (&idx)[2], int grp) {
   MmaIdx r;
-  r.na = grp ? idx[1].na : idx[0].na;
+  r.na = st.width[grp][st.depth];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    r.a[e] = grp ? idx[1].a[e] : idx[0].a[e];
-    r.b[e] = grp ? idx[1].b[e] : idx[0].b[e];
+    r.a[e] = entry(st.idx_a[grp], 2 * q + e);
+    r.b[e] = entry(st.idx_b[grp], 2 * q + e);
   }
   return r;
 }
@@ -590,7 +577,7 @@ __device__ __forceinline__ void mma_conditioners(
     *reinterpret_cast<uint32_t*>(keep.x() + g * 16 + 4 * q) = a0[0];
     *reinterpret_cast<uint32_t*>(keep.x() + (g + 8) * 16 + 4 * q) = a0[1];
   }
-  const unsigned w = smem_at(wc);
+  const unsigned char* w = wc;
   const int bias0 = mma_bias_off(H, depth);
   auto bias = [&](int net, int l) {
     return reinterpret_cast<const float*>(wc + net * net_bytes + bias0) +
@@ -643,7 +630,8 @@ __device__ __forceinline__ void mma_apply(const MmaIdx& ix,
     if (j < 0) continue;
     float* p = xs + (g + 8 * (i >> 1)) * kXs + j;
     const float xa = *p;
-    *p = INVERSE ? (xa - t[i]) * ex(-s[i]) : xa * ex(s[i]) + t[i];
+    *p = INVERSE ? (xa - t[i]) * ex(-s[i])
+                 : __fadd_rn(__fmul_rn(xa, ex(s[i])), t[i]);
   }
 }
 
@@ -694,10 +682,12 @@ __device__ __forceinline__ void mma_rows_out(const float* src, int64_t r0,
 
 // K4: the stack forward or inverse with the running log-det. CTA c walks
 // tiles of 16·w rows c, c + G, ...; warp k of the CTA takes rows 16k..16k+15
-// of a tile. Asking for 2 CTAs of the most warps an SM leaves ptxas 128
-// registers: with no minimum it kept K4 at H=32 to 64 and spilled.
+// of a tile. One CTA of the most warps an SM asked for leaves ptxas 255
+// registers: the float64 sums need more than the 128 that two left (36
+// bytes spilled at H=16); with no minimum it once kept K4 to 64 and
+// spilled.
 template <bool INVERSE, int H>
-__global__ void __launch_bounds__(32 * kMmaMaxWarps, 2)
+__global__ void __launch_bounds__(32 * kMmaMaxWarps, 1)
 coupling_fwd_mma(const float* __restrict__ x, float* __restrict__ y,
                  float* __restrict__ ld, int64_t n,
                  const __grid_constant__ Stack st,
@@ -714,8 +704,6 @@ coupling_fwd_mma(const float* __restrict__ x, float* __restrict__ y,
                  lane);
   if (lay.resident) mma_stage_all<INVERSE, H>(st, lay, sm);
   const MmaKeep none{nullptr, nullptr, 0, 0, warp, st.depth};
-  MmaIdx idx[2];
-  mma_idx(st, lane, idx);
 #pragma unroll 1
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int64_t r0 = tile * rows + warp * kMmaRows;
@@ -728,7 +716,7 @@ coupling_fwd_mma(const float* __restrict__ x, float* __restrict__ y,
       const unsigned char* wc = mma_weights<INVERSE, H>(st, lay, c, sm);
       int grp, blk;
       coupling_at<INVERSE>(st, c, grp, blk);
-      const MmaIdx ix = mma_pick(idx, grp);
+      const MmaIdx ix = mma_ix(st, grp, lane);
       float s[4], t[4];
       mma_conditioners<H>(st, ix, wc, lay.net, xs, none, s, t, lane);
       __syncwarp();  // every lane has read x_B
@@ -801,44 +789,42 @@ __device__ __forceinline__ void mma_slope(const unsigned char* level,
   }
 }
 
-// gc = round(G)·Wᵀ over a layer's inputs: K = the layer's outputs (NTO n8
-// tiles of p; the head's one is K's first half), N = its inputs (NTI n8
-// tiles). Wᵀ's rows (the outputs) are SW bytes apart; ldmatrix.trans hands
-// each lane (k = output, n = input) pairs.
+// gc = round(G)·Wᵀ over a layer's inputs on the CUDA cores (`quad_sum`):
+// K = the layer's outputs (NTO n8 tiles of p, this lane's pairs 2t, 2t + 1
+// of each; the head's one is K's first half), N = its inputs (NTI n8
+// tiles). Wᵀ's rows (the outputs) are SW bytes apart, so the lane's pair
+// of k is two rows, each read along the inputs.
 template <int NTO, int NTI, int SW>
-__device__ __forceinline__ void mma_input_cot(unsigned wt,
+__device__ __forceinline__ void mma_input_cot(const unsigned char* wt,
                                               const uint32_t (&p)[NTO][2],
                                               float (&gc)[NTI][4], int lane) {
-  const int j = lane >> 3, r = lane & 7;
-  mma_zero(gc);
-  if constexpr (NTO == 1) {  // the head: K = 8 outputs, the rest zero
+  const int t2 = 2 * (lane & 3);
+  KShare<NTO> g;
 #pragma unroll
-    for (int nt = 0; nt < NTI; nt += 2) {
-      uint32_t b0, b1;
-      ldsm_x2_t(wt + r * SW + (nt + (j & 1)) * 16, b0, b1);
-      mma_acc(gc[nt], p[0][0], p[0][1], 0, 0, b0, 0);
-      mma_acc(gc[nt + 1], p[0][0], p[0][1], 0, 0, b1, 0);
-    }
-  } else {
+  for (int q = 0; q < NTO; ++q) g.set(q, p[q][0], p[q][1]);
 #pragma unroll
-    for (int kc = 0; kc < NTO / 2; ++kc) {
-      const uint32_t a0 = p[2 * kc][0], a1 = p[2 * kc][1],
-                     a2 = p[2 * kc + 1][0], a3 = p[2 * kc + 1][1];
-      if constexpr (NTI == 1) {  // layer 0: its 8 inputs
-        uint32_t b0, b1;
-        ldsm_x2_t(wt + (kc * 16 + (lane & 15)) * SW, b0, b1);
-        mma_acc(gc[0], a0, a1, a2, a3, b0, b1);
-      } else {
+  for (int nt = 0; nt < NTI; ++nt) {
+    double P[2][8];
 #pragma unroll
-        for (int nt = 0; nt < NTI; nt += 2) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_t(wt + (kc * 16 + (j & 1) * 8 + r) * SW + (nt + (j >> 1)) * 16,
-                    b0, b1, b2, b3);
-          mma_acc(gc[nt], a0, a1, a2, a3, b0, b1);
-          mma_acc(gc[nt + 1], a0, a1, a2, a3, b2, b3);
+    for (int n = 0; n < 8; ++n) P[0][n] = 0.0, P[1][n] = 0.0;
+#pragma unroll
+    for (int q = 0; q < NTO; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            wt + (q * 8 + t2 + e) * SW + nt * 16);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const uint32_t w = row[m];
+          const double w0 = lo_of(w), w1 = hi_of(w);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            P[r][2 * m] = fma(g.v[r][2 * q + e], w0, P[r][2 * m]);
+            P[r][2 * m + 1] = fma(g.v[r][2 * q + e], w1, P[r][2 * m + 1]);
+          }
         }
       }
-    }
+    quad_sum(P, gc[nt], lane);
   }
 }
 
@@ -872,7 +858,7 @@ __device__ __forceinline__ void mma_grads(const unsigned char* hsrc, int SH,
                       (mt * 16 + (j & 1) * 8) * 2,
                   a0, a1, a2, a3);
       ldsm_x2_t(gs + (kk * 16 + (lane & 15)) * SG + nt * 16, b0, b1);
-      mma_acc(acc, a0, a1, a2, a3, b0, b1);
+      mma_rn(acc, a0, a1, a2, a3, b0, b1);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -905,7 +891,7 @@ __device__ __forceinline__ void mma_net_bwd(
     float* __restrict__ part, bool first, int w, int warp, int lane) {
   constexpr int S = 2 * (H + 8);
   const int depth = st.depth, rows = kMmaRows * w;
-  const unsigned wn = smem_at(wc + net * lay.net);
+  const unsigned char* wn = wc + net * lay.net;
   auto gbuf_at = [&](int b) { return sm + lay.gbuf + b * rows * S; };
   auto gbp_at = [&](int b) {
     return reinterpret_cast<float*>(sm + lay.gb) + b * w * H;
@@ -916,7 +902,9 @@ __device__ __forceinline__ void mma_net_bwd(
     float G[1][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      G[0][i] = head ? gout[i] * (1.f - head[i] * head[i]) : gout[i];
+      G[0][i] = head ? __fmul_rn(gout[i],
+                                 __fsub_rn(1.f, __fmul_rn(head[i], head[i])))
+                     : gout[i];
     uint32_t p[1][2];
     mma_g_out<H, 1>(G, p, gbuf_at(buf) + warp * kMmaRows * S,
                     gbp_at(buf) + warp * H, lane);
@@ -970,10 +958,11 @@ __device__ __forceinline__ void mma_net_bwd(
 }
 
 // K5's first pass: gx per row and each CTA's partial weight gradients, CTA
-// c walking tiles of 16·w rows c, c + G, ... 128 registers at most at
-// H=16, as K4; 255 at H=32, where 128 spilled.
+// c walking tiles of 16·w rows c, c + G, ... 255 registers at most (the
+// float64 sums of the forward and the cotangents beside the fragments; at
+// H=32 128 spilled before them).
 template <bool INVERSE, int H>
-__global__ void __launch_bounds__(32 * kMmaMaxWarps, H == 16 ? 2 : 1)
+__global__ void __launch_bounds__(32 * kMmaMaxWarps, 1)
 coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
                  const float* __restrict__ gld, float* __restrict__ gx,
                  float* __restrict__ scratch, int64_t n, int64_t n_params,
@@ -994,8 +983,6 @@ coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
   const MmaKeep none{nullptr, nullptr, 0, 0, warp, st.depth};
   const MmaKeep keep{sm + lay.hx, sm + lay.hh, rows * S, kMmaRows * S, warp,
                      st.depth};
-  MmaIdx idx[2];
-  mma_idx(st, lane, idx);
   const int64_t tiles = (n + rows - 1) / rows;
   if (lay.resident) mma_stage_all<INVERSE, H>(st, lay, sm);
 #pragma unroll 1
@@ -1017,7 +1004,7 @@ coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
         sv[e] = xs[(e / d) * kXs + e % d];
       int grp, blk;
       coupling_at<INVERSE>(st, c, grp, blk);
-      const MmaIdx ix = mma_pick(idx, grp);
+      const MmaIdx ix = mma_ix(st, grp, lane);
       float s[4], t[4];
       mma_conditioners<H>(st, ix, wc, lay.net, xs, none, s, t, lane);
       __syncwarp();
@@ -1036,13 +1023,15 @@ coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
       __syncwarp();
       int grp, blk;
       coupling_at<INVERSE>(st, c, grp, blk);
-      const MmaIdx ix = mma_pick(idx, grp);
+      const MmaIdx ix = mma_ix(st, grp, lane);
       float s[4], t[4];
       mma_conditioners<H>(st, ix, wc, lay.net, xs, keep, s, t, lane);
       // `_coupling_bwd` on the heads' layout: gld reaches every s
       const int* ia = ix.a;
       const int* ib = ix.b;
-      float g_xa[4], g_xb[4], g_s[4], g_t[4];
+      // g_xa goes to the cotangent rows at once: each (row, x_A index) is
+      // this lane's alone, and nothing below reads it
+      float g_xb[4], g_s[4], g_t[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = (g + 8 * (i >> 1)) * kXs, a = ia[i & 1],
@@ -1050,17 +1039,19 @@ coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
         const float xa = a >= 0 ? xs[row + a] : 0.f;
         const float g_ya = a >= 0 ? gs[row + a] : 0.f;
         g_xb[i] = b >= 0 ? gs[row + b] : 0.f;
+        float g_xa;
         if (INVERSE) {
           const float e = ex(-s[i]);
-          g_xa[i] = g_ya * e;
-          g_t[i] = -g_xa[i];
-          g_s[i] = -g_ya * (xa - t[i]) * e - gl[i >> 1];
+          g_xa = g_ya * e;
+          g_t[i] = -g_xa;
+          g_s[i] = __fsub_rn(__fmul_rn(-g_ya * (xa - t[i]), e), gl[i >> 1]);
         } else {
           const float e = ex(s[i]);
-          g_xa[i] = g_ya * e;
+          g_xa = g_ya * e;
           g_t[i] = g_ya;
-          g_s[i] = g_ya * xa * e + gl[i >> 1];
+          g_s[i] = __fadd_rn(__fmul_rn(g_ya * xa, e), gl[i >> 1]);
         }
+        if (a >= 0) gs[row + a] = g_xa;
         // padded outputs of s and t take no cotangent
         if (a < 0) g_s[i] = g_t[i] = 0.f;
       }
@@ -1077,7 +1068,6 @@ coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = (g + 8 * (i >> 1)) * kXs;
-        if (ia[i & 1] >= 0) gs[row + ia[i & 1]] = g_xa[i];
         if (ib[i & 1] >= 0) gs[row + ib[i & 1]] = g_xb[i];
       }
       __syncwarp();

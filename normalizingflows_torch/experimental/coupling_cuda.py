@@ -48,14 +48,18 @@ bfloat16 (``csrc/coupling_bf16.cu``): under the bf16 ``compute_dtype``
 policy (float32 x and weights) every conditioner product rounds its
 operands to bfloat16 and accumulates in float32, as the Pallas kernels'
 `_dot(a, b, cd)` does, forward and backward; the selections stay exact.
-That is what Hopper's tensor cores compute, so the policy's K4 and K5 are
-kernels of their own (``csrc/coupling_mma.cuh``, replacing `_fwd_kernel`
-and `_bwd_kernel` under ``compute_dtype``): one warp a tile of 16 rows,
-every conditioner product an ``mma.sync`` m16n8k16 whose float32 output
-fragments, through bias and leaky ReLU, become the next layer's bfloat16
-operand in registers; K5 takes the weight gradients over a CTA's rows as
-the product's k. What bounds them is the float32 work around the products
-and, at 16 to 256 rows, one tile's chain. `mma_plan` asks the built
+The policy's K4 and K5 are kernels of their own (``csrc/coupling_mma.cuh``,
+replacing `_fwd_kernel` and `_bwd_kernel` under ``compute_dtype``): one
+warp a tile of 16 rows in the ``mma.sync`` m16n8k16 fragment layouts,
+whose float32 outputs, through bias and leaky ReLU, become the next
+layer's bfloat16 operand in registers. Every product that feeds a
+bfloat16 rounding (the forward, the input cotangents) is the exact sum
+rounded once to float32, on the CUDA cores in float64, the rounding of
+the float64-summed witness the card's checks hold them to (the tensor
+core's aligned, truncated sum flipped roundings it does not); K5 takes the
+weight gradients over a CTA's rows on the tensor cores, as the mma's k.
+What bounds them is the conversions to float64 and the float32 work
+around the products and, at 16 to 256 rows, one tile's chain. `mma_plan` asks the built
 library for their rows a CTA (16 a warp, four warps) and shared memory:
 the whole stack staged once where it fits, else a coupling at a time.
 With bfloat16 parameters

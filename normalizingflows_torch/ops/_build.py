@@ -42,8 +42,8 @@ SOURCE_FLAGS = {"rqs.cu": ("--fmad=false",),
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
 # entry name -> argtypes (see the extern "C" blocks of csrc/rqs.cu,
-# csrc/rqs_bf16.cu, csrc/coupling.cu, csrc/coupling_bf16.cu, csrc/train.cu
-# and csrc/train_bf16.cu); int and double arrays and pointer
+# csrc/rqs_bf16.cu, csrc/coupling.cu, csrc/coupling_bf16.cu, csrc/train.cu,
+# csrc/train_bf16.cu and csrc/mma_probe.cu); int and double arrays and pointer
 # tables go in as ctypes arrays
 _FWD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _F64, _I32,
              _P]
@@ -84,6 +84,7 @@ ENTRIES = {
     "realnvp_train_plan_f32": _TRAIN_PLAN_ARGS,
     "realnvp_train_plan_f64": _TRAIN_PLAN_ARGS,
     "realnvp_train_plan_bf16": _TRAIN_PLAN_ARGS,
+    "mma_probe_bf16": [_P, _P, _P, _P, _I32, _P],
 }
 
 

@@ -14,18 +14,29 @@ a row can be run at each CTA size the kernels are built for. The
 policy's plan (`coupling_cuda.mma_plan`, the C entry `coupling_mma_plan`)
 is asked of the same library.
 
-Tolerances: the emulated tensor core truncates its exact sum to float32
-and the kernel moves it back half an ulp (`unbias`); cuBLAS (the plain
-version) sums in float32 in another order. So values agree to float32
-roundoff (rtol/atol 1e-4 on y, ld and gx · N; measured at most 1.5e-5),
-and a bfloat16 rounding downstream can flip, moving a term of a weight
-gradient by 2^-8 of its scale: each gradient within 1e-3 relative L2 (a
-few flips among 40 rows; measured at most 3.7e-5). A fault of the
-fragments' layout moves them by their own size.
+The emulated tensor core sums as chip_smoke.py phase 59 measured the
+card's (tests/mma_emulation.h's `tc_sum`: the addends aligned to the
+largest, each cut toward zero below 2^(E − 25), the sum normalised toward
+zero), bit for bit on the probe's cases (`CARD_MMA_BITS`), and the kernels
+round each product to nearest from two passes (`mma_rn`).
+
+Tolerances: the plain version (the CPU's float32 matmul) sums in another
+order. So values agree to float32 roundoff (rtol/atol 1e-4 on y, ld and
+gx · N), and a bfloat16 rounding downstream can flip, moving a term of a
+weight gradient by 2^-8 of its scale: each gradient within 1e-3 relative
+L2 (a few flips among 40 rows). A fault of the fragments' layout moves
+them by their own size. Held to the float64-summed witness
+(`chip_smoke.witness_gate`, phase 47's gate), every output and weight
+gradient stands within DEEP_WITNESS_FACTOR times the witness's error from
+the plain version, plus LEAF_FLOOR (measured at most 1.6 times); the
+kernels before the products were rounded to nearest (the bias the forward's
+addend, the backward's products moved half an ulp) stood 19,838 times it
+on d=5 inverse, seed 2, one row's y 3.8e-3 off.
 """
 
 import contextlib
 import ctypes
+import importlib.util
 import re
 import shutil
 import subprocess
@@ -51,8 +62,66 @@ LEAF_REL = 1e-3            # relative L2 error of each weight gradient
 SHAPES = {"demo": (2, (16, 16), 3), "h32": (2, (32, 32), 2),
           "d8": (8, (32, 32, 32), 1), "d5": (5, (8, 8), 2)}
 DEMO_WIDTHS = [1, 16, 16, 1] * 2  # the C interface's, per group n_B ... n_A
-HELPERS = ("smem_at", "pack2", "lo_of", "hi_of", "ldsm_x2", "ldsm_x4",
-           "ldsm_x2_t", "ldsm_x4_t", "mma16816")
+# chip_smoke.py phase 59's results on an NVIDIA H100 80GB HBM3 (700 W): one
+# mma.sync.m16n8k16 a case on `chip_smoke.mma_probe_cases()` (402 cases,
+# seed MMA_PROBE_SEED), each result's float32 bits in hex
+CARD_MMA_BITS = (
+    "4210ac40421128504217af20420982504218d49042076cdf4210a2c64200beb6"
+    "41ecc76c42043f6d42102c134203d98b420e5fd042213c4240c70ba44256ce4c"
+    "c36815b2c39e824ac2166230c2069f40c20c4f30c2225ac0c2120f40c21271ef"
+    "c202ea28c21906f5c1f8dcaec20efeacc20da460c2180662c217414bc200f985"
+    "c2736f4ac1067fbe43eab557c3c4a1613f9d3e983f8a930c3f7b96003f925bb6"
+    "3f20c29f3f6ab2c1bf486020bf7f22e0bf94b3a8bf7c2ddebf8f2fd3bf7b4ec9"
+    "bde5dac03ebb3720bddaa180bec175793eede513bf4e6b643d9f26943d66e320"
+    "3db7cc203d87f4a03d2262d83d631480bd795af0bd59e580bda09800bd9a3828"
+    "bd616588bd15d8903cadb270bc2b4f003cdec510ba9c0500bcb0e470bd2d7af0"
+    "3abe1e003b7f40003b502f003b8297803b6886803b951f80bb801e80bb485280"
+    "bb557280bb8b1000bb709180bba99f803adc1200ba42d6003b414680b9cf4000"
+    "ba925a00ba6db00039989400392be8003986c8003966e80039a59400396f8800"
+    "b94b4800b96bd000b952e000b9110000b9810c00b9778800b89b800038642000"
+    "b81de00038c30000381f2000b81e400037168000374980003742800037268000"
+    "3786000037918000b77b0000b7278000b74e8000b74b8000b74a0000b7600000"
+    "b5fc0000363a0000b6a7000035280000b5400000b6cf00003528000035580000"
+    "35000000353000003510000035500000b58c0000b4f00000b5200000b5480000"
+    "b5380000b5480000340000003440000033000000b4e000003300000033c00000"
+    "0000000000000000000000000000000000000000000000000000000000000000"
+    "0000000000000000000000000000000000000000000000000000000000000000"
+    "0000000000000000420f2054404a4f1a42055e783fdd0a7b4221c1d6bff7f9c0"
+    "41e9449dc11c6a5d42776d1141fe29f84101fb06c1cd695042de423e42dbbe3e"
+    "c206fbbcc2e3974b43987e3b43b99d19c3839606c3e278b244cf27a644b681e6"
+    "c4a188c4c4b7484745d0cf1945fe4544c5dc4097c5bc80f7469d3f6a469df68c"
+    "c6ba96dcc6ff8a5347e7d8bd47a64515c7c7dcb1c7c4bcd548d3e8c14882df8c"
+    "c8be5b58c8d18be749dd3afb4985e1cfc9af438ac98be62e4ab1fa5c4af20f2a"
+    "ca913df1cabf13bf4bb21a1e4bfdcd92cbd0e590cbb9f2654ca29d354cb72173"
+    "ccd19a9dcce5acf34de6031f4d9f5d37cdccfec9cdd0ad444ef893bf4eaa8bb6"
+    "ce9d9498ce89b3113fe250003ff5a403403162003fb23e024004120140095200"
+    "3fe8680240178001401288ff4001e3ff401c4fff4020ffff4001c5fe3f8f57ff"
+    "40063cfe403493ff3fb700003fef87fd3ff8ebff404b03ff40417d0040505bff"
+    "3ff4b9ff3fc2d5ffbff339ffc02a9bffbfea7dffc00b13fec0304fffc02d3fff"
+    "c03ea4ffc02deffec0319200bfd67402c00da401bff29402c02ea802c0228702"
+    "bfd60c01c005e000c029f800c02ca500bf97fc02c050d700c03cffffc0117d00"
+    "c0121700bfe5ce0144b046ba449073d5c41e7c7cc3b9bb01447b8888c63e18cd"
+    "44ec97cd451d0188c519add8465c4e10c62bb38a4412a57fc2ac7e08c34c30c6"
+    "c49d1ee643260676c24a5839c489584944de18a0c4209a9e448bf1ffc40d417a"
+    "458d700844cad1c8c43c48ce430c562fc598d3d5c3c5de4cc520825cc5498944"
+    "c5a4dfdf459cce1346436c4445c399dec5a1cc0bc4ae578e4431ff37449d3ae0"
+    "c48a7e2844073769c4537417459ebe0045a7560ec5261e5ac4154d2743f664ac"
+    "44265cfdc4ad3fb8444bb0d944a823a5c3d330fa43c28b57429a413440d326fe"
+    "c4ffdc51438575c843be988341f80d6043e78ed6c60621b344cd24aa45003336"
+    "4511dd61c22faae6452a8036c616c17ec39e7773457427e045cf1e2bc5d1e206"
+    "4522d9e044030e00c32ed902c561a7504520d9f044c59936443dd03ec4209c09"
+    "c40f702043c8ae0ec485ad9343b59846c657392e432f399b43365686438f834b"
+    "45ca859cc36f02b044b71abac4d6e029c4f45de4c50ff9cac285ccc445cedeab"
+    "46164ffec43fc285c4298d7ac3b05cfec4db7fc4c30fcf1ec5f38761c48851a3"
+    "c3cd53ea45a3c624c390355545875570c49aad0644bb97b1c49b14e3c1087a44"
+    "45ee1e38c2fdc8fdc54bb98f464c1ba444daa098c400e3f1436c97cbc4cf3eec"
+    "4407072743abfe4dc55751e344f2fefd450d6d66c2f0ed0bc548160644cddba2"
+    "450edb66c2bdc88c")
+# the one model of the sum (`chip_smoke.tc_models`) that gives all of them
+CARD_MODEL = dict(group=16, extra=2, align="rz", norm="rz", c="joined",
+                  exps="nominal")
+HELPERS = ("smem_at", "pack2", "lo_of", "hi_of", "ldsm_x2_t", "ldsm_x4_t",
+           "mma16816")
 CP_ASYNC = """#pragma once
 namespace {
 template <typename T>
@@ -77,17 +146,32 @@ extern "C" void emu_set_warps(int w) { kMmaWarps = w; }
 """
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_bits():
+    text = "".join(CARD_MMA_BITS)
+    return np.array([int(text[i:i + 8], 16) for i in range(0, len(text), 8)],
+                    np.uint32)
+
+
 def _rewrite(text: str, name: str) -> str:
     text = re.sub(r"(\w+(?:<[^;{}]*?>)?)<<<(.*?)>>>\(",
                   r"emu_launch(\1, \2, ", text, flags=re.S)
     text = re.sub(r"#include <(cuda_bf16|cuda_runtime|cooperative_groups)"
                   r"\.h>\n", "", text)
-    if name == "coupling_mma.cuh":
+    if name == "mma_frag.cuh":
         for fn in HELPERS:
             text, k = re.subn(
                 rf"__device__ __forceinline__ \w+ {fn}\(.*?\n\}}\n", "",
                 text, flags=re.S)
             assert k == 1, fn
+    if name == "coupling_mma.cuh":
         for name in ("kMmaMaxSmem", "kMmaWarps"):
             text, k = re.subn(rf"constexpr int {name} = ",
                               f"int {name} = ", text)
@@ -387,3 +471,58 @@ def test_policy_forward_fits_at_any_stack(planned):
                 for hidden in (8, 16, 32) for blocks in (1, 3, 10, 400)]
         assert cc.mma_plan(8, 400, 4, _widths(8, 4, 32)).bytes == 56448
     assert max(p.bytes for p in need) <= cc.KERNEL_MAX_SMEM
+
+
+def test_emulated_mma_gives_the_cards_bits(tmp_path):
+    """tests/mma_emulation.h's mma16816 through the probe's own source
+    (csrc/mma_probe.cu, built with g++ as phase 59 builds it on the card)
+    gives the card's bits on every one of phase 59's cases, ±0 alike."""
+    cs = _chip_smoke()
+    cases = cs.mma_probe_cases()
+    lib = cs.build_mma_probe_emulation(tmp_path)
+    if lib is None:
+        pytest.skip("no g++ to build the host emulation")
+    got = cs.mma_probe_emulated(lib, cs.mma_probe_arrays(cases))
+    card = _card_bits().view(np.float32)
+    assert len(got) == len(card) == len(cases) == 402
+    off = [i for i in range(len(cases)) if float(got[i]) != float(card[i])]
+    assert not off, [(i, cases[i][0], float(got[i]), float(card[i]))
+                     for i in off[:5]]
+
+
+def test_measured_model_is_the_one_that_fits_the_cards_bits():
+    """Of phase 59's models of the sum, exactly one gives the card's bits
+    on every case (`fit_tc_models`): 16 products, 2 bits below float32's
+    24 kept, cut toward zero, c aligned with the products, a product's
+    exponent its operands' sum, the sum normalised toward zero; the old
+    model (the exact sum truncated once) misses most families."""
+    cs = _chip_smoke()
+    cases = cs.mma_probe_cases()
+    card = _card_bits().view(np.float32)
+    fits, closest = cs.fit_tc_models(cases, card)
+    assert fits == [CARD_MODEL] and closest is None
+    exact_rz = dict(CARD_MODEL, extra=40, exps="true")
+    off = sum(cs.tc_sum(a, b, c, exact_rz) != float(v)
+              for (_, a, b, c), v in zip(cases, card))
+    assert off > 100
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_emulated_policy_kernels_stand_within_the_witness_gate(
+        emu, shape, inverse, seed):
+    """y, ld, gx and every weight gradient at 40 rows within phase 47's
+    gate of the float64-summed witness (`chip_smoke.witness_gate`), and
+    each faulty control past it."""
+    cs = _chip_smoke()
+    stack = _stack(shape)
+    fb, sels = stack[0], stack[1]
+    x, gy, gld = _inputs(SHAPES[shape][0], 40, seed)
+    y, ld, gx, grads = _run(emu, stack, x, gy, gld, inverse, 2)
+    mine, controls = cs.witness_errors(cc, fb, x, gy, gld, sels, inverse, BF,
+                                       [y, ld, gx, *grads])
+    for name, err, err_w in mine:
+        assert cs.witness_gate(err, err_w), (name, err, err_w)
+    for label, errs in controls.items():
+        assert not all(cs.witness_gate(e, ew) for e, ew in errs), label
