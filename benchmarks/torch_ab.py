@@ -1,7 +1,8 @@
 """K1–K6 of two checkouts of this repository on one GPU, in turns.
 
     python benchmarks/torch_ab.py --parent DIR [--out FILE] [--k6]
-        [--no-warps]
+        [--no-warps] [--levers]
+    python benchmarks/torch_ab.py --parts [--out FILE]
 
 DIR is another checkout (for example the parent commit, unpacked with
 ``git archive``). Four runs, in the order DIR, this checkout, this
@@ -24,10 +25,14 @@ own ``build/``), on fixed seeds:
   demo N 262,144;
 * the same policy times (two runs in one process) at 1, 2, 4 and 8 warps
   a CTA: this checkout's package and ``chip_smoke.py`` copied to
-  ``build/torch_ab/warps<w>/`` with ``kMmaWarps`` set to w in the copy's
+  ``build/torch_ab/w=<w>/`` with ``kMmaWarps`` set to w in the copy's
   ``csrc/coupling_mma.cuh`` (the tensor-core kernels' one constant for
   it), each copy built and run in a process of its own, after the four
   runs;
+* with ``--levers``, between the change's two runs, the same policy times
+  of a copy for each of LEVERS (a bfloat16's widening to float64 by
+  integer bit operations in place of cvt), with its registers and whether
+  its policy outputs are the change's bits;
 * the registers and spill bytes ptxas reports for every kernel of the
   checkout's build (its log, which the build keeps beside the library),
   so that the two trees' instantiations can be held against each other;
@@ -58,7 +63,17 @@ registers), and no copy at other warps is built; ``--no-warps`` builds no
 such copy either. Prints one JSON object
 (and writes it to ``--out``): the card, each run's times, and per output
 whether DIR and this checkout gave identical bits and whether this
-checkout's two runs did. Needs a CUDA device.
+checkout's two runs did.
+
+``--parts`` (no DIR) says where the policy's K4/K5 spend their time, as
+the card's machine runs no ``ncu``: a copy of this checkout for each of
+PARTS, with one part of csrc/coupling_mma.cuh knocked out, and an
+unchanged copy first and last, each built (three at a time) and timed
+like a lever's copy. A copy without a part computes wrong values: its
+time says what the part costs on the chain, nothing else. Prints (and
+writes to ``--out``) the card and each copy's times.
+
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -165,21 +180,85 @@ def _policy_times(cs, cc, label="") -> dict:
     return ms
 
 
-def _warps_copy(w: int) -> Path:
+# the other designs of the policy's float64 products (`--levers`), each
+# one edit of csrc/coupling_mma.cuh in a copy: a bfloat16 widened to
+# float64 by integer bit operations (sign, rebiased exponent and mantissa
+# moved into the high word; ±0 kept, the rest by cvt) in place of cvt
+LEVERS = {"bit widening": (
+              "  return (double)__uint_as_float(f);\n}",
+              "  const uint32_t a = f & 0x7fffffffu;\n"
+              "  if (a - 0x00800000u < 0x7f000000u)\n"
+              "    return __hiloint2double(\n"
+              "        (int)((f & 0x80000000u) | ((a >> 3) + 0x38000000u)), "
+              "0);\n"
+              "  if (a == 0) return __hiloint2double((int)f, 0);\n"
+              "  return (double)__uint_as_float(f);\n}")}
+
+# the parts of the policy's K4/K5 that `--parts` knocks out, each one edit
+# of csrc/coupling_mma.cuh in a copy: variant -> (line, its replacement)
+PARTS = {
+    # a k16 product as four m16n8k4 chains (k t + 4q), added pairwise at
+    # the end, in place of one m16n8k16 (the mma runs its k in sequence)
+    "four k4 chains": (
+        "  for (int kc = 0; kc < KC; ++kc) dmma16816(c, a[kc], b[kc]);",
+        "  double p[4][4] = {};\n"
+        "  for (int kc = 0; kc < KC; ++kc)\n"
+        "    for (int q = 0; q < 4; ++q)\n"
+        "      dmma1684(p[q], a[kc][2 * q], a[kc][2 * q + 1], b[kc][q]);\n"
+        "  for (int i = 0; i < 4; ++i)\n"
+        "    c[i] = (p[0][i] + p[1][i]) + (p[2][i] + p[3][i]);"),
+    # no staging of a resident stack (its loads, conversion and stores)
+    "no staging": ("__device__ void mma_stage_all(const Stack& st, "
+                   "const MmaLayout& lay,\n"
+                   "                              unsigned char* sm) {",
+                   "__device__ void mma_stage_all(const Stack& st, "
+                   "const MmaLayout& lay,\n"
+                   "                              unsigned char* sm) {\n"
+                   "  return;"),
+    # with one slot, the landed words copied in but not converted
+    "no conversion": ("                                            "
+                      "int net_bytes) {\n  const int depth = st.depth;",
+                      "                                            "
+                      "int net_bytes) {\n  return;\n"
+                      "  const int depth = st.depth;"),
+    # the k16 products by one DFMA a lane instead of the mma
+    "no dmma k16": (
+        "  for (int kc = 0; kc < KC; ++kc) dmma16816(c, a[kc], b[kc]);",
+        "  for (int kc = 0; kc < KC; ++kc) c[0] = fma(a[kc][0], b[kc][0], "
+        "c[0]);"),
+    # the A fragments' gather without its shuffles
+    "no gather shuffles": (
+        "            __shfl_sync(kWarp, p[2 * kc + (m >> 1)][rh], m & 1 ? s1 "
+        ": s0);", "            p[2 * kc + (m >> 1)][rh];"),
+    # K5's weight gradients' products skipped (the bias gradients stay)
+    "no weight-gradient products": (
+        "  for (int tile = warp; tile < MT * NT; tile += w) {",
+        "  for (int tile = warp; tile < 0; tile += w) {"),
+}
+
+
+def _copy(name: str, line: str, new: str) -> Path:
     """This checkout's package and ``chip_smoke.py`` under
-    build/torch_ab/warps<w>/, its tensor-core kernels at w warps a CTA."""
-    root = HERE / "build" / "torch_ab" / f"warps{w}"
+    build/torch_ab/<name>/, with ``line`` of its csrc/coupling_mma.cuh
+    replaced by ``new``."""
+    root = HERE / "build" / "torch_ab" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(HERE / "normalizingflows_torch",
                     root / "normalizingflows_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(HERE / "chip_smoke.py", root)
     header = root / "normalizingflows_torch" / "csrc" / "coupling_mma.cuh"
-    text, line = header.read_text(), "constexpr int kMmaWarps = 4;"
+    text = header.read_text()
     if line not in text:
         raise RuntimeError(f"no '{line}' in {header}")
-    header.write_text(text.replace(line, f"constexpr int kMmaWarps = {w};"))
+    header.write_text(text.replace(line, new))
     return root
+
+
+def _warps_copy(w: int) -> Path:
+    """A copy (`_copy`) whose tensor-core kernels run w warps a CTA."""
+    return _copy(f"warps{w}", "constexpr int kMmaWarps = 4;",
+                 f"constexpr int kMmaWarps = {w};")
 
 
 def _k6_outputs(cs) -> dict:
@@ -331,9 +410,14 @@ def worker(root: Path, out: Path, k4_n, warps=None, k6=False) -> None:
             raise RuntimeError(f"imported {mod.__file__}, not {root}'s "
                                f"package")
     build = _build.build()  # its ptxas report where this run built it
-    if warps is not None:  # a copy at `warps` warps a CTA: its policy times
-        first, again = (_policy_times(cs, cc, f" w={warps}") for _ in (0, 1))
-        torch.save({"ms": {k: [first[k], again[k]] for k in first}}, out)
+    if warps is not None:  # a copy (other warps, a lever, a part): its
+        # policy times
+        first, again = (_policy_times(cs, cc, f" {warps}") for _ in (0, 1))
+        torch.save({"ms": {k: [first[k], again[k]] for k in first},
+                    "outputs": _policy_outputs(cs, cc),
+                    "registers": {k: [regs, stores, loads] for k, regs,
+                                  stores, loads in cs.ptxas_report(build.log)
+                                  if "dmma" in k}}, out)
         return
     if k6:
         outputs, ms = _k6_outputs(cs), _k6_times(cs)
@@ -357,6 +441,29 @@ def _k4_switch_n() -> tuple:
     return n, n + 1
 
 
+def _parts(copy_run, smi, out) -> int:
+    """``--parts``: the unchanged copy, a copy for each of PARTS, and the
+    unchanged copy again, built three at a time, then each timed."""
+    variants = [("as is", ("", ""))] + list(PARTS.items()) + [
+        ("as is again", ("", ""))]
+    roots = {name: _copy(name.replace(" ", "_"), *edit)
+             for name, edit in variants}
+    names = list(roots)
+    for i in range(0, len(names), 3):
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "from normalizingflows_torch.ops import "
+             "_build; _build.build()"], cwd=roots[n]) for n in names[i:i + 3]]
+        if any([b.wait() for b in builds]):
+            raise RuntimeError("a copy's build failed")
+    text = json.dumps({"card": smi, "device": torch.cuda.get_device_name(0),
+                       "ms": {name: copy_run(root, name)["ms"]
+                              for name, root in roots.items()}}, indent=1)
+    print(text)
+    if out:
+        Path(out).write_text(text)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, help="the other checkout")
@@ -364,11 +471,17 @@ def main() -> int:
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--result", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--k4-n", help=argparse.SUPPRESS)
-    parser.add_argument("--warps", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--warps", help=argparse.SUPPRESS)
     parser.add_argument("--k6", action="store_true",
                         help="K6's outputs and times alone")
     parser.add_argument("--no-warps", action="store_true",
                         help="build no copy at other warps a CTA")
+    parser.add_argument("--levers", action="store_true",
+                        help="also build and time the copies of LEVERS, "
+                             "between the change's two runs")
+    parser.add_argument("--parts", action="store_true",
+                        help="time copies of this checkout with each of "
+                             "PARTS knocked out, and nothing else")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -378,13 +491,33 @@ def main() -> int:
                args.k6)
         return 0
     k4_n = ",".join(str(n) for n in _k4_switch_n())
-    parent = args.parent.resolve()
     scratch = HERE / "build" / "torch_ab"
     scratch.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+    def copy_run(root, label):
+        result = scratch / f"{label.replace(' ', '_')}.pt"
+        subprocess.run([sys.executable, __file__, "--worker", str(root),
+                        "--result", str(result), "--k4-n", k4_n,
+                        "--warps", label], check=True, cwd=root)
+        return torch.load(result)
+
+    if args.parts:
+        return _parts(copy_run, smi, args.out)
+    parent = args.parent.resolve()
     order = (("parent", parent), ("change", HERE), ("change", HERE),
              ("parent", parent))
-    runs = []
+
+    runs, levers = [], {}
     for i, (label, root) in enumerate(order):
+        if i == 2 and args.levers:  # between the change's two runs
+            for name, (line, new) in LEVERS.items():
+                levers[name] = copy_run(
+                    _copy(name.replace(" ", "_"), line, new),
+                    name.replace(" ", "_"))
         result = scratch / f"run{i}.pt"
         subprocess.run([sys.executable, __file__, "--worker", str(root),
                         "--result", str(result), "--k4-n", k4_n]
@@ -392,15 +525,7 @@ def main() -> int:
         runs.append((label, torch.load(result)))
     warps_ms = {}
     for w in () if args.k6 or args.no_warps else (1, 2, 4, 8):
-        root, result = _warps_copy(w), scratch / f"warps{w}.pt"
-        subprocess.run([sys.executable, __file__, "--worker", str(root),
-                        "--result", str(result), "--k4-n", k4_n,
-                        "--warps", str(w)], check=True, cwd=root)
-        warps_ms.update(torch.load(result)["ms"])
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+        warps_ms.update(copy_run(_warps_copy(w), f"w={w}")["ms"])
     p0, c1, c2 = runs[0][1]["outputs"], runs[1][1]["outputs"], \
         runs[2][1]["outputs"]
 
@@ -446,6 +571,13 @@ def main() -> int:
               "order": [label for label, _ in order],
               "ms": {k: [r["ms"].get(k) for _, r in runs] for k in keys},
               "policy_ms_by_warps": warps_ms,
+              # each lever's policy times (two runs in one process), its
+              # registers, and whether its policy outputs are the change's
+              # bits
+              "levers": {name: {
+                  "ms": r["ms"], "registers": r["registers"],
+                  "same_bits_as_change": same(r["outputs"], c1, "K")}
+                  for name, r in levers.items()},
               "identical_bits": bits,
               "k6_differences": k6_diff,
               "registers": registers,

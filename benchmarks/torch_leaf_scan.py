@@ -21,9 +21,13 @@ control (`WITNESS_CONTROLS`), which the gate must catch; and, as a
 reading, each weight gradient's error over the float32 K5's against the
 float32 plain version (`chip_smoke._leaf_ratio`), the kernels' and the
 witness's, and the share of rows whose y, ld and gx are the witness's bit
-for bit. Prints one JSON object (and writes it to ``--out``): the
-quantiles of each ratio (the largest a draw), the draws the gate fails
-and the draws a control passes. ``--package DIR`` runs another
+for bit; and the spans of the kernels' float64 products (`_spans`): of
+every product K4 takes and every product K5 sums on the float64 tensor
+cores, on the witness's operands, how many span more than 53 bits (the
+one place where the float64 mma's sum can round), and the widest. Prints
+one JSON object (and writes it to ``--out``): the quantiles of each ratio
+(the largest a draw), the draws the gate fails, the draws a control
+passes and the spans' totals. ``--package DIR`` runs another
 checkout's package (its kernels, built into its own ``build/``) under
 this checkout's gates, for example the parent commit unpacked with
 ``git archive``.
@@ -39,7 +43,12 @@ K6_WITNESS_FACTOR (`k6_witness_gate`), beside the float32 plain version's
 alone (the old gate's) and the faulty control's
 (`chip_smoke._k6_bf16_products`); and whether phase 52's gate, which takes
 outputs with elements outside TRAIN_TOL, passes the kernel and fails the
-control.
+control. Beside it the check before Adam amplifies roundoff
+(`k6_first_gate`): the first loss and K6's first moment after one step
+(`k6_first_step`) on the first batch drawn off the kinks
+(`k6_first_args`, the rows drawn again counted) against the float64 plain
+run's, the ratio phase 52 holds to K6_FIRST_FACTOR, K6's and the faulty
+control's.
 
 ``--take-apart SEED`` takes one draw's worst weight gradient apart
 (`take_apart`): the kernel's sum of it per CTA slice (before
@@ -101,7 +110,85 @@ def _quantiles(values) -> dict:
             for q in (50, 90, 99)} | {"max": v[-1]}
 
 
-def k5_draw(n, seed, inverse) -> dict:
+def _lsb(v):
+    """The exponent of each bfloat16 value's lowest set bit (int32; 2^20
+    where it is zero): v = M·2^(E − 134) with M = 128 + its mantissa where
+    its exponent field E is past 0, else M = its mantissa and E = 1."""
+    u = v.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    e, m = (u >> 7) & 0xFF, u & 0x7F
+    sig = torch.where(e > 0, m | 0x80, m)
+    base = torch.where(e > 0, e - 134, torch.full_like(e, -133))
+    tz = torch.log2((sig & -sig).clamp(min=1).float()).round().int()
+    return torch.where(sig > 0, base + tz, torch.full_like(e, 1 << 20))
+
+
+def _product_spans(a, b, rows=32768):
+    """`chip_smoke.dmma_span` of every product a[r]·b[:, o] (from zero) of
+    bfloat16 a (n, k) and b (k, m): (n, m) int32, 0 where every term is
+    zero. The top is taken from the float64 sum of the terms' magnitudes,
+    which may round up to the next power of two only where the exact sum
+    spans past 53 bits, so a span is never under the exact one."""
+    la, lb = _lsb(a), _lsb(b)
+    out = []
+    for r0 in range(0, a.shape[0], rows):
+        low = (la[r0:r0 + rows, :, None] + lb[None]).amin(1)
+        top = a[r0:r0 + rows].abs().double() @ b.abs().double()
+        hi = torch.frexp(top).exponent - 1
+        out.append(torch.where(top > 0, hi - low + 1,
+                               torch.zeros_like(low)))
+    return torch.cat(out)
+
+
+def _spans(n, seed, inverse, check=False) -> dict:
+    """Of phase 47's demo draw at N = n from ``seed`` (the draw
+    `chip_smoke.policy_draw_reading` reads), by kernel: the float64
+    products (a row's output of one layer, head or input cotangent; K5's
+    recomputed forward with its cotangents), on the operands of the
+    float64-summed witness, which are the kernels' where they give the
+    witness's bits; how many span more than 53 bits; and the widest span.
+    ``check``: a few spans of each call held to `chip_smoke.dmma_span`."""
+    fb = cs._bf16_fused(cs.RNVP_DEMO, "f32_cbf16")
+    cd = cs.CPL_BF16_VARIANTS["f32_cbf16"][1]
+    sels = cc._sels(fb.idx_even, fb.idx_odd, cs.RNVP_DEMO["q0"])
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(seed)
+    x, gy, gld, _ = cs._policy_draws(cc, fb, sels, n, "f32_cbf16", gen)
+    out, real = {}, cc._dot
+
+    def rec(kernel):
+        tally = out.setdefault(kernel, {"products": 0, "past_53": 0,
+                                        "max_span": 0})
+
+        def dot(a, b, c=None):
+            # K5's weight gradients (in, n)·(n, out) run on the bfloat16
+            # tensor cores: not counted
+            if not (a.shape[-1] == n and b.shape[0] == n):
+                a16, b16 = a.detach().to(cd), b.detach().to(cd)
+                s = _product_spans(a16, b16)
+                tally["products"] += s.numel()
+                tally["past_53"] += int((s > 53).sum())
+                tally["max_span"] = max(tally["max_span"], int(s.max()))
+                if check:
+                    for r, o in zip(*(torch.randint(0, m, (4,)).tolist()
+                                      for m in s.shape)):
+                        want = cs.dmma_span(a16[r].double().tolist(),
+                                            b16[:, o].double().tolist(), 0.0)
+                        got = int(s[r, o])
+                        assert got == want or (want > 53 and got >= want), (
+                            kernel, got, want)
+            return cs._dot_witness(a, b, c)
+        return dot
+
+    try:
+        cc._dot = rec("K4")
+        cc.tile_flow(x, fb.groups, sels, inverse, cd)
+        cc._dot = rec("K5")
+        cc.tile_flow_bwd(x, fb.groups, gy, gld, sels, inverse, cd)
+    finally:
+        cc._dot = real
+    return out
+
+
+def k5_draw(n, seed, inverse, check=False) -> dict:
     """One draw of phase 47's demo case under its gate."""
     r = cs.policy_draw_reading(cc, n, seed, inverse)
     floor = cs.LEAF_FLOOR
@@ -120,11 +207,12 @@ def k5_draw(n, seed, inverse) -> dict:
         leaf_ratio=max(e / max(e32, floor) for e, e32, _ in r["leaves"]),
         leaf_witness_ratio=max(ew / max(e32, floor)
                                for _, e32, ew in r["leaves"]),
-        witness_rows=r["witness_rows"])
+        witness_rows=r["witness_rows"],
+        spans=_spans(n, seed, inverse, check))
 
 
 def k5_scan(n, seeds, seed0, directions) -> dict:
-    return k5_summary([k5_draw(n, seed, inverse)
+    return k5_summary([k5_draw(n, seed, inverse, check=seed == seed0)
                        for seed in range(seed0, seed0 + seeds)
                        for inverse in directions], n)
 
@@ -150,6 +238,11 @@ def k5_summary(draws, n) -> dict:
                          if not all(d["controls_caught"].values())],
         controls_least={k: min(d["controls"][k] for d in draws)
                         for k in cs.WITNESS_CONTROLS},
+        spans={k: {"products": sum(d["spans"][k]["products"] for d in draws),
+                   "past_53": sum(d["spans"][k]["past_53"] for d in draws),
+                   "max_span": max(d["spans"][k]["max_span"]
+                                   for d in draws)}
+               for k in ("K4", "K5") if all("spans" in d for d in draws)},
         worst=sorted(draws, key=lambda d: -d["ratio"])[:8], each=draws)
 
 
@@ -169,6 +262,10 @@ def k6_draw(model, batch, kind, seed) -> dict:
     got = cs._train_outputs(tc.adam_train_realnvp_fused(*args,
                                                         backend="cuda"))
     errs, want = cs.k6_witness_reading(got, args)
+    fargs = cs.k6_first_args(args)
+    first = cs.k6_first_reading(cs.k6_first_step(fargs), fargs)
+    kink_rows = int((fargs[0][0] != args[0][0]).any(1).sum())
+    f_floor = cs.K6_FIRST_FLOOR
     tol = cs.TRAIN_TOL[torch.float32]
     outside = [bool(((a.double() - b.double()).abs()
                      > tol[1] + tol[0] * b.double().abs()).any())
@@ -186,7 +283,15 @@ def k6_draw(model, batch, kind, seed) -> dict:
         control_first_loss=errs[-1][3] / max(errs[-1][1], errs[-1][2],
                                              floor),
         outputs_outside_tol=sum(outside),
-        errors=errs)
+        first_ratio=max(e / max(e32, er, f_floor) for e, e32, er, _ in first),
+        first_control=max(ec / max(e32, er, f_floor)
+                          for _, e32, er, ec in first),
+        first_gate=all(cs.k6_first_gate(e, e32, er)
+                       for e, e32, er, _ in first),
+        first_control_caught=not all(cs.k6_first_gate(ec, e32, er)
+                                     for _, e32, er, ec in first),
+        first_kink_rows=kink_rows,
+        errors=errs, first_errors=first)
 
 
 def k6_scan(seeds, seed0) -> dict:
@@ -204,7 +309,8 @@ def k6_summary(draws) -> dict:
         q[f"{model}_{kind}"] = {
             k: _quantiles([d[k] for d in mine])
             for k in ("ratio", "ratio_plain_only", "shuffled_ratio",
-                      "control", "control_first_loss")}
+                      "control", "control_first_loss", "first_ratio",
+                      "first_control")}
     seeds = sorted({d["seed"] for d in draws})
     return dict(
         kind="k6", seeds=[seeds[0], seeds[-1]], draws=len(draws),
@@ -214,6 +320,12 @@ def k6_summary(draws) -> dict:
         controls_missed=[d for d in draws if not d["control_caught"]],
         control_least=min(d["control"] for d in draws),
         control_first_loss_least=min(d["control_first_loss"] for d in draws),
+        first_factor=cs.K6_FIRST_FACTOR, first_floor=cs.K6_FIRST_FLOOR,
+        first_ratio=_quantiles([d["first_ratio"] for d in draws]),
+        first_control_least=min(d["first_control"] for d in draws),
+        first_gate_fails=[d for d in draws if not d["first_gate"]],
+        first_controls_missed=[d for d in draws
+                               if not d["first_control_caught"]],
         worst=sorted(draws, key=lambda d: -d["ratio"])[:8], each=draws)
 
 

@@ -27,9 +27,10 @@ at each replay:
    staged instantiation (cuobjdump -sass) and the time that count would
    take to issue for each of N = 131072 elements on all the SMs'
    schedulers at the SM's top clock (a static estimate, not a floor); the
-   HMMA instructions of each of the policy's kernels in the same SASS (a
-   policy K5 without one fails; K4's products run on the CUDA cores), and
-   K6's cluster barriers (UCGABAR)
+   DMMA (float64 tensor-core) and HMMA instructions of each of the
+   policy's kernels in the same SASS (a policy kernel without DMMA, a K5
+   without HMMA or a K4 with HMMA fails), and K6's cluster barriers
+   (UCGABAR)
    with the fences (MEMBAR) and L1 invalidations (CCTL) beside them (a K6
    instantiation without all three fails);
 3. kernels against their plain torch versions on the card: K1 forward and
@@ -402,7 +403,18 @@ Then the tensor core's own arithmetic (csrc/mma_probe.cu, a test kernel):
     bits of a smaller addend the alignment keeps, whether c is aligned
     with the products, how the sum is normalised), and
     tests/mma_emulation.h's mma16816 (built with g++) giving the card's
-    bits on every case.
+    bits on every case;
+60. one mma.sync.m16n8k16 .f64 (the float64 tensor cores, the policy's
+    K4/K5 products since they were redesigned for them) a case, and four
+    m16n8k4 .f64 in k order, on crafted operands (`dmma_probe_cases`:
+    bfloat16 products whose exact sum spans at most 53 bits, spans past
+    53 bits, cancelling pairs, a large c under small products, subnormal
+    products, signed zeros), c zero and given: by family how often the
+    result is the exact sum and which rounding fits the rest, the models
+    of the sum that give every case's bits (`fit_dmma_models`); a case
+    within 53 bits whose result is not the exact sum fails; and
+    tests/mma_emulation.h's dmma16816 / dmma1684 (built with g++) giving
+    the card's bits on every case.
 
 Any failure raises, so the exit code is not 0. Without a CUDA device, or
 outside a checkout of the repository, it fails before printing a result.
@@ -771,9 +783,19 @@ TRAIN_BF16_TOL = (1e-4 + 2 * 2 ** -7, 1e-3)
 # generator of its own, seeded K6_CASE_SEED plus its index, so that a
 # subset of phases draws what the whole run draws.
 K6_WITNESS_FACTOR = 36.0
-K6_CASE_SEED, K6_SHUFFLE_SEED = 0, 52
+# Phase 52's check before Adam amplifies roundoff (`k6_first_gate`): the
+# first step's gradient, read from K6's device-resident first moment after
+# one step (m₁ = (1 − β₁)·g, `k6_first_reading`) on the first batch drawn
+# off the kinks (`k6_first_args`), and the first loss, each against the
+# float64 plain run's, at most K6_FIRST_FACTOR times the
+# larger of the two correct float32 runs' errors plus K6_FIRST_FLOOR; the
+# faulty control must be past it in some output. Both from
+# benchmarks/torch_leaf_scan.py --k6 on an H100 (seeds 0-63, the 384 draws
+# of the gate above).
+K6_FIRST_FACTOR, K6_FIRST_FLOOR = 1000.0, 1e-7
+K6_CASE_SEED, K6_SHUFFLE_SEED, K6_KINK_SEED = 0, 52, 53
 BF16_FIRST_LOSS_REL, BF16_TRAJECTORY_REL = 2 * 2 ** -7, 4 * 2 ** -7
-ALL_PHASES = tuple(range(1, 60))
+ALL_PHASES = tuple(range(1, 61))
 
 
 def parse_phases(text: str) -> tuple:
@@ -924,9 +946,10 @@ def phase_device() -> str:
 # (Li16: H, or K for RQS) template arguments in order, and for K4/K5 the
 # storage (Exact, Bf16Storage; Bf16Operands, the bf16 policy's before it
 # had kernels of its own); the bools are INVERSE, then STAGED for K1, and
-# STAGED for K2/K3. The policy's tensor-core kernels (coupling_fwd_mma,
+# STAGED for K2/K3. The policy's tensor-core kernels (coupling_fwd_dmma,
+# coupling_bwd_dmma; before their float64 redesign coupling_fwd_mma,
 # coupling_bwd_mma) take no type: INVERSE, then H.
-_KERNEL_NAME = re.compile(r"(coupling_fwd_mma|coupling_bwd_mma|"
+_KERNEL_NAME = re.compile(r"(coupling_fwd_d?mma|coupling_bwd_d?mma|"
                           r"coupling_bwd_reduce|coupling_bwd_rows|"
                           r"coupling_bwd|coupling_fwd_lanes|coupling_fwd|"
                           r"realnvp_train|rqs_fwd|rqs_bwd_fwddir|"
@@ -958,7 +981,7 @@ def _kernel_variant(kind: str, rest: str):
             types.append(types[-1])
             rest = rest[m.end():]
     seg = rest.split("EEv")[0]
-    if kind.endswith("_mma") or "Bf16Operands" in seg:
+    if kind.endswith("mma") or "Bf16Operands" in seg:
         sfx = "f32_cbf16"
     elif "Bf16Storage" in seg or (kind == "coupling_bwd_reduce"
                                   and types[-1:] == ["bf16"]):
@@ -1107,7 +1130,7 @@ def phase_build():
         raise AssertionError(f"float32 and bfloat16 K1–K5, or K6, spill "
                              f"registers: {spilled}")
     for k in ("rqs_fwd<f32_rbf16", "rqs_fwd<bf16", "rqs_bwd_fwddir<bf16",
-              "coupling_fwd_mma<f32_cbf16", "coupling_bwd_mma<f32_cbf16",
+              "coupling_fwd_dmma<f32_cbf16", "coupling_bwd_dmma<f32_cbf16",
               "coupling_bwd<bf16", "realnvp_train<f64", "realnvp_train<bf16"):
         if build.log and not any(r[0].startswith(k) for r in report):
             raise AssertionError(f"no {k}> in ptxas's report")
@@ -1115,22 +1138,26 @@ def phase_build():
     sass = _sass(build.path)
     est, hmma = None, {}
     if sass is None:
-        say(2, "K1 static issue estimate and HMMA counts: not measured (no "
-               "cuobjdump)")
+        say(2, "K1 static issue estimate and HMMA/DMMA counts: not measured "
+               "(no cuobjdump)")
     else:
         est = static_issue_estimate(sass)
-        hmma = {k: v for k, v in hmma_counts(sass).items()
-                if k.startswith(("coupling_fwd_mma<", "coupling_bwd_mma<"))}
-        # K5's weight gradients run on the tensor cores; K4's products,
-        # like K5's forward and cotangents, on the CUDA cores (exact sums,
-        # csrc/coupling_mma.cuh), so K4 holds none
-        if len(hmma) != 8 or not all(v for k, v in hmma.items()
-                                     if k.startswith("coupling_bwd_mma<")):
-            raise AssertionError(f"the bf16 policy's K5 (fwd/inv x H "
-                                 f"16/32) must hold HMMA instructions, and "
-                                 f"K4 be found beside it: {hmma}")
-        for k, v in sorted(hmma.items()):
-            say(2, f"{k}: {v} HMMA instructions (static count)")
+        policy = ("coupling_fwd_dmma<", "coupling_bwd_dmma<")
+        hmma = {op: {k: v for k, v in hmma_counts(sass, op).items()
+                     if k.startswith(policy)} for op in ("HMMA", "DMMA")}
+        # every product that feeds a bfloat16 rounding on the float64
+        # tensor cores (DMMA), in both kernels; K5's weight gradients on the
+        # bfloat16 ones (HMMA), and K4 none
+        bad = [k for k, v in hmma["DMMA"].items() if not v]
+        bad += [k for k, v in hmma["HMMA"].items()
+                if bool(v) != k.startswith("coupling_bwd_dmma<")]
+        if len(hmma["DMMA"]) != 8 or len(hmma["HMMA"]) != 8 or bad:
+            raise AssertionError(f"the bf16 policy's K4/K5 (fwd/inv x H "
+                                 f"16/32) must each hold DMMA instructions, "
+                                 f"K5 HMMA and K4 none: {hmma} ({bad})")
+        for k in sorted(hmma["DMMA"]):
+            say(2, f"{k}: {hmma['DMMA'][k]} DMMA and {hmma['HMMA'][k]} HMMA "
+                   f"instructions (static count)")
         # K6's cluster barriers, and the fences and L1 invalidations that
         # their release and acquire put beside them: without those, the
         # plain loads of one SM could miss another's writes
@@ -2324,17 +2351,12 @@ def _k6_shuffled(args):
 
 def _k6_bf16_products(args):
     """The faulty control of phase 52: `adam_train_plain` with every
-    conditioner product taking bfloat16 operands (`coupling_cuda._dot`
-    under the policy), a kernel quietly in lower precision."""
-    from normalizingflows_torch.experimental import coupling_cuda as cc
+    conditioner product taking bfloat16 operands (`_bf16_products`), a
+    kernel quietly in lower precision."""
     from normalizingflows_torch.experimental import train_cuda as tc
 
-    real = cc._dot
-    cc._dot = lambda a, b, cd=None: real(a, b, torch.bfloat16)
-    try:
+    with _bf16_products():
         return _train_outputs(tc.adam_train_plain(*args))
-    finally:
-        cc._dot = real
 
 
 def k6_witness_reading(got, args):
@@ -2354,6 +2376,86 @@ def k6_witness_reading(got, args):
     runs = [o + [o[0][:1]] for o in (got, want, rev, ctl, f64)]
     return [tuple(_rel([o[i]], [runs[-1][i]]) for o in runs[:-1])
             for i in range(len(got) + 1)], want
+
+
+def k6_first_gate(err, err32, err32_rev) -> bool:
+    """Phase 52's check of K6's first step (`k6_first_reading`): ``err``
+    at most K6_FIRST_FACTOR times the larger of the two correct float32
+    runs' errors, plus K6_FIRST_FLOOR."""
+    return err <= K6_FIRST_FACTOR * max(err32, err32_rev) + K6_FIRST_FLOOR
+
+
+@contextlib.contextmanager
+def _bf16_products():
+    """Every conditioner product of the plain versions on bfloat16
+    operands (`coupling_cuda._dot` under the policy): the faulty
+    control."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    real = cc._dot
+    cc._dot = lambda a, b, cd=None: real(a, b, torch.bfloat16)
+    try:
+        yield
+    finally:
+        cc._dot = real
+
+
+def _first_step_plain(args):
+    """The plain version's first loss and first moment after one step,
+    (1 − β₁)·g as its Adam forms it (`train_cuda._adam` from m = 0)."""
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    run, leaves = tc._prepare(*args, 0.9, 0.999, 1e-8)
+    with torch.no_grad():
+        loss, grads = tc._loss_and_grads(args[0][0], leaves, run)
+    return [loss.reshape(1)] + [(1.0 - run.b1) * g for g in grads]
+
+
+def k6_first_args(args):
+    """adam_train_realnvp_fused's arguments for one step on the first
+    batch, its rows where a leaky-ReLU pre-activation of the initial stack
+    lies within KINK of 0 (`_kink_rows`) drawn again from the base (seed
+    K6_KINK_SEED): there two correct float32 runs can take the slope on
+    different sides, and one row's gradient moves the batch's by about
+    1/batch of its size (seen at 1,576 times the float32 error on one
+    draw of 384, the 25 steps' gate reading 1.01 on it)."""
+    from normalizingflows_torch.experimental import coupling_cuda as cc
+
+    xs, groups, idx_even, idx_odd, _, loc, scale = args[:7]
+    x = xs[0].clone()
+    sels = cc._sels(idx_even, idx_odd, x.shape[1])
+    gen = torch.Generator(device=x.device).manual_seed(K6_KINK_SEED)
+    while bool((near := _kink_rows(cc, x, groups, sels)).any()):
+        x[near] = loc + scale * torch.randn(
+            (int(near.sum()), x.shape[1]), generator=gen, device=x.device,
+            dtype=x.dtype)
+    return (x[None],) + tuple(args[1:])
+
+
+def k6_first_step(args):
+    """K6's first loss and its first moment after one step, as its launch
+    leaves them in device memory."""
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    run, leaves = tc._prepare(*args, 0.9, 0.999, 1e-8)
+    moments = []
+    with torch.no_grad():
+        _, losses = tc._launch(args[0][:1], leaves, run, 1, moments)
+    return [losses[:1]] + list(moments[0])
+
+
+def k6_first_reading(got, args):
+    """Relative L2 errors against the float64 plain run of the first loss
+    and of each leaf's first moment after one step: (K6's ``got``
+    (`k6_first_step`), the float32 plain version's, the plain version's on
+    shuffled rows, the faulty control's), an output a tuple."""
+    want = _first_step_plain(args)
+    rev = _first_step_plain(_k6_shuffled(args))
+    f64 = _first_step_plain(_as_f64(args))
+    with _bf16_products():
+        ctl = _first_step_plain(args)
+    return [tuple(_rel([o[i]], [f64[i]]) for o in (got, want, rev, ctl))
+            for i in range(len(got))]
 
 
 def _k6_against_plain(tag, args, tol, witness=False):
@@ -2384,6 +2486,34 @@ def _k6_against_plain(tag, args, tol, witness=False):
         _same(f"K6 {tag} output {i}, two runs", a, b)
         _same(f"K6 {tag} output {i}, chunks of 8", a, c)
     if witness:
+        # before Adam amplifies roundoff: the first loss and first moment,
+        # the first batch off the kinks
+        fargs = k6_first_args(args)
+        first = k6_first_reading(k6_first_step(fargs), fargs)
+        f_ratio = max(e / max(e32, er, K6_FIRST_FLOOR)
+                      for e, e32, er, _ in first)
+        f_ctl = max(ec / max(e32, er, K6_FIRST_FLOOR)
+                    for _, e32, er, ec in first)
+        print(f"    K6 {tag}: its first step's error against float64 at "
+              f"most {f_ratio:.3f} times the larger float32 plain run's "
+              f"(limit {K6_FIRST_FACTOR}), the faulty control's "
+              f"{f_ctl:.1f}", flush=True)
+        bad = [i for i, (e, e32, er, _) in enumerate(first)
+               if not k6_first_gate(e, e32, er)]
+        if bad:
+            e, e32, er, _ = first[bad[0]]
+            raise AssertionError(
+                f"K6 {tag}: the first step's output {bad[0]} (0 the loss, "
+                f"then each leaf's first moment) {e:.3e} from the float64 "
+                f"plain run, the float32 plain version's {e32:.3e} and "
+                f"{er:.3e} on shuffled rows (limit {K6_FIRST_FACTOR} times "
+                f"the larger plus {K6_FIRST_FLOOR})")
+        if all(k6_first_gate(ec, e32, er) for _, e32, er, ec in first):
+            raise AssertionError(
+                f"K6 {tag}: the faulty control's first step at most "
+                f"{f_ctl:.2f} times the float32 plain runs' error, within "
+                f"K6_FIRST_FACTOR {K6_FIRST_FACTOR}: the check would not see "
+                f"that fault")
         errs, want = k6_witness_reading(got, args)
         ratio = max(e / max(e32, er, LEAF_FLOOR) for e, e32, er, _ in errs)
         ctl = max(ec / max(e32, er, LEAF_FLOOR) for _, e32, er, ec in errs)
@@ -6558,8 +6688,9 @@ def build_mma_probe_emulation(out: Path):
                            f"{done.stderr[-4000:]}")
     import ctypes
     lib = ctypes.CDLL(str(lib))
-    lib.mma_probe_bf16.argtypes = _build.ENTRIES["mma_probe_bf16"]
-    lib.mma_probe_bf16.restype = ctypes.c_int
+    for entry in ("mma_probe_bf16", "mma_probe_f64"):
+        getattr(lib, entry).argtypes = _build.ENTRIES[entry]
+        getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
@@ -6670,6 +6801,358 @@ def phase_mma_probe():
     say(59, f"the emulation's mma16816 gives the card's bits on all "
             f"{len(cases)} cases")
     return dict(models=fits[:8], by_family=by_family)
+
+
+# ---------------------------------------------------------------------------
+# Phase 60: the float64 tensor core's sum (csrc/mma_probe.cu, mma_probe_f64)
+# ---------------------------------------------------------------------------
+
+DMMA_PROBE_SEED = 60
+DMMA_FAMILY_CASES = 64  # cases a family, half with c zero
+# The models of the float64 sum phase 60 tries (`dmma_sum`): the 16
+# products exact, taken in k order in groups of `group`, each group's
+# products and the running sum (c first, or with c "after": c added to
+# the products' sum in a rounding of its own at the end) summed exactly
+# and rounded once by `norm` ("rn" to nearest even, "rz" toward zero);
+# group 1 is a chain of fused multiply-adds.
+DMMA_GROUPS, DMMA_NORMS, DMMA_CS = (1, 2, 4, 8, 16), ("rn", "rz"), \
+    ("joined", "after")
+
+
+def _dm_term(v) -> tuple:
+    """A float64 addend: (its exact value, whether it is −0)."""
+    return Fraction(v), v == 0 and math.copysign(1.0, v) < 0
+
+
+def _dm_prod(x, y) -> tuple:
+    """x·y exactly, −0 where it is zero with a negative sign."""
+    neg = math.copysign(1.0, x) * math.copysign(1.0, y) < 0
+    v = Fraction(x) * Fraction(y)
+    return v, v == 0 and neg
+
+
+def _dm_round(terms, mode: str) -> float:
+    """Σ terms exactly, rounded once to float64 by ``mode``; an exact zero
+    is −0 only where every term is −0."""
+    s = sum(v for v, _ in terms)
+    if s == 0:
+        return -0.0 if terms and all(v == 0 and neg for v, neg in terms) \
+            else 0.0
+    r = s.numerator / s.denominator  # Python's int division rounds once
+    if mode == "rz" and abs(Fraction(r)) > abs(s):
+        r = math.nextafter(r, 0.0)
+    return r
+
+
+def dmma_sum(a, b, c, model: dict) -> float:
+    """One output of mma.sync.m16n8k16 .f64 (Σ_k a_k·b_k + c over 16 k)
+    under ``model`` (see DMMA_GROUPS), exactly."""
+    G, mode = model["group"], model["norm"]
+    prods = [_dm_prod(x, y) for x, y in zip(a, b)]
+    joined = model["c"] == "joined"
+    acc = _dm_term(c) if joined else None
+    for g0 in range(0, 16, G):
+        terms = prods[g0:g0 + G] + ([acc] if acc is not None else [])
+        acc = _dm_term(_dm_round(terms, mode))
+    if not joined:
+        acc = _dm_term(_dm_round([acc, _dm_term(c)], mode))
+    return -0.0 if acc[1] else float(acc[0])
+
+
+def dmma_exact(a, b, c) -> float:
+    """Σ a_k·b_k + c rounded once to nearest float64 (the exact sum where
+    it is a float64)."""
+    return _dm_round([_dm_prod(x, y) for x, y in zip(a, b)] + [_dm_term(c)],
+                     "rn")
+
+
+def dmma_span(a, b, c) -> int:
+    """The bits from the lowest set bit of any nonzero addend (product or
+    c), or float64's least subnormal 2^-1074 where one lies below it, to
+    the top of the sum of their magnitudes: at most 53, every partial sum
+    in any order is a float64, so any chain of roundings to nearest gives
+    the exact sum. 0 where every addend is zero."""
+    adds = [v for v, _ in [_dm_prod(x, y) for x, y in zip(a, b)]
+            + [_dm_term(c)] if v != 0]
+    if not adds:
+        return 0
+    low = min(-(v.denominator.bit_length() - 1)
+              + ((v.numerator & -v.numerator).bit_length() - 1)
+              for v in adds)
+    if low < -1074:
+        return 10 ** 6
+    top = sum(abs(v) for v in adds)
+    hi = top.numerator.bit_length() - top.denominator.bit_length()
+    if Fraction(2) ** hi > top:
+        hi -= 1
+    return hi - low + 1
+
+
+def dmma_probe_cases(seed: int = DMMA_PROBE_SEED) -> list:
+    """The float64 probe's crafted dot products (family, a, b, c): a and b
+    16 float64 values, c a float64; each family DMMA_FAMILY_CASES cases,
+    half with c zero:
+    "within 53"  bfloat16 products of random signs whose exact sum (with
+                 c) spans at most 53 bits (`dmma_span`);
+    "past 53"    bfloat16 products 2^-40 ... 2^40 of random signs: the sum
+                 spans more, so it rounds;
+    "cancel"     a pair ±L that cancels exactly beside 14 products 2^-8
+                 to 2^-64 times smaller;
+    "under c"    16 bfloat16 products under a c 2^0 ... 2^70 times larger;
+    "subnormal"  operands near 2^-530 whose products (and c) lie in
+                 float64's subnormal range, and products that cancel to a
+                 subnormal sum;
+    "signed zeros" products ±0 (a zero operand beside a signed other), c
+                 ±0, and products that cancel to an exact zero."""
+    rng = np.random.default_rng(seed)
+    half = DMMA_FAMILY_CASES // 2
+
+    def sgn():
+        return 1 if rng.random() < 0.5 else -1
+
+    def bf(e, sign=None):
+        s = sign if sign is not None else sgn()
+        return s * math.ldexp(1 + int(rng.integers(0, 128)) / 128, int(e))
+
+    def prod(e, sign=None):  # a product of about 2^e: its two operands
+        h = e // 2
+        return bf(h, sign), bf(e - h, 1)
+
+    cases = []
+
+    def add(family, pairs, c):
+        a, b = zip(*pairs)
+        cases.append((family, [float(v) for v in a], [float(v) for v in b],
+                      float(c)))
+
+    while len([f for f, *_ in cases if f == "within 53"]) < 2 * half:
+        k = len(cases)
+        pairs = [prod(int(rng.integers(-12, 13))) for _ in range(16)]
+        c = 0.0 if k < half else bf(int(rng.integers(-8, 9))) * bf(0, 1)
+        a, b = zip(*pairs)
+        if dmma_span(a, b, c) <= 53:
+            add("within 53", pairs, c)
+    for k in range(2 * half):
+        pairs = [prod(int(rng.integers(-40, 41))) for _ in range(16)]
+        add("past 53", pairs, 0.0 if k < half else
+            bf(int(rng.integers(-40, 41))) * bf(0, 1))
+    for k in range(2 * half):
+        t = (8, 16, 24, 32, 40, 48, 56, 64)[k % 8]
+        signs = (1, -1, None)[k % 3]
+        i, j = rng.choice(16, size=2, replace=False)
+        big = bf(0, 1), bf(0, 1)
+        pairs = [prod(-t - int(rng.integers(0, 4)), signs)
+                 for _ in range(16)]
+        pairs[i], pairs[j] = big, (-big[0], big[1])
+        add("cancel", pairs, 0.0 if k < half else
+            bf(-t - 2) * bf(0, 1))
+    for k in range(2 * half):
+        j = int(rng.integers(0, 71))
+        pairs = [prod(0, None if k % 2 else 1) for _ in range(16)]
+        c = sgn() * math.ldexp(1 + int(rng.integers(0, 1 << 23)) / (1 << 23),
+                               j)
+        add("under c", pairs, c)
+    for k in range(2 * half):
+        if k % 4 == 3:  # normal products cancelling to a subnormal sum
+            x = bf(-511, 1)
+            pairs = [(x, bf(-511, 1)), (-x, bf(-511, 1))] + [
+                (bf(-530), bf(-530, 1)) for _ in range(14)]
+            add("subnormal", pairs, 0.0 if k < half else math.ldexp(3, -1070))
+            continue
+        pairs = [(bf(-530 - int(rng.integers(0, 12))),
+                  bf(-530 - int(rng.integers(0, 12)), 1)) for _ in range(16)]
+        add("subnormal", pairs, 0.0 if k < half else
+            sgn() * math.ldexp(int(rng.integers(1, 1 << 20)), -1074))
+    for k in range(2 * half):
+        kind = k % 4
+        if kind < 2:  # every product a signed zero
+            pairs = [(sgn() * 0.0, bf(int(rng.integers(-4, 5))))
+                     if rng.random() < 0.5 else
+                     (bf(int(rng.integers(-4, 5))), sgn() * 0.0)
+                     for _ in range(16)]
+            if kind == 1:  # every one −0
+                pairs = [(-0.0, abs(b)) for _, b in pairs]
+        else:  # products that cancel exactly, beside signed zeros
+            pairs = []
+            for _ in range(4):
+                p = prod(int(rng.integers(-6, 7)))
+                pairs += [p, (-p[0], p[1])]
+            pairs += [(sgn() * 0.0, bf(0)) for _ in range(8)]
+            order = rng.permutation(16)
+            pairs = [pairs[i] for i in order]
+        c = (0.0, -0.0)[int(rng.integers(0, 2))]
+        if kind == 1:
+            c = -0.0
+        if kind == 3 and k >= half:
+            c = -0.0
+        add("signed zeros", pairs, c)
+    return cases
+
+
+def dmma_probe_arrays(cases):
+    """The float64 probe's operands (csrc/mma_probe.cu's layout): A (n, 16,
+    16), B (n, 8, 16), C (n, 16, 8), case i at row i % 16 and column
+    (i // 16) % 8, the rest zero; and the positions."""
+    n = len(cases)
+    A = np.zeros((n, 16, 16))
+    B = np.zeros((n, 8, 16))
+    C = np.zeros((n, 16, 8))
+    pos = []
+    for i, (_, a, b, c) in enumerate(cases):
+        r, col = i % 16, (i // 16) % 8
+        A[i, r], B[i, col], C[i, r, col] = a, b, c
+        pos.append((r, col))
+    return A, B, C, pos
+
+
+def _dmma_read(D, pos) -> np.ndarray:
+    return np.array([D[i, r, col] for i, (r, col) in enumerate(pos)])
+
+
+def dmma_probe_card(arrays, k16: bool) -> np.ndarray:
+    """The float64 probe's D on the card: one m16n8k16 (k16) or four
+    m16n8k4 a case."""
+    from normalizingflows_torch.ops._build import library
+
+    A, B, C, pos = arrays
+    ts = [torch.from_numpy(t).to(DEVICE) for t in (A, B, C)]
+    D = torch.full(C.shape, math.nan, dtype=torch.float64, device=DEVICE)
+    err = library().mma_probe_f64(*(t.data_ptr() for t in ts), D.data_ptr(),
+                                  len(pos), int(k16),
+                                  torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"mma_probe_f64 returned CUDA error {err}")
+    torch.cuda.synchronize()
+    return _dmma_read(D.cpu().numpy(), pos)
+
+
+def dmma_probe_emulated(lib, arrays, k16: bool) -> np.ndarray:
+    """The float64 probe's D through the host emulation
+    (`build_mma_probe_emulation`)."""
+    A, B, C, pos = arrays
+    D = np.full(C.shape, np.nan)
+    assert lib.mma_probe_f64(A.ctypes.data, B.ctypes.data, C.ctypes.data,
+                             D.ctypes.data, len(pos), int(k16), None) == 0
+    return _dmma_read(D, pos)
+
+
+def dmma_models():
+    return [dict(group=G, norm=nm, c=c) for G in DMMA_GROUPS
+            for c in DMMA_CS for nm in DMMA_NORMS]
+
+
+def _same_f64(x, y) -> bool:
+    """Bit for bit (±0 apart)."""
+    return float(x) == float(y) and math.copysign(1.0, x) == \
+        math.copysign(1.0, y)
+
+
+def fit_dmma_models(cases, got) -> tuple:
+    """The float64 models (`dmma_models`) that give every case's result
+    ``got`` bit for bit, and, where none does, the one with the fewest
+    cases off and that count."""
+    offs = [(sum(not _same_f64(dmma_sum(a, b, c, m), v)
+                 for (_, a, b, c), v in zip(cases, got)), i)
+            for i, m in enumerate(dmma_models())]
+    fits = [dmma_models()[i] for off, i in offs if off == 0]
+    if fits:
+        return fits, None
+    best = min(offs)
+    return [], (dmma_models()[best[1]], best[0])
+
+
+def describe_dmma_model(m: dict) -> str:
+    return (f"the 16 products exact, taken {m['group']} at a time in k "
+            f"order, each group's products "
+            + ("and the running sum (c first)" if m["c"] == "joined"
+               else "and the running sum, c added at the end")
+            + " summed exactly and rounded once "
+            + {"rn": "to nearest even", "rz": "toward zero"}[m["norm"]])
+
+
+def dmma_by_family(cases, got) -> dict:
+    """Per family: cases, how many within 53 bits, how many give the exact
+    sum (bits and sign of zero), and how many of the rest are the exact sum
+    rounded once to nearest or toward zero."""
+    out = {}
+    for (fam, a, b, c), v in zip(cases, got):
+        f = out.setdefault(fam, dict(cases=0, within_53=0, exact=0,
+                                     within_53_not_exact=0, rn_once=0,
+                                     rz_once=0))
+        f["cases"] += 1
+        terms = [_dm_prod(x, y) for x, y in zip(a, b)] + [_dm_term(c)]
+        exact = sum(t for t, _ in terms) == Fraction(float(v)) and \
+            _same_f64(v, _dm_round(terms, "rn"))
+        within = dmma_span(a, b, c) <= 53
+        f["within_53"] += within
+        f["exact"] += exact
+        f["within_53_not_exact"] += within and not exact
+        if not exact:
+            f["rn_once"] += _same_f64(v, _dm_round(terms, "rn"))
+            f["rz_once"] += _same_f64(v, _dm_round(terms, "rz"))
+    return out
+
+
+def phase_dmma_probe():
+    """Phase 60: the float64 tensor core's sum, measured. The probe
+    (csrc/mma_probe.cu, `mma_probe_f64`) runs one mma.sync.m16n8k16 .f64 a
+    case, and four m16n8k4 .f64 in k order, on `dmma_probe_cases`; by
+    family, how often each result is the exact sum and which rounding of it
+    fits the rest; the models that give every case's bits
+    (`fit_dmma_models`); a case within 53 bits whose result is not the
+    exact sum fails; and tests/mma_emulation.h's dmma16816 and dmma1684,
+    built with g++, must give the card's bits on every case."""
+    cases = dmma_probe_cases()
+    arrays = dmma_probe_arrays(cases)
+    lib = build_mma_probe_emulation(
+        Path(__file__).resolve().parent / "build" / "chip_smoke" /
+        "mma_probe")
+    if lib is None:
+        raise RuntimeError("phase 60 needs g++ to build the host emulation")
+    line, failures = {"seed": DMMA_PROBE_SEED, "cases": len(cases)}, []
+    for shape, k16 in (("m16n8k16", True), ("m16n8k4 x4", False)):
+        got = dmma_probe_card(arrays, k16)
+        fams = dmma_by_family(cases, got)
+        for fam, f in fams.items():
+            say(60, f"{shape} {fam}: {f['cases']} cases, {f['within_53']} "
+                    f"within 53 bits; the exact sum in {f['exact']} "
+                    f"({f['within_53_not_exact']} within 53 bits not); of "
+                    f"the rest the exact sum rounded once to nearest in "
+                    f"{f['rn_once']}, toward zero in {f['rz_once']}")
+        fits, best = fit_dmma_models(cases, got)
+        if fits:
+            say(60, f"{shape}: {len(fits)} model(s) give the card's bits "
+                    f"on all {len(cases)} cases; the first: "
+                    + describe_dmma_model(fits[0]))
+        else:
+            say(60, f"{shape}: no model gives every case's bits; the "
+                    f"closest is off in {best[1]} of {len(cases)}: "
+                    + describe_dmma_model(best[0]))
+        emu = dmma_probe_emulated(lib, arrays, k16)
+        off = [i for i, (x, y) in enumerate(zip(got, emu))
+               if not _same_f64(x, y)]
+        line[shape] = {
+            "bits": "".join(f"{int(u):016x}" for u in got.view(np.uint64)),
+            "by_family": fams, "models": fits, "closest": best,
+            "emulation_off": len(off)}
+        bad = sum(f["within_53_not_exact"] for f in fams.values())
+        if bad:
+            failures.append(f"{shape}: {bad} case(s) within 53 bits are not "
+                            f"the exact sum")
+        if off:
+            i = off[0]
+            failures.append(
+                f"{shape}: tests/mma_emulation.h gives other bits than the "
+                f"card in {len(off)} of {len(cases)} cases (first: case {i}, "
+                f"{cases[i][0]}: card {float(got[i])!r}, emulation "
+                f"{float(emu[i])!r}, exact {dmma_exact(*cases[i][1:])!r})")
+    print(json.dumps({"dmma_probe": line}), flush=True)
+    if failures:
+        raise AssertionError("phase 60: " + "; ".join(failures))
+    say(60, f"every case within 53 bits is the exact sum, and the "
+            f"emulation gives the card's bits on all {len(cases)} cases "
+            f"of both shapes")
+    return line
 
 
 def selected_phases(argv=None) -> set:
@@ -6815,6 +7298,8 @@ def main(argv=None) -> int:
         sharded["ranks"] = phase_two_ranks(phases, name)
     if 59 in phases:
         probe = phase_mma_probe()
+    if 60 in phases:
+        dprobe = phase_dmma_probe()
     if 41 in phases:  # its trace is a profiler run: after the rates
         experiment["profiling_41"] = phase_exp_profiling(
             gen, name, graphed[22]["demo"]["graph"]["steady"]
@@ -6977,14 +7462,16 @@ def main(argv=None) -> int:
         registers={k: regs for k, regs, _, _ in sorted(set(report))
                    if k.startswith("rqs_fwd<")},
         static_issue_estimate=estimate)
-    # the bf16 policy's tensor-core kernels: their registers and HMMA
-    # instructions (phase 2)
+    # the bf16 policy's tensor-core kernels: their registers and DMMA and
+    # HMMA instructions (phase 2)
     for k in CPL_KERNELS:
-        mma = f"{k}_mma<"
+        mma = f"{k}_dmma<"
         cpl16[f"{k}_f32_cbf16"].update(
             registers={n: regs for n, regs, _, _ in sorted(set(report))
                        if n.startswith(mma)},
-            hmma={n: c for n, c in hmma.items() if n.startswith(mma)})
+            **{op.lower(): {n: c for n, c in hmma.get(op, {}).items()
+                            if n.startswith(mma)}
+               for op in ("DMMA", "HMMA")})
 
     def entry(k, source, r, extra):
         return {"name": k, "route": "cuda",

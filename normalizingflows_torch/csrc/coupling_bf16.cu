@@ -6,12 +6,12 @@
 //                product takes bfloat16 operands (W rounded as it is
 //                staged; a layer's input and its cotangent once a layer;
 //                the weight gradient's two operands at use) and sums in
-//                float32: the exact sum rounded once (float64 on the CUDA
-//                cores) wherever a bfloat16 rounding follows, the weight
-//                gradients by mma.sync m16n8k16 on the tensor cores; one
-//                warp a tile of 16 rows (csrc/coupling_mma.cuh: they
-//                replace the Pallas `_fwd_kernel` and `_bwd_kernel` under
-//                the policy);
+//                float32: the exact sum rounded once (mma.sync .f64 on
+//                the float64 tensor cores) wherever a bfloat16 rounding
+//                follows, the weight gradients by mma.sync m16n8k16 on the
+//                bfloat16 tensor cores; one warp a tile of 16 rows
+//                (csrc/coupling_mma.cuh: they replace the Pallas
+//                `_fwd_kernel` and `_bwd_kernel` under the policy);
 //                the selections and everything else exact float32, as
 //                `_dot(a, b, cd)` leaves them.
 //   *_bf16       x, weights, y, ld, gx and the weight gradients stored in
@@ -23,10 +23,9 @@
 //
 // What bounds them: bfloat16 storage as the float32 kernels
 // (csrc/coupling_kernels.cuh), the CUDA cores' float32 rate and, at small
-// batches, one row's chain. The policy: the conversions to float64 of its
-// exact sums, the float32 work around the products (bias, activation, the
-// roundings, tanh and exp) and, at 16 to 256 rows, one tile's chain
-// (csrc/coupling_mma.cuh). Built as a source of its own so
+// batches, one row's chain. The policy: the float32 work around the
+// products (bias, activation, the roundings, tanh and exp, the fragments'
+// gathers) and, at 16 to 256 rows, one tile's chain (csrc/coupling_mma.cuh). Built as a source of its own so
 // that nvcc compiles it beside csrc/coupling.cu. The entries' arguments are
 // those of csrc/coupling.cu's (for *_bf16 the scratch is float32 words; the
 // policy's entries ignore `lanes`: they have one tile).

@@ -1,7 +1,7 @@
-// K4/K5 under the bf16 compute_dtype policy, K5's weight gradients on
-// Hopper's tensor cores: the C entries coupling_fwd_f32_cbf16 and
-// coupling_bwd_f32_cbf16 (csrc/coupling_bf16.cu) launch coupling_fwd_mma
-// and coupling_bwd_mma (+ coupling_bwd_reduce, csrc/coupling_kernels.cuh).
+// K4/K5 under the bf16 compute_dtype policy, on Hopper's float64 and
+// bfloat16 tensor cores: the C entries coupling_fwd_f32_cbf16 and
+// coupling_bwd_f32_cbf16 (csrc/coupling_bf16.cu) launch coupling_fwd_dmma
+// and coupling_bwd_dmma (+ coupling_bwd_reduce, csrc/coupling_kernels.cuh).
 //
 // What they replace (normalizingflows/jl_tpu/experimental/
 // coupling_pallas.py), under compute_dtype=bfloat16: K4 the Pallas
@@ -20,27 +20,30 @@
 // product one ulp off it flips one such rounding in 2^16, and over the
 // demo's 262,144 rows a flipped row, now and then across a leaky ReLU's
 // kink, puts a weight gradient far from the plain version where the
-// witness stands near it (the tensor-core forward with the bias as its
-// addend: 1,179 times the witness's error on one draw; every product
-// rounded to nearest from two mma passes, `mma_rn`: still up to 117 times,
-// 10 of 128 draws past phase 47's 20; benchmarks/torch_leaf_scan.py on an
-// H100). Hopper's mma.sync cannot give the exact sum: it aligns its
-// addends to the largest and cuts each below 2^(E − 25) (chip_smoke.py
-// phase 59), so a product 2^-11 below the largest loses bits in either
-// pass. So those products run on the CUDA cores in float64 (`dense_exact`,
-// `mma_input_cot`: a quad's lanes each sum their share of the k,
-// `quad_sum` adds the shares), and the weight gradients, which only sum
-// over the rows, run on the tensor cores, each k16 product rounded to
-// nearest (`mma_rn`).
+// witness stands near it (the bfloat16 tensor core's sum, with the bias as
+// its addend: 1,179 times the witness's error on one draw;
+// benchmarks/torch_leaf_scan.py on an H100). The bfloat16 mma.sync cannot
+// give the exact sum: it aligns its addends to the largest and cuts each
+// below 2^(E − 25) (chip_smoke.py phase 59). The float64 one can: a
+// product of two bfloat16 is exact in float64, and chip_smoke.py phase 60
+// measured mma.sync.m16n8k16 .f64 (and m16n8k4) on the H100 as a chain of
+// fused multiply-adds rounded to nearest, so a sum that spans at most 53
+// bits is exact in any order. So those products run on the float64
+// tensor cores (`prod_k16`, `prod_k4`), from zero, each sum rounded once
+// to float32; the weight gradients, which only sum over the rows, run on
+// the bfloat16 tensor cores, each k16 product rounded to nearest
+// (`mma_rn`).
 //
-// What bounds them on this card: not the products. At the demo's 262,144
-// rows K5 needs about 3.7 GMAC (16 GMAC of mma with the padding), some
-// 0.2 ms of float64 FMAs at the CUDA cores' rate for the forward and the
-// cotangents; the conversions to float64 (16 a clock an SM, a quarter of
-// the FMAs' rate), the float32 work around each product (bias, leaky
-// ReLU, the roundings, tanh and exp, the gathers) and at 16 to 256 rows
-// the length of one tile's dependent chain (the weights' staging, then per
-// coupling its layers) set the pace.
+// What bounds them on this card: not the products' count. At the demo's
+// 262,144 rows K5 needs about 3.7 GMAC, 0.11 ms at the float64 tensor
+// cores' 67 TFLOP/s were they all float64; the padding to the mma's
+// shapes (a head of n_A ≤ 4 outputs in an n8 tile, layer 0's n_B ≤ 4
+// inputs in a k4), the float64 mma's k taken in sequence (phase 60), the
+// float32 work around each product (bias, leaky ReLU, the roundings, tanh
+// and exp, the gathers), the bfloat16 weight-gradient passes and at 16 to
+// 256 rows the length of one tile's dependent chain (the weights'
+// staging, then per coupling its layers) set the pace
+// (benchmarks/torch_ab.py --parts times each part by knocking it out).
 //
 // The design: one warp, one tile of 16 rows (the mma's M). A CTA is
 // kMmaWarps warps, 16·kMmaWarps rows, sharing the staged weights. The
@@ -49,53 +52,56 @@
 // * Weights: each coupling's s and t nets, zero-padded to the kernels'
 //   bounds (n_A, n_B ≤ 4, H = 16 or 32, 2 to 4 layers), are rounded to
 //   bfloat16 once, as they are staged (the float32 kernels' rounding point
-//   of W), and stored transposed, Wᵀ (out, in): the forward reads a lane's
-//   pair of inputs from a row, the input cotangent two rows along the
-//   inputs. A row of Wᵀ is H + 8 bfloat16 (48 or 80 bytes); the first
-//   layer's, 8 wide, 16 bytes. Biases stay float32. A stack that fits in
-//   shared memory beside the rest is staged whole once a CTA; a larger one
-//   a coupling at a time between barriers. A coupling's float32 words come
-//   in by cp.async into one of two landing slots (every copy in flight at
-//   once, none holding a register), and a pass within shared memory rounds
-//   and transposes them into the staged layout while the next coupling's
-//   copies land.
-// * Layers hold their values in the mma's fragment layouts: a layer's
-//   input as a k16 A fragment (lane (g, t): rows g and g + 8, k 2t, 2t + 1
-//   and those + 8), its outputs as n8 C fragments (rows g, g + 8, columns
-//   2t, 2t + 1). The first layer's x_B fills k 0..3, the rest zero; both
-//   nets take the same input.
-// * Hidden layers: the float32 C fragments of two neighbouring n8 tiles
-//   hold the same (row, column) pairs a thread holds of one k16 A
-//   fragment, so each thread adds the bias, takes the leaky ReLU (slope
-//   0.01) in float32, rounds to bfloat16 and packs, and that is the next
-//   layer's input: the activations never leave registers.
-// * Head: n_A ≤ 4 fills one n8 tile (rows 4..7 of Wᵀ zero). Lane (g, t)
-//   with t < 2 holds s and t of k = 2t, 2t+1 at rows g and g + 8: tanh,
-//   exp, y_A = x_A·exp(s) + t, written back by index; ld += Σ s is one
-//   shuffle within the quad. The inverse keeps the float32 kernels' order:
-//   blocks last to first, the odd coupling before the even one.
+//   of W), widened exactly to float64 and stored transposed, Wᵀ (out,
+//   in): layer 0's H rows of 4 (the n_B ≤ 4 inputs), each hidden layer's
+//   H rows of H + 4, the head's 4 rows (n_A ≤ 4) of H + 4. A row is 4
+//   doubles past a multiple of 16, so a quad's 8-byte fragment reads fall
+//   in distinct banks both along a row (the forward's B) and down a column
+//   (the input cotangent's). Biases stay float32. A stack that fits in
+//   shared memory beside the rest is staged whole once a CTA, straight
+//   from device memory (kStageLoads loads in flight a thread); a larger
+//   one a coupling at a time between barriers: its float32 words land by
+//   cp.async in a landing slot (every copy in flight at once, none holding
+//   a register), and a pass within shared memory rounds, widens and
+//   transposes them into the staged layout.
+// * A layer's values between products are bfloat16 pairs in the mma's C
+//   layout (lane (g, t): rows g, g + 8, columns 2t, 2t + 1 of each n8
+//   tile): the float64 C of a product rounded once to float32, the bias
+//   added, the leaky ReLU (slope 0.01) taken in float32 and rounded to
+//   bfloat16 (`mma_layer`). The next product's float64 A fragment wants
+//   k t, t + 4, t + 8, t + 12 of each k16 (`gather`): 8 quad shuffles a
+//   k16, each value widened to float64 by one cvt (`widen`).
+//   The activations never leave registers.
+// * Layer 0 takes x_B (n_B ≤ 4) as one m16n8k4 an n8 tile; the head's
+//   n_A ≤ 4 outputs fill half an n8 tile (lane (g, t) with t < 2 holds s
+//   and t of k = 2t, 2t+1 at rows g and g + 8): tanh, exp, y_A =
+//   x_A·exp(s) + t, written back by index; ld += Σ s is one shuffle within
+//   the quad. The inverse keeps the float32 kernels' order: blocks last to
+//   first, the odd coupling before the even one.
 // * K5 recomputes the forward keeping each coupling's input in shared
 //   memory, then per coupling from the last: rebuilds the conditioners,
 //   writing each layer's input (bfloat16, the rounded value the product
 //   takes) to shared memory; then per net and layer from the head down,
 //   G = gc ⊙ slope (float32; the slope from the kept post-activation, 1
-//   where it is ≥ 0), the input cotangent round(G)·Wᵀ from its own
-//   registers, and, after one barrier, the weight gradient gW = Hᵀ·G over
-//   the CTA's 16·w rows as the mma's k dimension: round(G) and the kept H
-//   are read back as fragments by ldmatrix.trans. gb = Σ_rows G is an
-//   exact float32 sum (a butterfly within each warp, then the warps in
-//   order). Each CTA sums its tiles' gradients (its first tile writes,
-//   later tiles add) in shared memory where they fit, else in its own
-//   slice of the scratch buffer, and copies them to its slice;
-//   coupling_bwd_reduce sums the slices in CTA order. K5 launches no more
-//   CTAs than fit at once. No atomics, so two runs give the same bits.
+//   where it is ≥ 0), the input cotangent round(G)·Wᵀ on the float64
+//   tensor cores (the head's by m16n8k4 over its n_A ≤ 4 outputs), and,
+//   after one barrier, the weight gradient gW = Hᵀ·G over the CTA's 16·w
+//   rows as the bfloat16 mma's k dimension: round(G) and the kept H are
+//   read back as fragments by ldmatrix.trans. gb = Σ_rows G is an exact
+//   float32 sum (a butterfly within each warp, then the warps in order).
+//   Each CTA sums its tiles' gradients (its first tile writes, later tiles
+//   add) in shared memory where they fit, else in its own slice of the
+//   scratch buffer, and copies them to its slice; coupling_bwd_reduce sums
+//   the slices in CTA order. K5 launches no more CTAs than fit at once. No
+//   atomics, so two runs give the same bits.
 // * Rounding points are the float32 kernels' policy's: W once at staging,
 //   a layer's input and its cotangent once a layer, gW's two operands at
 //   use. A row's outputs (y, ld, gx) depend on that row alone.
 // Why not wgmma or TMA: a conditioner's k is 4 to 32 and its n 4 to 32. A
 // wgmma takes 64-row tiles from a warpgroup with B in shared memory, so at
-// the demo's 16 rows it would be three quarters padding. A wgmma row tile
-// for K5's weight gradients at 64 rows and more is later work.
+// the demo's 16 rows it would be three quarters padding, and it has no
+// float64 form. A wgmma row tile for K5's weight gradients at 64 rows and
+// more is later work.
 
 #pragma once
 #include "coupling_kernels.cuh"
@@ -116,40 +122,35 @@ constexpr int kMmaMaxSmem = 227 * 1024;
 constexpr int kXs = kMaxD + 1;    // words a row of a warp's x and cotangent arrays
 
 // ---------------------------------------------------------------------------
-// One net's staged layout (bytes from its start): layer 0's Wᵀ (H rows of 8
-// bfloat16: the n_B ≤ 4 inputs, zero-padded), each hidden layer's Wᵀ (H rows
-// of H + 8), the head's Wᵀ (8 rows of H + 8: n_A ≤ 4 outputs), then the
-// biases in float32 (H a layer, 8 for the head). A coupling is the s net
-// then the t net.
+// One net's staged layout: layer 0's Wᵀ (H rows of 4 doubles: the n_B ≤ 4
+// inputs, zero-padded), each hidden layer's Wᵀ (H rows of H + 4 doubles),
+// the head's Wᵀ (4 rows of H + 4: n_A ≤ 4 outputs), then the biases in
+// float32 (H a layer, 8 for the head). A coupling is the s net then the t
+// net. Columns H .. H + 3 of a row are padding, which nothing reads.
 // ---------------------------------------------------------------------------
 
-__host__ __device__ inline int mma_w_off(int H, int l) {  // bfloat16 words
-  return l == 0 ? 0 : 8 * H + (l - 1) * H * (H + 8);
+__host__ __device__ inline int mma_w_off(int H, int l) {  // doubles
+  return l == 0 ? 0 : 4 * H + (l - 1) * H * (H + 4);
 }
 __host__ __device__ inline int mma_bias_off(int H, int depth) {  // bytes
-  return 2 * (8 * H + (depth - 2) * H * (H + 8) + 8 * (H + 8));
+  return 8 * (4 * H + (depth - 2) * H * (H + 4) + 4 * (H + 4));
 }
 __host__ __device__ inline int mma_net_bytes(int H, int depth) {
   return mma_bias_off(H, depth) + 4 * ((depth - 1) * H + 8);
-}
-// the staged words of one net, padding included (not the rows' 8 spare
-// words of hidden and head Wᵀ, which nothing reads)
-__host__ __device__ inline int mma_net_words(int H, int depth) {
-  return 8 * H + (depth - 2) * H * H + 8 * H + (depth - 1) * H + 8;
 }
 
 // Shared memory of one launch, in bytes: the weights (every coupling's, or
 // one slot), then each warp's x rows; K5 also each warp's cotangent rows,
 // every coupling's input for the CTA's rows, the kept layer inputs (x_B,
 // and per net each hidden level) and two layers' G and bias-gradient
-// partials; then the landing slots, each one coupling's float32 words at
-// the kernels' bounds (`net_words`), which cp.async fills for the
-// conversion to the staged layout: K4 one a coupling where they fit beside
-// the resident stack (`lands`), else two; and for K5, where it fits, the
+// partials; then, with one slot, a landing slot, one coupling's float32
+// words at the kernels' bounds (`net_words`), which cp.async fills for
+// the conversion to the staged layout (a resident stack is
+// staged straight from device memory); and for K5, where it fits, the
 // CTA's partial weight gradients (`acc`, −1 where they go to device
 // memory).
 struct MmaLayout {
-  int net, slot, resident, ring, lands;
+  int net, slot, resident, ring;
   int xs, gs, saved, hx, hh, gbuf, gb, land, acc, bytes;
 };
 
@@ -179,18 +180,11 @@ inline int mma_layout(MmaLayout& lay, int64_t& need, const Stack& st, int H,
     gbuf = take((int64_t)2 * rows * S * 2);
     gb = take((int64_t)2 * w * H * 4);
   }
-  const int64_t land = take(2 * (int64_t)lay.ring);
-  const int64_t all = (int64_t)n_c * lay.slot + rest;
-  lay.resident = all <= kMmaMaxSmem;
+  lay.resident = (int64_t)n_c * lay.slot + rest <= kMmaMaxSmem;
+  const int64_t land = lay.resident ? -1 : take((int64_t)lay.ring);
   const int64_t weights = lay.resident ? (int64_t)n_c * lay.slot : lay.slot;
   need = weights + rest;
   if (need > kMmaMaxSmem) return kInvalid;
-  lay.lands = 2;
-  if (!backward && lay.resident && n_c > 2 &&
-      all + (int64_t)(n_c - 2) * lay.ring <= kMmaMaxSmem) {
-    lay.lands = n_c;
-    rest += (int64_t)(n_c - 2) * lay.ring;
-  }
   const int64_t acc = 4 * n_params_of(st);
   lay.acc = backward && weights + rest + acc <= kMmaMaxSmem
                 ? (int)(weights + rest) : -1;
@@ -201,7 +195,7 @@ inline int mma_layout(MmaLayout& lay, int64_t& need, const Stack& st, int H,
   lay.hh = (int)(weights + hh);
   lay.gbuf = (int)(weights + gbuf);
   lay.gb = (int)(weights + gb);
-  lay.land = (int)(weights + land);
+  lay.land = land < 0 ? -1 : (int)(weights + land);
   need = weights + rest + (lay.acc >= 0 ? acc : 0);
   lay.bytes = (int)need;
   return 0;
@@ -235,16 +229,28 @@ __device__ __forceinline__ void mma_fetch(const Stack& st, int c, float* to) {
   cp_commit();
 }
 
-// One layer's Wᵀ (OBP rows of IBP of the staged layout, rows S bfloat16
+// A weight as the staged layout holds it: rounded to bfloat16 (to nearest
+// even), widened to float64
+__device__ __forceinline__ double bf16_wide(float v) {
+  return (double)__bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One layer's Wᵀ (OBP rows of IBP of the staged layout, rows SW doubles
 // apart) from its landed W (in × ow), each weight rounded to bfloat16 (to
-// nearest even), the padding zero
-template <int OBP, int IBP, int S>
+// nearest even) and widened to float64, the padding zero. A thread takes
+// two neighbouring inputs of an output, the outputs fastest across the
+// threads: the landed rows are read in order and each pair stored in one
+// 16-byte write (reading down W's columns put a warp's reads in one bank)
+template <int OBP, int IBP, int SW>
 __device__ __forceinline__ void mma_convert_w(const float* W, int in, int ow,
-                                              __nv_bfloat16* wt) {
-  for (int e = threadIdx.x; e < OBP * IBP; e += blockDim.x) {
-    const int o = e / IBP, i = e - (e / IBP) * IBP;
-    wt[o * S + i] =
-        __float2bfloat16_rn(o < ow && i < in ? W[i * ow + o] : 0.f);
+                                              double* wt) {
+#pragma unroll 2
+  for (int e = threadIdx.x; e < OBP * IBP / 2; e += blockDim.x) {
+    const int i = 2 * (e / OBP), o = e - (e / OBP) * OBP;
+    const float w0 = o < ow && i < in ? W[i * ow + o] : 0.f;
+    const float w1 = o < ow && i + 1 < in ? W[(i + 1) * ow + o] : 0.f;
+    *reinterpret_cast<double2*>(wt + o * SW + i) = make_double2(
+        bf16_wide(w0), bf16_wide(w1));
   }
 }
 
@@ -259,17 +265,17 @@ __device__ __forceinline__ void mma_convert(const Stack& st, int g,
 #pragma unroll 1
   for (int net = 0; net < 2; ++net) {
     unsigned char* wn = wc + net * net_bytes;
-    auto* wt = reinterpret_cast<__nv_bfloat16*>(wn);
+    auto* wt = reinterpret_cast<double*>(wn);
     float* bias = reinterpret_cast<float*>(wn + mma_bias_off(H, depth));
 #pragma unroll 1
     for (int l = 0; l < depth; ++l) {
       const int in = st.width[g][l], ow = st.width[g][l + 1];
       if (l == 0)
-        mma_convert_w<H, 8, 8>(from + off, in, ow, wt);
+        mma_convert_w<H, 4, 4>(from + off, in, ow, wt);
       else if (l < depth - 1)
-        mma_convert_w<H, H, H + 8>(from + off, in, ow, wt + mma_w_off(H, l));
+        mma_convert_w<H, H, H + 4>(from + off, in, ow, wt + mma_w_off(H, l));
       else
-        mma_convert_w<8, H, H + 8>(from + off, in, ow, wt + mma_w_off(H, l));
+        mma_convert_w<4, H, H + 4>(from + off, in, ow, wt + mma_w_off(H, l));
       off += in_bound(H, l) * out_bound(H, l, depth);
       const int ob = l < depth - 1 ? H : 8;
       for (int e = threadIdx.x; e < ob; e += blockDim.x)
@@ -279,46 +285,76 @@ __device__ __forceinline__ void mma_convert(const Stack& st, int g,
   }
 }
 
-// Every coupling into its resident slot: with a landing slot a coupling,
-// all copied at once, then converted; else coupling c + 1 copied into one
-// landing slot while coupling c is converted from the other.
+// Every coupling into its resident slot straight from device memory, each
+// weight rounded to bfloat16 and widened as `mma_convert_w` does it (a
+// thread a pair of inputs of an output, the outputs fastest): the stack's
+// pairs, numbered across couplings, nets and layers, dealt to the threads
+// kStageLoads at a time, so that that many loads are in flight at once;
+// then the biases
+constexpr int kStageLoads = 8;
 template <bool INVERSE, int H>
 __device__ void mma_stage_all(const Stack& st, const MmaLayout& lay,
                               unsigned char* sm) {
-  const int n_c = 2 * st.n_blocks, words = lay.ring / 4;
-  float* ring = reinterpret_cast<float*>(sm + lay.land);
-  if (lay.lands >= n_c) {
+  const int depth = st.depth, n_c = 2 * st.n_blocks, nt = blockDim.x;
+  const int hidden = H * H / 2;  // a hidden layer's pairs; layer 0, head 2H
+  const int net_pairs = 4 * H + (depth - 2) * hidden;
+  const int pairs = n_c * 2 * net_pairs;
 #pragma unroll 1
-    for (int c = 0; c < n_c; ++c)
-      mma_fetch<INVERSE, H>(st, c, ring + c * words);
-    cp_wait_all();
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < n_c; ++c) {
+  for (int e0 = threadIdx.x; e0 < pairs; e0 += kStageLoads * nt) {
+    float w[kStageLoads][2];
+    double* to[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + u * nt;
+      w[u][0] = w[u][1] = 0.f;
+      to[u] = nullptr;
+      if (e >= pairs) continue;
+      const int c = e / (2 * net_pairs), r = e - c * 2 * net_pairs;
+      const int net = r >= net_pairs, q = r - net * net_pairs;
+      int l, i, o;  // i even: the pair's first input
+      if (q < 2 * H) {
+        l = 0, i = 2 * (q / H), o = q % H;
+      } else if (q < 2 * H + (depth - 2) * hidden) {
+        const int h = q - 2 * H;
+        l = 1 + h / hidden;
+        const int k = h - (l - 1) * hidden;
+        i = 2 * (k / H), o = k % H;
+      } else {
+        const int k = q - 2 * H - (depth - 2) * hidden;
+        l = depth - 1, i = 2 * (k / 4), o = k % 4;
+      }
       int g, blk;
       coupling_at<INVERSE>(st, c, g, blk);
-      mma_convert<H>(st, g, ring + c * words, sm + (int64_t)c * lay.slot,
-                     lay.net);
+      const int in = st.width[g][l], ow = st.width[g][l + 1];
+      const float* W = static_cast<const float*>(st.W[g][net][l]) +
+                       (int64_t)blk * in * ow;
+      if (o < ow && i < in) w[u][0] = W[i * ow + o];
+      if (o < ow && i + 1 < in) w[u][1] = W[(i + 1) * ow + o];
+      to[u] = reinterpret_cast<double*>(sm + (int64_t)c * lay.slot +
+                                        net * lay.net) +
+              mma_w_off(H, l) + o * (l == 0 ? 4 : H + 4) + i;
     }
-    __syncthreads();
-    return;
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u)
+      if (to[u])
+        *reinterpret_cast<double2*>(to[u]) =
+            make_double2(bf16_wide(w[u][0]), bf16_wide(w[u][1]));
   }
-  mma_fetch<INVERSE, H>(st, 0, ring);
-#pragma unroll 1
-  for (int c = 0; c < n_c; ++c) {
-    if (c + 1 < n_c) {
-      mma_fetch<INVERSE, H>(st, c + 1, ring + ((c + 1) & 1) * words);
-      cp_wait_one();
-    } else {
-      cp_wait_all();
-    }
-    __syncthreads();  // coupling c landed, every thread's words
+  const int net_bias = (depth - 1) * H + 8;
+  for (int e = threadIdx.x; e < n_c * 2 * net_bias; e += nt) {
+    const int c = e / (2 * net_bias), r = e - c * 2 * net_bias;
+    const int net = r >= net_bias, j = r - net * net_bias;
+    const int l = j < (depth - 1) * H ? j / H : depth - 1, o = j - l * H;
     int g, blk;
     coupling_at<INVERSE>(st, c, g, blk);
-    mma_convert<H>(st, g, ring + (c & 1) * words,
-                   sm + (int64_t)c * lay.slot, lay.net);
-    __syncthreads();  // its landing slot free for coupling c + 2
+    const int ow = st.width[g][l + 1];
+    reinterpret_cast<float*>(sm + (int64_t)c * lay.slot + net * lay.net +
+                             mma_bias_off(H, depth))[j] =
+        o < ow ? static_cast<const float*>(st.b[g][net][l])[
+                     (int64_t)blk * ow + o]
+               : 0.f;
   }
+  __syncthreads();
 }
 
 // Coupling c's staged weights: its resident slot, or (one slot) c fetched
@@ -373,146 +409,137 @@ __device__ __forceinline__ void mma_rn(float (&c)[4], uint32_t a0,
 }
 
 // ---------------------------------------------------------------------------
+// The float64 products
+// ---------------------------------------------------------------------------
+
+// A bfloat16 (f: its float32 bits, the low half zero) as float64, exactly,
+// by cvt (one F2F; the sign, exponent and mantissa moved on the integer
+// pipes instead took K4 and K5 1.4 to 1.7 times as long, torch_ab.py
+// --levers on an H100)
+__device__ __forceinline__ double widen(uint32_t f) {
+  return (double)__uint_as_float(f);
+}
+
+// A product's float64 A fragments from its bfloat16 input in the C layout
+// (p[nt][0] rows g, p[nt][1] rows g + 8, each two columns 2t, 2t + 1 of n8
+// tile nt): k16 chunk kc wants k t + 4m (m = 0..3) of rows g, g + 8, which
+// lane (g, t / 2 + 2(m % 2)) holds in tile 2kc + m / 2, in the half t % 2
+template <int NT>
+__device__ __forceinline__ void gather(const uint32_t (&p)[NT][2],
+                                       double (&x)[NT / 2][8], int lane) {
+  const int s0 = (lane & ~3) | ((lane & 3) >> 1), s1 = s0 + 2;
+  const bool hi = lane & 1;
+#pragma unroll
+  for (int kc = 0; kc < NT / 2; ++kc)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const uint32_t v =
+            __shfl_sync(kWarp, p[2 * kc + (m >> 1)][rh], m & 1 ? s1 : s0);
+        x[kc][2 * m + rh] = widen(hi ? v & 0xffff0000u : v << 16);
+      }
+}
+
+// c = A·B from zero over KC k16 chunks, A this lane's fragments (`gather`),
+// B(k, n) = w[k·sk + n·sn] in staged doubles for the n8 tile's n < nlive
+// (0 past it), by m16n8k16 .f64: each product of two bfloat16 exact, and
+// so the sum wherever it spans at most 53 bits (chip_smoke.py phase 60)
+template <int KC>
+__device__ __forceinline__ void prod_k16(double (&c)[4],
+                                         const double (&a)[KC][8],
+                                         const double* w, int sk, int sn,
+                                         int nlive, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const double* wg = w + (g < nlive ? g : 0) * sn;
+  double b[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double v = wg[(16 * kc + t + 4 * j) * sk];
+      b[kc][j] = g < nlive ? v : 0.0;
+    }
+  c[0] = c[1] = c[2] = c[3] = 0.0;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) dmma16816(c, a[kc], b[kc]);
+}
+
+// c = A·B from zero over k = 4: a0 (row g) and a1 (row g + 8) this lane's
+// k = t, B(k, n) = w[k·sk + n·sn], by m16n8k4 .f64
+__device__ __forceinline__ void prod_k4(double (&c)[4], double a0, double a1,
+                                        const double* w, int sk, int sn,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  c[0] = c[1] = c[2] = c[3] = 0.0;
+  dmma1684(c, a0, a1, w[t * sk + g * sn]);
+}
+
+// ---------------------------------------------------------------------------
 // The forward on a warp's 16 rows
 // ---------------------------------------------------------------------------
 
-// One n8 tile of a product's outputs for this lane's rows g and g + 8: the
-// quad's four lanes each hold a share of the k (the pairs 2t, 2t + 1 of each
-// 8), sum their products over it in float64 (exact: each product of two
-// bfloat16 is, and so is their sum while it spans at most 53 bits), and
-// these partials (P: rows g, g + 8 by the tile's 8 columns) are summed over
-// the quad, each lane keeping its own columns 2t, 2t + 1 in the C layout,
-// rounded once to float32 to nearest: the float64-summed witness's product
-// (`_dot_witness`). The xor-2 exchange keeps the columns whose owner shares
-// the lane's bit 1, the xor-1 exchange those whose owner is the lane.
-__device__ __forceinline__ void quad_sum(const double (&P)[2][8],
-                                         float (&c)[4], int lane) {
-  const bool hi2 = lane & 2, hi1 = lane & 1;
-  double Q[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const double keep = hi2 ? P[r][4 + m] : P[r][m];
-      const double send = hi2 ? P[r][m] : P[r][4 + m];
-      Q[r][m] = keep + __shfl_xor_sync(kWarp, send, 2);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const double keep = hi1 ? Q[r][2 + j] : Q[r][j];
-      const double send = hi1 ? Q[r][j] : Q[r][2 + j];
-      c[2 * r + j] =
-          __double2float_rn(keep + __shfl_xor_sync(kWarp, send, 1));
-    }
-}
-
-// A lane's share of a product's k for its two rows, as float64: NP pairs
-// (k 8q + 2t, + 1 of the q-th 8), row g in v[0], row g + 8 in v[1], each
-// set from the packed bfloat16 pair of either row
-template <int NP>
-struct KShare {
-  double v[2][2 * NP];
-  __device__ __forceinline__ void set(int q, uint32_t row_g,
-                                      uint32_t row_g8) {
-    v[0][2 * q] = lo_of(row_g), v[0][2 * q + 1] = hi_of(row_g);
-    v[1][2 * q] = lo_of(row_g8), v[1][2 * q + 1] = hi_of(row_g8);
-  }
-};
-
-// z = x·W + b over NT n8 tiles of outputs on the CUDA cores (`quad_sum`),
-// x this lane's share of the NP·8 inputs, W by its staged Wᵀ (rows of the
-// outputs, SW bytes apart; the lane's pair of k adjacent in a row), the
-// bias added after the product in float32, as the plain version adds it
-template <int NP, int NT, int SW>
-__device__ __forceinline__ void dense_exact(const unsigned char* wt,
-                                            const float* bias,
-                                            const KShare<NP>& x,
-                                            float (&z)[NT][4], int lane) {
-  const int t4 = 4 * (lane & 3), t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    double P[2][8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      P[0][n] = 0.0, P[1][n] = 0.0;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            wt + (nt * 8 + n) * SW + q * 16 + t4);
-        const double w0 = lo_of(w), w1 = hi_of(w);
-        P[0][n] = fma(x.v[0][2 * q], w0, P[0][n]);
-        P[0][n] = fma(x.v[0][2 * q + 1], w1, P[0][n]);
-        P[1][n] = fma(x.v[1][2 * q], w0, P[1][n]);
-        P[1][n] = fma(x.v[1][2 * q + 1], w1, P[1][n]);
-      }
-    }
-    quad_sum(P, z[nt], lane);
-    const float2 bb = *reinterpret_cast<const float2*>(bias + nt * 8 + t2);
-    z[nt][0] = z[nt][0] + bb.x, z[nt][1] = z[nt][1] + bb.y;
-    z[nt][2] = z[nt][2] + bb.x, z[nt][3] = z[nt][3] + bb.y;
-  }
-}
-
-// z = x_B·W0 + b0 over H outputs; a0 the x_B fragment's k < 8 half (a0[0]
-// rows g, a0[1] rows g + 8); W0ᵀ's rows 8 bfloat16 (16 bytes) apart
-template <int H>
-__device__ __forceinline__ void mma_first(const unsigned char* w0,
+// One n8 tile of a layer's outputs: the float64 sum rounded once to
+// float32, the bias added in float32 (as the plain version adds it), the
+// leaky ReLU (slope 0.01, max(z, 0.01·z)) in float32, and each value
+// rounded once to bfloat16 and packed (out[0] rows g, out[1] rows g + 8)
+__device__ __forceinline__ void mma_layer(const double (&c)[4],
                                           const float* bias,
-                                          const uint32_t (&a0)[2],
-                                          float (&z)[H / 8][4], int lane) {
-  KShare<1> x;
-  x.set(0, a0[0], a0[1]);
-  dense_exact<1, H / 8, 16>(w0, bias, x, z, lane);
-}
-
-// z = h·W + b over NT n8 tiles of outputs (H/8 for a hidden layer, 1 for
-// the head), h the H inputs' A fragments; Wᵀ's rows H + 8 bfloat16 apart.
-template <int H, int NT>
-__device__ __forceinline__ void mma_dense(const unsigned char* wt,
-                                          const float* bias,
-                                          const uint32_t (&a)[H / 16][4],
-                                          float (&z)[NT][4], int lane) {
-  KShare<H / 8> x;
+                                          uint32_t (&out)[2], int lane) {
+  const float2 bb =
+      *reinterpret_cast<const float2*>(bias + 2 * (lane & 3));
+  float v[4];
 #pragma unroll
-  for (int kc = 0; kc < H / 16; ++kc) {
-    x.set(2 * kc, a[kc][0], a[kc][1]);
-    x.set(2 * kc + 1, a[kc][2], a[kc][3]);
+  for (int i = 0; i < 4; ++i) {
+    const float z = __double2float_rn(c[i]) + (i & 1 ? bb.y : bb.x);
+    v[i] = fmaxf(z, 0.01f * z);
   }
-  dense_exact<H / 8, NT, 2 * (H + 8)>(wt, bias, x, z, lane);
+  out[0] = pack2(v[0], v[1]);
+  out[1] = pack2(v[2], v[3]);
 }
 
-// the next layer's A fragments from z through the leaky ReLU (slope 0.01,
-// max(z, 0.01·z)) in float32, each value rounded once to bfloat16
+// Layer 0: x_B·W0 + b0 over H outputs, x0 / x1 this lane's k = t of rows
+// g / g + 8 (float64); W0ᵀ's rows 4 doubles apart
 template <int H>
-__device__ __forceinline__ void mma_leaky(const float (&z)[H / 8][4],
-                                          uint32_t (&a)[H / 16][4]) {
+__device__ __forceinline__ void mma_first(const double* w0, const float* bias,
+                                          double x0, double x1,
+                                          uint32_t (&a)[H / 8][2], int lane) {
 #pragma unroll
   for (int nt = 0; nt < H / 8; ++nt) {
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = fmaxf(z[nt][i], 0.01f * z[nt][i]);
-    a[nt / 2][(nt & 1) * 2] = pack2(v[0], v[1]);
-    a[nt / 2][(nt & 1) * 2 + 1] = pack2(v[2], v[3]);
+    double c[4];
+    prod_k4(c, x0, x1, w0 + nt * 8 * 4, 1, 4, lane);
+    mma_layer(c, bias + nt * 8, a[nt], lane);
   }
 }
 
-// a level's A fragments into a kept buffer at the warp's rows (row stride
-// H + 8 bfloat16)
+// A hidden layer in place: a (its input, then its output) through
+// h·W + b and the leaky ReLU; Wᵀ's rows H + 4 doubles apart
+template <int H>
+__device__ __forceinline__ void mma_dense(const double* wt, const float* bias,
+                                          uint32_t (&a)[H / 8][2], int lane) {
+  double x[H / 16][8];
+  gather<H / 8>(a, x, lane);
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) {
+    double c[4];
+    prod_k16<H / 16>(c, x, wt + nt * 8 * (H + 4), 1, H + 4, 8, lane);
+    mma_layer(c, bias + nt * 8, a[nt], lane);
+  }
+}
+
+// a level's bfloat16 pairs into a kept buffer at the warp's rows (row
+// stride H + 8 bfloat16)
 template <int H>
 __device__ __forceinline__ void mma_keep(unsigned char* at,
-                                         const uint32_t (&a)[H / 16][4],
+                                         const uint32_t (&a)[H / 8][2],
                                          int lane) {
   constexpr int S = 2 * (H + 8);
   const int g = lane >> 2, t4 = 4 * (lane & 3);
 #pragma unroll
-  for (int kc = 0; kc < H / 16; ++kc) {
-    unsigned char* p = at + kc * 32 + t4;
-    *reinterpret_cast<uint32_t*>(p + g * S) = a[kc][0];
-    *reinterpret_cast<uint32_t*>(p + (g + 8) * S) = a[kc][1];
-    *reinterpret_cast<uint32_t*>(p + g * S + 16) = a[kc][2];
-    *reinterpret_cast<uint32_t*>(p + (g + 8) * S + 16) = a[kc][3];
+  for (int nt = 0; nt < H / 8; ++nt) {
+    unsigned char* p = at + nt * 16 + t4;
+    *reinterpret_cast<uint32_t*>(p + g * S) = a[nt][0];
+    *reinterpret_cast<uint32_t*>(p + (g + 8) * S) = a[nt][1];
   }
 }
 
@@ -537,10 +564,11 @@ struct MmaKeep {
 
 // A lane's index reads for group grp: for k = 2q and 2q + 1 (lane (g, q))
 // the transformed (x_A) and the conditioner (x_B) index, −1 past n_A or n_B
-// (every k of a lane q ≥ 2), and n_A; read from the kernel's parameters
-// at each coupling, so that the other group's keep no registers
+// (every k of a lane q ≥ 2), the conditioner's for k = q (layer 0's A
+// fragment), and n_A; read from the kernel's parameters at each coupling,
+// so that the other group's keep no registers
 struct MmaIdx {
-  int a[2], b[2], na;
+  int a[2], b[2], bq, na;
 };
 
 __device__ __forceinline__ MmaIdx mma_ix(const Stack& st, int grp,
@@ -548,6 +576,7 @@ __device__ __forceinline__ MmaIdx mma_ix(const Stack& st, int grp,
   const int q = lane & 3;
   MmaIdx r;
   r.na = st.width[grp][st.depth];
+  r.bq = entry(st.idx_b[grp], q);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     r.a[e] = entry(st.idx_a[grp], 2 * q + e);
@@ -567,50 +596,54 @@ __device__ __forceinline__ void mma_conditioners(
     int net_bytes, const float* xs, const MmaKeep& keep, float (&s)[4],
     float (&t)[4], int lane) {
   const int depth = st.depth, g = lane >> 2, q = lane & 3;
-  const int ib0 = ix.b[0], ib1 = ix.b[1];
-  uint32_t a0[2];
-  a0[0] = pack2(ib0 >= 0 ? xs[g * kXs + ib0] : 0.f,
-                ib1 >= 0 ? xs[g * kXs + ib1] : 0.f);
-  a0[1] = pack2(ib0 >= 0 ? xs[(g + 8) * kXs + ib0] : 0.f,
-                ib1 >= 0 ? xs[(g + 8) * kXs + ib1] : 0.f);
-  if (keep.hx) {
-    *reinterpret_cast<uint32_t*>(keep.x() + g * 16 + 4 * q) = a0[0];
-    *reinterpret_cast<uint32_t*>(keep.x() + (g + 8) * 16 + 4 * q) = a0[1];
+  // x_B rounded to bfloat16: float64 at k = q for layer 0's product
+  auto bf = [&](int row, int i) {
+    return i >= 0 ? pack2(xs[row * kXs + i], 0.f) << 16 : 0u;
+  };
+  const double x0 = widen(bf(g, ix.bq)), x1 = widen(bf(g + 8, ix.bq));
+  if (keep.hx) {  // and packed at k = 2q, 2q + 1 for the weight gradients
+    const int ib0 = ix.b[0], ib1 = ix.b[1];
+    *reinterpret_cast<uint32_t*>(keep.x() + g * 16 + 4 * q) =
+        (bf(g, ib0) >> 16) | bf(g, ib1);
+    *reinterpret_cast<uint32_t*>(keep.x() + (g + 8) * 16 + 4 * q) =
+        (bf(g + 8, ib0) >> 16) | bf(g + 8, ib1);
   }
-  const unsigned char* w = wc;
   const int bias0 = mma_bias_off(H, depth);
+  auto wt = [&](int net, int l) {
+    return reinterpret_cast<const double*>(wc + net * net_bytes) +
+           mma_w_off(H, l);
+  };
   auto bias = [&](int net, int l) {
     return reinterpret_cast<const float*>(wc + net * net_bytes + bias0) +
            l * H;
   };
-  float z[2][H / 8][4];
-  uint32_t a[2][H / 16][4];
+  uint32_t a[2][H / 8][2];
 #pragma unroll
   for (int net = 0; net < 2; ++net) {
-    mma_first<H>(w + net * net_bytes, bias(net, 0), a0, z[net], lane);
-    mma_leaky<H>(z[net], a[net]);
+    mma_first<H>(wt(net, 0), bias(net, 0), x0, x1, a[net], lane);
     if (keep.hx) mma_keep<H>(keep.mine(net, 1), a[net], lane);
   }
 #pragma unroll 1
   for (int l = 1; l < depth - 1; ++l) {
 #pragma unroll
     for (int net = 0; net < 2; ++net) {
-      mma_dense<H, H / 8>(w + net * net_bytes + 2 * mma_w_off(H, l),
-                          bias(net, l), a[net], z[net], lane);
-      mma_leaky<H>(z[net], a[net]);
+      mma_dense<H>(wt(net, l), bias(net, l), a[net], lane);
       if (keep.hx) mma_keep<H>(keep.mine(net, l + 1), a[net], lane);
     }
   }
 #pragma unroll
   for (int net = 0; net < 2; ++net) {
-    float zh[1][4];
-    mma_dense<H, 1>(w + net * net_bytes + 2 * mma_w_off(H, depth - 1),
-                    bias(net, depth - 1), a[net], zh, lane);
+    double x[H / 16][8], c[4];
+    gather<H / 8>(a[net], x, lane);
+    prod_k16<H / 16>(c, x, wt(net, depth - 1), 1, H + 4, 4, lane);
+    const float2 bb = *reinterpret_cast<const float2*>(
+        bias(net, depth - 1) + 2 * q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const bool live = 2 * q + (i & 1) < ix.na;
-      if (net == 0) s[i] = live ? th(zh[0][i]) : 0.f;
-      else t[i] = live ? zh[0][i] : 0.f;
+      const float z = __double2float_rn(c[i]) + (i & 1 ? bb.y : bb.x);
+      if (net == 0) s[i] = live ? th(z) : 0.f;
+      else t[i] = live ? z : 0.f;
     }
   }
 }
@@ -683,12 +716,11 @@ __device__ __forceinline__ void mma_rows_out(const float* src, int64_t r0,
 // K4: the stack forward or inverse with the running log-det. CTA c walks
 // tiles of 16·w rows c, c + G, ...; warp k of the CTA takes rows 16k..16k+15
 // of a tile. One CTA of the most warps an SM asked for leaves ptxas 255
-// registers: the float64 sums need more than the 128 that two left (36
-// bytes spilled at H=16); with no minimum it once kept K4 to 64 and
-// spilled.
+// registers (K4 takes 150 at H = 32, more than the 128 that two would
+// leave); with no minimum it once kept K4 to 64 and spilled.
 template <bool INVERSE, int H>
 __global__ void __launch_bounds__(32 * kMmaMaxWarps, 1)
-coupling_fwd_mma(const float* __restrict__ x, float* __restrict__ y,
+coupling_fwd_dmma(const float* __restrict__ x, float* __restrict__ y,
                  float* __restrict__ ld, int64_t n,
                  const __grid_constant__ Stack st,
                  const __grid_constant__ MmaLayout lay) {
@@ -789,42 +821,23 @@ __device__ __forceinline__ void mma_slope(const unsigned char* level,
   }
 }
 
-// gc = round(G)·Wᵀ over a layer's inputs on the CUDA cores (`quad_sum`):
-// K = the layer's outputs (NTO n8 tiles of p, this lane's pairs 2t, 2t + 1
-// of each; the head's one is K's first half), N = its inputs (NTI n8
-// tiles). Wᵀ's rows (the outputs) are SW bytes apart, so the lane's pair
-// of k is two rows, each read along the inputs.
-template <int NTO, int NTI, int SW>
-__device__ __forceinline__ void mma_input_cot(const unsigned char* wt,
+// gc = round(G)·Wᵀ over a hidden layer's H inputs (NTI = H/8 n8 tiles,
+// Wᵀ's rows SW doubles apart, nlive its columns) on the float64 tensor
+// cores: K = the layer's H outputs, G packed in the C layout (p)
+template <int NTO, int NTI>
+__device__ __forceinline__ void mma_input_cot(const double* wt, int sw,
+                                              int nlive,
                                               const uint32_t (&p)[NTO][2],
-                                              float (&gc)[NTI][4], int lane) {
-  const int t2 = 2 * (lane & 3);
-  KShare<NTO> g;
-#pragma unroll
-  for (int q = 0; q < NTO; ++q) g.set(q, p[q][0], p[q][1]);
+                                              float (&gc)[NTI][4],
+                                              int lane) {
+  double x[NTO / 2][8];
+  gather<NTO>(p, x, lane);
 #pragma unroll
   for (int nt = 0; nt < NTI; ++nt) {
-    double P[2][8];
+    double c[4];
+    prod_k16<NTO / 2>(c, x, wt + nt * 8, sw, 1, nlive, lane);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) P[0][n] = 0.0, P[1][n] = 0.0;
-#pragma unroll
-    for (int q = 0; q < NTO; ++q)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const uint32_t* row = reinterpret_cast<const uint32_t*>(
-            wt + (q * 8 + t2 + e) * SW + nt * 16);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const uint32_t w = row[m];
-          const double w0 = lo_of(w), w1 = hi_of(w);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            P[r][2 * m] = fma(g.v[r][2 * q + e], w0, P[r][2 * m]);
-            P[r][2 * m + 1] = fma(g.v[r][2 * q + e], w1, P[r][2 * m + 1]);
-          }
-        }
-      }
-    quad_sum(P, gc[nt], lane);
+    for (int i = 0; i < 4; ++i) gc[nt][i] = __double2float_rn(c[i]);
   }
 }
 
@@ -897,6 +910,9 @@ __device__ __forceinline__ void mma_net_bwd(
     return reinterpret_cast<float*>(sm + lay.gb) + b * w * H;
   };
   auto off = [&](int l, int k) { return st.leaf_off[grp][net][l][k]; };
+  auto wt = [&](int l) {
+    return reinterpret_cast<const double*>(wn) + mma_w_off(H, l);
+  };
   // the head: G = gout·(1 − s²) (s net) or gout
   {
     float G[1][4];
@@ -908,9 +924,23 @@ __device__ __forceinline__ void mma_net_bwd(
     uint32_t p[1][2];
     mma_g_out<H, 1>(G, p, gbuf_at(buf) + warp * kMmaRows * S,
                     gbp_at(buf) + warp * H, lane);
+    // the head's input cotangent over its n_A ≤ 4 outputs by m16n8k4: this
+    // lane's k = t of rows g and g + 8, from lane (g, t / 2), half t % 2
     float gc[H / 8][4];
-    mma_input_cot<1, H / 8, S>(wn + 2 * mma_w_off(H, depth - 1), p, gc,
-                               lane);
+    {
+      const int src = (lane & ~3) | ((lane & 3) >> 1);
+      const uint32_t v0 = __shfl_sync(kWarp, p[0][0], src);
+      const uint32_t v1 = __shfl_sync(kWarp, p[0][1], src);
+      const double h0 = widen(lane & 1 ? v0 & 0xffff0000u : v0 << 16);
+      const double h1 = widen(lane & 1 ? v1 & 0xffff0000u : v1 << 16);
+#pragma unroll
+      for (int nt = 0; nt < H / 8; ++nt) {
+        double c[4];
+        prod_k4(c, h0, h1, wt(depth - 1) + nt * 8, H + 4, 1, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gc[nt][i] = __double2float_rn(c[i]);
+      }
+    }
     __syncthreads();  // every warp's G and kept inputs are in place
     const int l = depth - 1, in = st.width[grp][l], ow = st.width[grp][l + 1];
     mma_grads<H / 16, 1, false>(keep.level(net, l), S, gbuf_at(buf), S,
@@ -933,8 +963,7 @@ __device__ __forceinline__ void mma_net_bwd(
                           gbp_at(buf) + warp * H, lane);
       const int in = st.width[grp][l], ow = st.width[grp][l + 1];
       if (l > 0) {
-        mma_input_cot<H / 8, H / 8, S>(wn + 2 * mma_w_off(H, l), ph, gc,
-                                       lane);
+        mma_input_cot<H / 8, H / 8>(wt(l), H + 4, 8, ph, gc, lane);
         __syncthreads();
         mma_grads<H / 16, H / 8, false>(
             keep.level(net, l), S, gbuf_at(buf), S, gbp_at(buf), H, in, ow,
@@ -942,7 +971,7 @@ __device__ __forceinline__ void mma_net_bwd(
             part, first, w, warp, lane);
       } else {
         float g0[1][4];
-        mma_input_cot<H / 8, 1, 16>(wn, ph, g0, lane);
+        mma_input_cot<H / 8, 1>(wt(0), 4, 4, ph, g0, lane);
 #pragma unroll
         for (int i = 0; i < 4; ++i) gin[i] = g0[0][i];
         __syncthreads();
@@ -959,11 +988,11 @@ __device__ __forceinline__ void mma_net_bwd(
 
 // K5's first pass: gx per row and each CTA's partial weight gradients, CTA
 // c walking tiles of 16·w rows c, c + G, ... 255 registers at most (the
-// float64 sums of the forward and the cotangents beside the fragments; at
-// H=32 128 spilled before them).
+// float64 fragments of the forward and the cotangents beside the bfloat16
+// ones take 188 at H = 32).
 template <bool INVERSE, int H>
 __global__ void __launch_bounds__(32 * kMmaMaxWarps, 1)
-coupling_bwd_mma(const float* __restrict__ x, const float* __restrict__ gy,
+coupling_bwd_dmma(const float* __restrict__ x, const float* __restrict__ gy,
                  const float* __restrict__ gld, float* __restrict__ gx,
                  float* __restrict__ scratch, int64_t n, int64_t n_params,
                  const __grid_constant__ Stack st,
@@ -1097,8 +1126,8 @@ int launch_fwd_mma_h(const float* x, float* y, float* ld, int64_t n,
   int64_t need = 0;
   int err = mma_layout(lay, need, st, H, false);
   if (err) return err;
-  const auto kern = inverse ? &coupling_fwd_mma<true, H>
-                            : &coupling_fwd_mma<false, H>;
+  const auto kern = inverse ? &coupling_fwd_dmma<true, H>
+                            : &coupling_fwd_dmma<false, H>;
   err = allow_smem((const void*)kern, lay.bytes);
   if (err) return err;
   const int64_t tiles = (n + kMmaRows * w - 1) / (kMmaRows * w);
@@ -1148,8 +1177,8 @@ int launch_bwd_mma_h(const float* x, const float* gy, const float* gld,
   int64_t need = 0;
   int err = mma_layout(lay, need, st, H, true);
   if (err) return err;
-  const auto kern = inverse ? &coupling_bwd_mma<true, H>
-                            : &coupling_bwd_mma<false, H>;
+  const auto kern = inverse ? &coupling_bwd_dmma<true, H>
+                            : &coupling_bwd_dmma<false, H>;
   err = allow_smem((const void*)kern, lay.bytes);
   if (err) return err;
   // no more CTAs than fit on the SMs at once: each walks its tiles with

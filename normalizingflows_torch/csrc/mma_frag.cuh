@@ -1,6 +1,7 @@
 // The warp-level fragment helpers of the bf16 policy's tensor-core kernels
 // (csrc/coupling_mma.cuh) and of the tensor core's probe (csrc/mma_probe.cu):
-// ldmatrix, the bfloat16 packing and mma.sync.m16n8k16 in inline PTX.
+// ldmatrix, the bfloat16 packing, mma.sync.m16n8k16 on bfloat16 and
+// mma.sync.m16n8k16 / m16n8k4 on float64, in inline PTX.
 // tests/mma_emulation.h writes the same helpers for the host.
 
 #pragma once
@@ -62,6 +63,29 @@ __device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The float64 tensor cores (sm_90): every operand float64. Lane (g, t)
+// holds of m16n8k16's A a[i] = (row g + 8(i % 2), k t + 4(i / 2)), of its
+// B b[i] = (k t + 4i, n g); of m16n8k4's A a0 = (row g, k t), a1 = (row
+// g + 8, k t), of its B b0 = (k t, n g); C as the bfloat16 mma's, c[i] =
+// (row g + 8(i / 2), n 2t + i % 2). chip_smoke.py phase 60 measures their
+// sums (csrc/mma_probe.cu).
+__device__ __forceinline__ void dmma16816(double (&c)[4], const double (&a)[8],
+                                          const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+__device__ __forceinline__ void dmma1684(double (&c)[4], double a0,
+                                         double a1, double b0) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b0));
 }
 
 }  // namespace

@@ -334,9 +334,11 @@ def train_plan(xs, groups, idx_even, idx_odd) -> TrainPlan:
     return _plan(sfx, batch, d, leaves[0].shape[0], depth, widths, idx)
 
 
-def _launch(xs, leaves, run: _Run, chunk: int):
+def _launch(xs, leaves, run: _Run, chunk: int, moments=None):
     """K6 over the whole run, one launch per chunk: (trained leaves,
-    losses)."""
+    losses); with a list ``moments``, Adam's first and second moments as
+    the run leaves them in device memory (views shaped as the leaves) are
+    appended to it."""
     from ..ops._build import library
 
     # K6's tile and its ELBO terms, checked before any step
@@ -362,6 +364,8 @@ def _launch(xs, leaves, run: _Run, chunk: int):
         for step0, steps in _chunks(xs.shape[0], chunk):
             _launch_chunk(fn, xs, w, m, v, grad, losses, run, step0, steps,
                           args)
+    if moments is not None:
+        moments += [_split(m, leaves), _split(v, leaves)]
     return _split(w, leaves), losses
 
 

@@ -85,6 +85,7 @@ ENTRIES = {
     "realnvp_train_plan_f64": _TRAIN_PLAN_ARGS,
     "realnvp_train_plan_bf16": _TRAIN_PLAN_ARGS,
     "mma_probe_bf16": [_P, _P, _P, _P, _I32, _P],
+    "mma_probe_f64": [_P, _P, _P, _P, _I32, _I32, _P],
 }
 
 

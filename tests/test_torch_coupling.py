@@ -693,7 +693,7 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], set(range(1, 60))),
+    ([], set(range(1, 61))),
     (["--phases", "1,2,12,18-21"], {1, 2, 12, 18, 19, 20, 21}),
     (["--phases", "22-26"], {1, 22, 23, 24, 25, 26}),
     (["--phases", "27-31"], {1, 27, 28, 29, 30, 31}),
@@ -705,6 +705,7 @@ def _chip_smoke():
     (["--phases", "1,2,52-54"], {1, 2, 52, 53, 54}),
     (["--phases", "55-58"], {1, 55, 56, 57, 58}),
     (["--phases", "59"], {1, 59}),
+    (["--phases", "1,2,47,51,59,60"], {1, 2, 47, 51, 59, 60}),
     (["--phases", "12"], {1, 12}),
     (["--phases", "7,15"], {1, 5, 7, 14, 15}),
 ])
@@ -713,8 +714,8 @@ def test_chip_smoke_phase_selection(argv, want):
     assert cs.selected_phases(argv) == want
 
 
-@pytest.mark.parametrize("text", ["0", "60", "3-1", "x", "1,,2", "-3",
-                                  "1-"])
+@pytest.mark.parametrize("text", ["0", "61", "3-1", "x", "1,,2", "-3",
+                                  "1-", "60-61"])
 def test_chip_smoke_rejects_bad_phases(text):
     cs = _chip_smoke()
     with pytest.raises(ValueError):

@@ -93,6 +93,16 @@ def test_k6_witness_gate_takes_the_larger_float32_error():
                                   + 2 * cs.LEAF_FLOOR, 1e-6, 2e-7)
 
 
+def test_k6_first_gate_takes_the_larger_float32_error_and_its_floor():
+    f = cs.K6_FIRST_FACTOR
+    assert cs.k6_first_gate(4e-7, 1e-7, 1e-7)
+    assert cs.k6_first_gate(cs.K6_FIRST_FLOOR, 0.0, 0.0)
+    assert not cs.k6_first_gate(10 * f * 1e-7, 1e-7, 1e-7)
+    assert cs.k6_first_gate(f * 1e-7, 2e-8, 1e-7)
+    assert not cs.k6_first_gate(f * 1e-7 + 2 * cs.K6_FIRST_FLOOR, 1e-7,
+                                2e-8)
+
+
 def _k6_args(model, batch, target, seed, steps=25):
     """adam_train_realnvp_fused's float32 arguments on the CPU, as
     `chip_smoke._train_args` makes them on the card (flow seed 52,
@@ -134,6 +144,55 @@ def test_k6_witness_reading_passes_plain_level_and_catches_the_control(
                                       e32, er) for _, e32, er, _ in errs)
     # the shuffled rows are another correct float32 order: the same ELBO
     assert max(er for _, _, er, _ in errs) < 1e-3
+
+
+@pytest.mark.parametrize("model,batch", [("demo", 16), ("ref", 64)])
+@pytest.mark.parametrize("target", ["banana", "funnel", "warped"])
+def test_k6_first_reading_passes_plain_level_and_catches_the_control(
+        target, model, batch):
+    """Phase 52's check before Adam amplifies roundoff, on the first
+    batch drawn off the kinks: the float32 plain version's first loss and
+    first moment (`_first_step_plain`, standing in for K6's
+    device-resident one) pass `k6_first_gate` in every output; the faulty
+    control (bfloat16 products) fails it in some output; an error ten
+    times the limit fails. The first moment is (1 − β₁) times the plain
+    version's first gradient, the trainer's own first Adam step."""
+    from normalizingflows_torch.experimental import train_cuda as tc
+
+    args = cs.k6_first_args(_k6_args(model, batch, target, 0, steps=1))
+    got = cs._first_step_plain(args)
+    first = cs.k6_first_reading(got, args)
+    assert len(first) == 1 + 8 * len(cs.CPL_CFG[model]["hdims"]) + 8
+    assert all(cs.k6_first_gate(e, e32, er) for e, e32, er, _ in first)
+    assert not all(cs.k6_first_gate(ec, e32, er) for _, e32, er, ec in first)
+    assert not any(cs.k6_first_gate(10 * cs.K6_FIRST_FACTOR * max(e32, er)
+                                    + 2 * cs.K6_FIRST_FLOOR, e32, er)
+                   for _, e32, er, _ in first)
+    run, leaves = tc._prepare(*args, 0.9, 0.999, 1e-8)
+    _, grads = tc._loss_and_grads(args[0][0], leaves, run)
+    for m, g in zip(got[1:], grads):
+        assert torch.equal(m, (1.0 - 0.9) * g)
+
+
+def test_k6_first_args_draw_the_first_batch_off_the_kinks():
+    """`k6_first_args` keeps one step and draws again exactly the rows of
+    the first batch that `_kink_rows` flags, from the base, until none is
+    flagged; the rest of the batch and the other arguments stay."""
+    args = _k6_args("demo", 64, "banana", 0, steps=3)
+    sels = cc._sels(args[2], args[3], 2)
+    real = cs.KINK
+    try:  # a wider band, so that some rows of 64 are near a kink
+        cs.KINK = 1e-3
+        near = cs._kink_rows(cc, args[0][0], args[1], sels)
+        got = cs.k6_first_args(args)
+        assert not cs._kink_rows(cc, got[0][0], args[1], sels).any()
+    finally:
+        cs.KINK = real
+    assert got[0].shape == (1,) + args[0].shape[1:]
+    assert near.any() and not near.all()
+    moved = (got[0][0] != args[0][0]).any(1)
+    assert torch.equal(moved & ~near, torch.zeros_like(near))
+    assert all(a is b for a, b in zip(got[1:], args[1:]))
 
 
 def test_k6_shuffled_rows_are_the_same_run():

@@ -120,8 +120,113 @@ CARD_MMA_BITS = (
 # the one model of the sum (`chip_smoke.tc_models`) that gives all of them
 CARD_MODEL = dict(group=16, extra=2, align="rz", norm="rz", c="joined",
                   exps="nominal")
+# chip_smoke.py phase 60's results on the same card: one mma.sync.m16n8k16
+# .f64 a case on `chip_smoke.dmma_probe_cases()` (384 cases, seed
+# DMMA_PROBE_SEED), each result's float64 bits in hex; four m16n8k4 .f64
+# in k order gave the same bits on every case
+DMMA_CARD_BITS = (
+    "40c7351a012e000040beb3b2a3560000c0becd7f57550000c070d54fd5e80000"
+    "4091c4aa65d60000c0b765e8c0fa000040b58ebf4adcc000c0d5fee71fd84000"
+    "c0c07a90ee2b0000c0cece3b2d63a0004064a3fe7d50000040b6f8da842b8000"
+    "c0bb0ab4ecd2000040d3c6b59397800040150f1b3800000040b0860ee5be0000"
+    "c0bd11c94001800040c220042023400040b97b6004d40000c0c5a9ad94722000"
+    "40702645cf680000c0c06cd751518000c059a15aaa00000040945e656dd00000"
+    "c095382b75d80000c0b2bdb06db8000040c582ab5b4cc00040c146ce50d98000"
+    "409c3d8df0600000409923d2a4b80000407925c337e4000040d6d7a3ede70000"
+    "40af6742514c0000c0a562c905e000004098c40a7f5400004085f6ca37bc0000"
+    "c0bf917d97728000c0932a7427b2000040c7322bfbf74000c0b161ec047f0000"
+    "c0c8cc8a56150000c0acf149489280004093c586d70c0000c0c407cdfc800000"
+    "40844e5705f20000c0c4bfebc8b7000040cfa9d0a5f00000c0c35fcad7280000"
+    "c0a88e8eab8a000040c6831b15480000c08ed3fc6908000040a6bec6edec0000"
+    "40c0dbbc30d6e000c0af8ab1cd080000c0945fd5f1180000c0c0998891980000"
+    "408382b1c6100000c0c440cd73fe8000c0c5ec80ce8f0000c0c9345186280000"
+    "c0db1af86ddfc000c0e0266324850000c0c3fe9265ad000040ce29f0fec00000"
+    "42868cb81bcd6ec942646fee1a65077fc253f1874020386b426d84037dba4c29"
+    "c2673f6dfdd51506c21325485dd6b420c24da09c56f56f91c19d8bc8c3b450f9"
+    "c1ebbd2df360b6ff4268f3192e0b23a042776527de8daed742269b2800801e10"
+    "c230cd576db0c5cc4258d70f7993f2ea426f97b00556d7bac27f96b453b907fd"
+    "c23eb2cdda670b04428383be469590114208798c4ec50b50c28bda13bea6238e"
+    "42785bb7273418c842062970ce56e715c275864ddee8c2c541fd0d66141afc41"
+    "c26a62d5cea1098541ea7c69260de73ec283047fe1c8a2f3c20180dd646e8241"
+    "428350bc2f2567c441f2592a5ecb97d6414f17387e4deee5c268a3be9c25c9e4"
+    "423a5b865115bc7bc2531cd395f979314260b73aec3ab286c214cc23553703a4"
+    "421aff1a155d324b426fd983cfcd4c894164d54999f9c877c27d7fb7a675c9e3"
+    "42180f4932de6342c233ea0ee3f3a4f4423e08d0e4693469c1f29a0a96d0c87f"
+    "42802bcb1f006edbc24eac35d9c7083bc236c0c2e3c6d88fc24ca208963602dc"
+    "425b6c0437d1bde9422011a032213a6fc26a8d9787d5da64c144889a981eac10"
+    "42126f8b127f5346c232eea57c02d9794238114c8aef1996427a255269f3fa6c"
+    "c255ad387408dc68c277e354c152d91a4205dc1c090e3c4a427194eb2582fdf1"
+    "422163d51e1f4bbec268fdadb64567c8c1fb58557d76372a428309f2f896b4cf"
+    "3fb2e13580000000bf299ace00000000be977796000000003e2bf30f00000000"
+    "bdb335c1000000003cc07200000000003c906c7c00000000bc13306c00000000"
+    "bf57c220000000003f2b4eb800000000bea9645400000000be20a48000000000"
+    "3dac304b00000000bd2b3a3a00000000bc90442c000000003c1c180800000000"
+    "bfa95d19000000003f1f188c000000003eaca21400000000be29fd5d00000000"
+    "bd649db0000000003d27d22400000000bc74be00000000000000000000000000"
+    "3fb2564080000000bf232340000000003e88a470000000003e2ea11600000000"
+    "bdb0ca00000000003d1bd154000000003ca6844200000000bc21b85900000000"
+    "3fa05067000000003f30a3ba00000000beb2574e00000000bdfc592800000000"
+    "3db1f7f200000000bd2e47c8000000003c82c160000000003bdc3b0000000000"
+    "bfb39b4e00000000bf005f54000000003eaae14200000000be29f82000000000"
+    "3d84d7e8000000003d267c2100000000bc86c440000000003c01358000000000"
+    "3fa94a5a00000000bf2b7225000000003ea2fa58000000003e2a153f00000000"
+    "bdb367e0000000003cc00000000000003c8ff60c000000000000000000000000"
+    "bf8d1f28000000003f2b468000000000beb5ab21800000003e201efa00000000"
+    "3da583c000000000bd24a000000000003c86cc90000000003c1928bc00000000"
+    "c2762dc85ffe1fa3c10489d4d0600000c3a123d5e0000000414df13b216c0000"
+    "c425a53ba0000000c194949a969e600040baa07058000000c15f7537bc4f0000"
+    "441893f040000000407f670f20000000c123448602200000c305f124a000004c"
+    "c0bab0f6c40000004140f291d5a20000c1bc1ff720213c00c21b720bdff4e900"
+    "40b7a619e800000042124ec1605537e0445b870d40000000444513a560000000"
+    "4104dc4ea1400000c2e03247bffffdc5c374ab8e4000000041e2cfdba0560d00"
+    "c45e9c024000000041153d2d271000004452630c20000000c2190bca1fd08ba0"
+    "41cc88cbb3282e004316ebb75fffffe3c41b8a904000000044001cb2a0000000"
+    "c2d1a7d75ffff6bac2140d97e0129bf0c2c4566bffffed72c2995e88600017f8"
+    "c21349c3ff7f2490c360d3a6400000004044b75cb4000000c21683167ffe1ed0"
+    "40b43ff4540000004086e246a00000004111884062700000c40eb24140000000"
+    "c1bcf11d18facc00bfedb57700000000c3bdeed46000000043eb9ae300000000"
+    "c0a3c822b800000041ef15251d08d200c0635cf500000000407406a6e0000000"
+    "43fa9174c0000000c14093ee68560000420d3f0d6109bc004413d6ed40000000"
+    "404a7e7140000000c05d9dc840000000c081c62b8000000041c31b1c40f11000"
+    "412e4568b3500000c1b474ff24cbe000c1df55bf17ccef00c1498c1029f00000"
+    "800000000000413d0000000000000cb88000000000006d930002d6bffffeb219"
+    "0000000000000cc20000000000000910000000000000b057800a0dffffff36b0"
+    "800000000000111a8000000000001d860000000000001465000fab8000024f95"
+    "80000000000043cd00000000000006b4000000000000129e000b7bfffffe63b7"
+    "8000000000001c7d00000000000019dd800000000000026400086980000210d7"
+    "8000000000000541800000000000076880000000000024b10002d6c000002c79"
+    "800000000000028d00000000000014b580000000000006740004b2800001a4c5"
+    "000000000000bbca800000000000208580000000000008648005fb4000002247"
+    "800000000003843000000000000927e780000000000944cb8015dc3ffffac0b9"
+    "000000000005b0e98000000000077f0800000000000f3cee80094a800003da23"
+    "00000000000b3869800000000000db8680000000000fa35100036d7ffffdcba2"
+    "8000000000053512000000000003536c800000000001fd318006b93ffffcd711"
+    "80000000000c7b1b8000000000056dbd80000000000137270016d7bfffff8d7d"
+    "80000000000dd2bf800000000007a5b080000000000e065a8004bd3ffffb33c9"
+    "80000000000695e480000000000a7ce080000000000f4dc5800cf83ffffe4ebc"
+    "80000000000ca79b80000000000259cb00000000000990c70001e7800002903c"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+    "0000000000000000800000000000000000000000000000000000000000000000"
+)
+# the one model of the float64 sum (`chip_smoke.dmma_models`) that gives
+# all of them: a chain of fused multiply-adds from c, k in order
+CARD_DMMA_MODEL = dict(group=1, norm="rn", c="joined")
 HELPERS = ("smem_at", "pack2", "lo_of", "hi_of", "ldsm_x2_t", "ldsm_x4_t",
-           "mma16816")
+           "mma16816", "dmma16816", "dmma1684")
 CP_ASYNC = """#pragma once
 namespace {
 template <typename T>
@@ -154,13 +259,27 @@ def _chip_smoke():
     return mod
 
 
+def _torch_ab():
+    spec = importlib.util.spec_from_file_location(
+        "torch_ab", ROOT / "benchmarks" / "torch_ab.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _card_bits():
     text = "".join(CARD_MMA_BITS)
     return np.array([int(text[i:i + 8], 16) for i in range(0, len(text), 8)],
                     np.uint32)
 
 
-def _rewrite(text: str, name: str) -> str:
+def _card_dmma_bits():
+    text = "".join(DMMA_CARD_BITS)
+    return np.array([int(text[i:i + 16], 16) for i in range(0, len(text), 16)],
+                    np.uint64)
+
+
+def _rewrite(text: str, name: str, edits=()) -> str:
     text = re.sub(r"(\w+(?:<[^;{}]*?>)?)<<<(.*?)>>>\(",
                   r"emu_launch(\1, \2, ", text, flags=re.S)
     text = re.sub(r"#include <(cuda_bf16|cuda_runtime|cooperative_groups)"
@@ -178,14 +297,19 @@ def _rewrite(text: str, name: str) -> str:
             assert k == 1, name
         text, k = re.subn(r"static_assert\(kMmaWarps.*?\);\n", "", text)
         assert k == 1
+        for a, b in edits:
+            assert a in text, a
+            text = text.replace(a, b)
     return text
 
 
-def build_emulated(out: Path, main: str, entries, opt: str = "-O1"):
+def build_emulated(out: Path, main: str, entries, opt: str = "-O1",
+                   edits=()):
     """csrc/'s sources rewritten for the host emulation into ``out`` and
     ``main`` (the emulation's globals, then the sources it includes)
     compiled there with g++: the library, with the C interface's types on
-    ``entries``. Skips the test where there is no g++."""
+    ``entries``; ``edits`` are (old, new) replacements in
+    coupling_mma.cuh. Skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host emulation")
@@ -193,7 +317,7 @@ def build_emulated(out: Path, main: str, entries, opt: str = "-O1"):
         if src.suffix in (".cu", ".cuh"):
             (out / src.name).write_text(
                 CP_ASYNC if src.name == "cp_async.cuh"
-                else _rewrite(src.read_text(), src.name))
+                else _rewrite(src.read_text(), src.name, edits))
     shutil.copy(ROOT / "tests" / "mma_emulation.h", out)
     (out / "main.cpp").write_text(main)
     lib = out / "libemulated.so"
@@ -218,6 +342,20 @@ def emu(tmp_path_factory):
     lib.emu_set_cap.argtypes = [ctypes.c_int]
     lib.emu_set_warps.argtypes = [ctypes.c_int]
     yield lib
+
+
+# the other design of the float64 products as benchmarks/torch_ab.py
+# --levers builds it (`LEVERS`): a bfloat16's widening to float64 by
+# integer bit operations in place of cvt
+OTHER_DESIGN = tuple(_torch_ab().LEVERS.values())
+
+
+@pytest.fixture(scope="module")
+def emu_other(tmp_path_factory):
+    """The emulated kernels of the other design (OTHER_DESIGN)."""
+    yield build_emulated(tmp_path_factory.mktemp("mma_emulation_levers"), MAIN,
+                         ("coupling_fwd_f32_cbf16", "coupling_bwd_f32_cbf16"),
+                         edits=OTHER_DESIGN)
 
 
 @pytest.fixture
@@ -353,23 +491,28 @@ def test_emulated_policy_one_slot_gives_the_resident_bits(planned,
                                                           inverse):
     """Under a smaller shared-memory cap the demo's stack is staged a
     coupling at a time, and K5's partial sums go to device memory (K5
-    under 40,000 bytes: resident it needs 53,184 and 68,592 with its
-    partial sums, with one slot 37,504; K4 under 20,000: 41,280 against
-    12,160), and every output keeps its bits."""
+    under 50,000 bytes: resident it needs 74,112 and 89,520 with its
+    partial sums, with one slot 38,752; K4 under 20,000: 48,768 against
+    13,408), and every output keeps its bits; at one warp a CTA K5's three
+    CTAs each walk several tiles, staging each coupling again, and y, ld
+    and gx keep theirs."""
     emu = planned
     stack = _stack("demo")
     x, gy, gld = _inputs(2, 100)
     want = _run(emu, stack, x, gy, gld, inverse)
-    assert cc.mma_plan(2, 3, 3, DEMO_WIDTHS, True) == (64, 68592)
-    assert cc.mma_plan(2, 3, 3, DEMO_WIDTHS) == (64, 41280)
+    assert cc.mma_plan(2, 3, 3, DEMO_WIDTHS, True) == (64, 89520)
+    assert cc.mma_plan(2, 3, 3, DEMO_WIDTHS) == (64, 48768)
     try:
-        emu.emu_set_cap(40000)
+        emu.emu_set_cap(50000)
         got = _run(emu, stack, x, gy, gld, inverse)
+        walked = _run(emu, stack, x, gy, gld, inverse, 1)
         emu.emu_set_cap(20000)
         y, ld = _run(emu, stack, x, gy, gld, inverse, k5=False)
     finally:
         emu.emu_set_cap(227 * 1024)
     for a, b in zip(got[:3] + tuple(got[3]), want[:3] + tuple(want[3])):
+        assert torch.equal(a, b)
+    for a, b in zip(walked[:3], want[:3]):
         assert torch.equal(a, b)
     assert torch.equal(y, want[0]) and torch.equal(ld, want[1])
 
@@ -380,40 +523,38 @@ def _widths(d, depth, hidden):
 
 
 # (d, blocks, depth, hidden, K5?, rows, bytes) of the bf16 policy's
-# tensor-core K4/K5 (`mma_plan`) at 4 warps a CTA, 64 rows. One net
-# staged: layer 0's Wᵀ H×8 bfloat16, each hidden layer's H×(H+8), the
-# head's 8×(H+8), then (depth−1)·H + 8 float32 biases: 2·(128 + 384 +
-# 192) + 4·40 = 1,568 bytes at H=16, depth 3; 2·(256 + 1,280 + 320) + 4·72
-# = 4,000 at H=32; 2·(256 + 2·1,280 + 320) + 4·104 = 6,688 at H=32, depth
-# 4. A coupling is two nets; every coupling is staged where the whole fits
-# in 227 KB, else one. Then each warp's x rows, 64 rows of 9 words (2,304
-# bytes); K5 also the cotangent rows (2,304), every coupling's input
-# (2·blocks·64·d words), the kept x_B (64 rows of 16 bytes), each net's
-# hidden levels (2·(depth−1)·64·(H+8)·2 bytes) and two layers' G
-# (2·64·(H+8)·2) and bias partials (2·4·H words); then landing slots of a
+# K4/K5 (`mma_plan`) at 4 warps a CTA, 64 rows. One net staged in float64:
+# layer 0's Wᵀ H×4, each hidden layer's H×(H+4), the head's 4×(H+4), then
+# (depth−1)·H + 8 float32 biases: 8·(64 + 320 + 80) + 4·40 = 3,872 bytes
+# at H=16, depth 3; 8·(128 + 1,152 + 144) + 4·72 = 11,680 at H=32;
+# 8·(128 + 2·1,152 + 144) + 4·104 = 21,024 at H=32, depth 4. A coupling is
+# two nets; every coupling is staged where the whole fits in 227 KB, else
+# one. Then each warp's x rows, 64 rows of 9 words (2,304 bytes); K5 also
+# the cotangent rows (2,304), every coupling's input (2·blocks·64·d
+# words), the kept x_B (64 rows of 16 bytes), each net's hidden levels
+# (2·(depth−1)·64·(H+8)·2 bytes) and two layers' G (2·64·(H+8)·2) and bias
+# partials (2·4·H words); then, with one slot, one landing slot of a
 # coupling's float32 words at the bounds, 2·(4H + H + (depth−2)(H² + H) +
-# 4H + 4) words each (3,360 bytes at H=16, depth 3; 10,784 at H=32; 19,232
-# at depth 4), two, or for K4 one a coupling where they fit beside the
-# resident stack (the demo's six); and K5's partial weight gradients where
-# they fit (the demo's 3,852 words).
+# 4H + 4) words (10,784 bytes at H=32; 19,232 at depth 4), none for a
+# resident stack (staged straight from device memory); and K5's partial
+# weight gradients where they fit (the demo's 3,852 words).
 @pytest.mark.parametrize("d,blocks,depth,hidden,bwd,rows,nbytes", [
-    # the demo: 6 couplings of 3,136 bytes, K4 with a landing slot each,
-    # K5 with its partial sums
-    (2, 3, 3, 16, False, 64, 6 * 3136 + 2304 + 6 * 3360),
+    # the demo: 6 couplings of 7,744 bytes, K5 with its partial sums
+    (2, 3, 3, 16, False, 64, 6 * 7744 + 2304),
     (2, 3, 3, 16, True, 64,
-     6 * 3136 + 2 * 2304 + 3072 + 1024 + 12288 + 6144 + 512 + 2 * 3360
-     + 4 * 3852),
-    # the reference default: 20 couplings of 8,000 bytes, whole in both;
-    # its 46,120 partial sums do not fit beside them
-    (2, 10, 3, 32, False, 64, 20 * 8000 + 2304 + 2 * 10784),
+     6 * 7744 + 2 * 2304 + 3072 + 1024 + 12288 + 6144 + 512 + 4 * 3852),
+    # one block of the demo's shape: 2 couplings, whole
+    (2, 1, 3, 16, False, 64, 2 * 7744 + 2304),
+    # the reference default: 20 couplings of 23,360 bytes do not fit, one
+    # does; its 46,120 partial sums do not fit beside it
+    (2, 10, 3, 32, False, 64, 23360 + 2304 + 10784),
     (2, 10, 3, 32, True, 64,
-     20 * 8000 + 2 * 2304 + 10240 + 1024 + 20480 + 10240 + 1024
-     + 2 * 10784),
-    # d=8 with [32,32,32]: 20 couplings of 13,376 bytes do not fit, one
+     23360 + 2 * 2304 + 10240 + 1024 + 20480 + 10240 + 1024 + 10784),
+    # d=8 with [32,32,32]: 20 couplings of 42,048 bytes do not fit, one
     # does
-    (8, 10, 4, 32, False, 64, 13376 + 2304 + 2 * 19232),
+    (8, 10, 4, 32, False, 64, 42048 + 2304 + 19232),
     (8, 10, 4, 32, True, 64,
-     13376 + 2 * 2304 + 40960 + 1024 + 30720 + 10240 + 1024 + 2 * 19232),
+     42048 + 2 * 2304 + 40960 + 1024 + 30720 + 10240 + 1024 + 19232),
 ])
 def test_policy_plan_matches_hand_counts(planned, d, blocks, depth, hidden,
                                          bwd, rows, nbytes):
@@ -424,11 +565,10 @@ def test_policy_plan_matches_hand_counts(planned, d, blocks, depth, hidden,
 @pytest.mark.parametrize("warps", [1, 2, 4, 8])
 def test_policy_plan_rows_follow_the_warps(planned, warps):
     """A CTA is 16 rows a warp; at the demo K4's bytes are the staged stack
-    and its landing slots (fixed) and the warps' x rows (576 bytes a
-    warp)."""
+    (fixed) and the warps' x rows (576 bytes a warp)."""
     with _warps(planned, warps):
         plan = cc.mma_plan(2, 3, 3, DEMO_WIDTHS)
-    assert plan == (16 * warps, 6 * 3136 + 576 * warps + 6 * 3360)
+    assert plan == (16 * warps, 6 * 7744 + 576 * warps)
 
 
 @pytest.mark.parametrize("d,depth,hidden", [(9, 3, 16), (2, 5, 16),
@@ -439,13 +579,15 @@ def test_policy_plan_refuses_a_stack_outside_the_kernels(planned, d, depth,
         cc.mma_plan(d, 3, depth, _widths(d, depth, hidden))
 
 
-@pytest.mark.parametrize("nlayers,cap", [(32, None), (33, 32)])
+@pytest.mark.parametrize("nlayers,cap", [(30, None), (31, 30), (32, 30),
+                                         (33, 30)])
 def test_policy_backward_shared_memory_cap(planned, nlayers, cap):
     """The policy's K5 keeps every coupling's input for its CTA's 64 rows:
-    at d=8 with [32,32,32] conditioners (one coupling staged at a time,
-    99,456 bytes, and 4,096 a block) it takes at most 32 blocks. Past the
-    cap the backward's check raises; a forward alone, or a stack within
-    the cap, goes on to the device check."""
+    at d=8 with [32,32,32] conditioners (one coupling staged at a time in
+    float64, 108,896 bytes, and 4,096 a block) it takes at most 30 blocks
+    (32 while the weights were staged in bfloat16). Past the cap the
+    backward's check raises; a forward alone, or a stack within the cap,
+    goes on to the device check."""
     flow = nft.realnvp(torch.Generator().manual_seed(0), 8, (32, 32, 32),
                        nlayers=nlayers, fused=True, compute_dtype=BF,
                        device="cpu")
@@ -463,13 +605,13 @@ def test_policy_backward_shared_memory_cap(planned, nlayers, cap):
 def test_policy_forward_fits_at_any_stack(planned):
     """The policy's K4 holds the whole stack where it fits, else one
     coupling: at the kernels' bounds (d=8, [32,32,32]) and 8 warps a CTA
-    one coupling, the rows and the landing slots need 13,376 + 128 · 36 +
-    2 · 19,232 = 56,448 bytes, so no stack is refused."""
+    one coupling in float64, the rows and the landing slot need 42,048 +
+    128 · 36 + 19,232 = 65,888 bytes, so no stack is refused."""
     with _warps(planned, 8):
         need = [cc.mma_plan(d, blocks, depth, _widths(d, depth, hidden))
                 for d in (2, 5, 8) for depth in (2, 3, 4)
                 for hidden in (8, 16, 32) for blocks in (1, 3, 10, 400)]
-        assert cc.mma_plan(8, 400, 4, _widths(8, 4, 32)).bytes == 56448
+        assert cc.mma_plan(8, 400, 4, _widths(8, 4, 32)).bytes == 65888
     assert max(p.bytes for p in need) <= cc.KERNEL_MAX_SMEM
 
 
@@ -526,3 +668,107 @@ def test_emulated_policy_kernels_stand_within_the_witness_gate(
         assert cs.witness_gate(err, err_w), (name, err, err_w)
     for label, errs in controls.items():
         assert not all(cs.witness_gate(e, ew) for e, ew in errs), label
+
+
+@pytest.mark.parametrize("k16", [True, False])
+def test_emulated_dmma_gives_the_cards_bits(tmp_path, k16):
+    """tests/mma_emulation.h's dmma16816 (k16) and four dmma1684 through the
+    probe's own source (csrc/mma_probe.cu, `mma_probe_f64`, built with g++
+    as phase 60 builds it on the card) give the card's bits on every one of
+    phase 60's cases, ±0 alike."""
+    cs = _chip_smoke()
+    cases = cs.dmma_probe_cases()
+    lib = cs.build_mma_probe_emulation(tmp_path)
+    if lib is None:
+        pytest.skip("no g++ to build the host emulation")
+    got = cs.dmma_probe_emulated(lib, cs.dmma_probe_arrays(cases), k16)
+    card = _card_dmma_bits().view(np.float64)
+    assert len(got) == len(card) == len(cases) == 384
+    off = [i for i in range(len(cases)) if not cs._same_f64(got[i], card[i])]
+    assert not off, [(i, cases[i][0], float(got[i]), float(card[i]))
+                     for i in off[:5]]
+
+
+def test_measured_dmma_model_is_the_one_that_fits_the_cards_bits():
+    """Of phase 60's models of the float64 sum, exactly one gives the
+    card's bits on every case (`fit_dmma_models`): a chain of fused
+    multiply-adds from c, k in order, rounded to nearest; every case
+    within 53 bits is the exact sum, and the sum rounded once (the 16
+    products and c at a time) misses cases past 53 bits."""
+    cs = _chip_smoke()
+    cases = cs.dmma_probe_cases()
+    card = _card_dmma_bits().view(np.float64)
+    fits, closest = cs.fit_dmma_models(cases, card)
+    assert fits == [CARD_DMMA_MODEL] and closest is None
+    fams = cs.dmma_by_family(cases, card)
+    assert sum(f["within_53_not_exact"] for f in fams.values()) == 0
+    assert fams["within 53"]["exact"] == fams["within 53"]["cases"]
+    once = dict(CARD_DMMA_MODEL, group=16)
+    assert sum(not cs._same_f64(cs.dmma_sum(a, b, c, once), v)
+               for (_, a, b, c), v in zip(cases, card)) > 10
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", ["demo", "h32", "d8"])
+def test_emulated_other_design_gives_the_same_bits(emu, emu_other, shape,
+                                                   inverse):
+    """The widening by integer bit operations (OTHER_DESIGN) gives cvt's
+    bits in y, ld, gx and every weight gradient: both widenings are
+    exact."""
+    stack = _stack(shape)
+    x, gy, gld = _inputs(SHAPES[shape][0], 40)
+    want = _run(emu, stack, x, gy, gld, inverse, 2)
+    with _warps(emu_other, 2):
+        got = _entries(emu_other, stack, x, gy, gld, inverse, 2, True)
+    for a, b in zip(got[:3] + tuple(got[3]), want[:3] + tuple(want[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_emulated_policy_h32_rows_keep_their_bits(emu, inverse):
+    """At H = 32 (two k16 chunks a layer), a row's y, ld and gx at 1, 2, 4
+    and 8 warps a CTA are the bits of 4 warps, and two runs agree in every
+    output, the weight gradients too."""
+    stack = _stack("h32")
+    x, gy, gld = _inputs(2, 150)
+    want = _run(emu, stack, x, gy, gld, inverse)
+    again = _run(emu, stack, x, gy, gld, inverse)
+    for a, b in zip(want[:3] + tuple(want[3]), again[:3] + tuple(again[3])):
+        assert torch.equal(a, b)
+    for warps in (1, 2, 8):
+        got = _run(emu, stack, x, gy, gld, inverse, warps)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b), warps
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_emulated_policy_one_slot_h32_gives_the_resident_bits(planned,
+                                                              inverse):
+    """At H = 32 under a smaller shared-memory cap (K5 under 100,000 bytes,
+    K4 under 60,000) the stack is staged a coupling at a time, and K5's
+    partial sums go to device memory: every output keeps its bits, and at
+    one warp a CTA (K5's CTAs walking several tiles) y, ld and gx keep
+    theirs."""
+    emu = planned
+    stack = _stack("h32")
+    widths = stack[3][0]
+    x, gy, gld = _inputs(2, 100)
+    want = _run(emu, stack, x, gy, gld, inverse)
+    whole = (cc.mma_plan(2, 2, 3, list(widths), True).bytes,
+             cc.mma_plan(2, 2, 3, list(widths)).bytes)
+    try:
+        emu.emu_set_cap(100000)
+        one = cc.mma_plan(2, 2, 3, list(widths), True).bytes
+        got = _run(emu, stack, x, gy, gld, inverse)
+        walked = _run(emu, stack, x, gy, gld, inverse, 1)
+        emu.emu_set_cap(60000)
+        one_k4 = cc.mma_plan(2, 2, 3, list(widths)).bytes
+        y, ld = _run(emu, stack, x, gy, gld, inverse, k5=False)
+    finally:
+        emu.emu_set_cap(227 * 1024)
+    assert one < 100000 < whole[0] and one_k4 < 60000 < whole[1]
+    for a, b in zip(got[:3] + tuple(got[3]), want[:3] + tuple(want[3])):
+        assert torch.equal(a, b)
+    for a, b in zip(walked[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(y, want[0]) and torch.equal(ld, want[1])

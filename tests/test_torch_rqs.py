@@ -557,6 +557,11 @@ def test_launch_bwd_refuses_a_row_past_the_cap_before_launching(monkeypatch):
      "9MmaLayout", "coupling_fwd_mma<f32_cbf16, inv, H=16>"),
     ("_ZN12_GLOBAL__N_116coupling_bwd_mmaILb0ELi32EEEvPKfS3_S3_PfS4_ll5Stack"
      "9MmaLayout", "coupling_bwd_mma<f32_cbf16, fwd, H=32>"),
+    # ... and their float64 redesign's names
+    ("_ZN12_GLOBAL__N_117coupling_fwd_dmmaILb1ELi16EEEvPKfPfS3_l5Stack"
+     "9MmaLayout", "coupling_fwd_dmma<f32_cbf16, inv, H=16>"),
+    ("_ZN12_GLOBAL__N_117coupling_bwd_dmmaILb0ELi32EEEvPKfS3_S3_PfS4_ll5Stack"
+     "9MmaLayout", "coupling_bwd_dmma<f32_cbf16, fwd, H=32>"),
     ("_ZN12_GLOBAL__N_118coupling_fwd_lanesIdLb0ELi16ENS_5ExactIdEEEEvPKNT2_"
      "1SE", "coupling_fwd_lanes<f64, fwd, H=16>"),
     ("_ZN12_GLOBAL__N_119coupling_bwd_reduceIf13__nv_bfloat16EEvPKT_ilNS_"
@@ -666,3 +671,27 @@ def test_chip_smoke_counts_the_policy_kernels_hmma():
     assert cs.hmma_counts(sass) == {
         "coupling_fwd_mma<f32_cbf16, inv, H=16>": 2,
         "coupling_bwd_mma<f32_cbf16, fwd, H=32>": 0}
+
+
+def test_chip_smoke_counts_the_policy_kernels_dmma():
+    """Phase 2's evidence that the redesigned policy kernels take their
+    exact sums on the float64 tensor cores: the DMMA instructions (both
+    shapes, predicated ones too) and, apart, the HMMA ones of each of the
+    renamed kernels."""
+    cs = _chip_smoke()
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_117coupling_fwd_dmmaILb1ELi16EEEvPKfPfS3_l5Stack9MmaLayout
+        /*0000*/                   DMMA.16x8x4 R8, R4, R16, RZ ;
+        /*0010*/              @!P0 DMMA.16x8x16 R8, R4, R18, R8 ;
+        /*0020*/                   EXIT ;                          /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_117coupling_bwd_dmmaILb0ELi32EEEvPKfS3_S3_PfS4_ll5Stack9MmaLayout
+        /*0000*/                   DMMA.16x8x16 R8, R4, R18, R8 ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R16, RZ ;
+        /*0020*/                   DFMA R2, R2, R0, R1 ;           /* 0x0 */
+"""
+    assert cs.hmma_counts(sass, "DMMA") == {
+        "coupling_fwd_dmma<f32_cbf16, inv, H=16>": 2,
+        "coupling_bwd_dmma<f32_cbf16, fwd, H=32>": 1}
+    assert cs.hmma_counts(sass) == {
+        "coupling_fwd_dmma<f32_cbf16, inv, H=16>": 0,
+        "coupling_bwd_dmma<f32_cbf16, fwd, H=32>": 1}
