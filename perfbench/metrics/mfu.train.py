@@ -1,0 +1,11 @@
+"""The training step's share of the card's float32 peak: the
+conditioners' matmul FLOPs a step (`work.train_flops`) times the steps in
+the traced window, over the window, over 67 TFLOP/s."""
+
+
+def read(ctx):
+    cell, tr = ctx.cell, ctx.trace
+    if cell.traffic["kind"] != "train_elbo" or not tr.units:
+        return None
+    flops = ctx.work.train_flops(cell.config, cell.traffic["batch"])
+    return 100.0 * flops * tr.units / tr.window_s / ctx.peaks.F32_PER_S
